@@ -1,26 +1,30 @@
 """Nested-dissection multifrontal LU (counterpart of
-``goma_tpu/solvers/ndlu.py``), the lagged, selectively inverted
-preconditioner of the main path.
+``goma_tpu/solvers/ndlu.py``): the lagged, selectively inverted
+preconditioner of the GMRES path and the exact direct solver of the
+``tpu_direct`` path.
 
 - **Host symbolic phase** (once per sparsity pattern, a verbatim copy of
   goma_tpu's): recursive graph bisection builds a nested-dissection
   separator tree; each tree node owns its separator dofs, and its *front*
   is [own | boundary]. Levels are processed deepest-first.
-- **Device numeric phase** (``invert=True`` only in this slice): per level,
-  a compact scatter-set builds the fronts from the CSR values, one-hot
-  matmuls extend-add the children's Schur complements, the hand-written
-  front-LU kernel factors the fully-summed blocks (``solvers/batched_lu``),
-  triangular solves against the identity invert L and U once, and batched
-  matmuls form the Schur update. Every apply is then batched matvecs.
+- **Device numeric phase**: per level, a compact scatter-set builds the
+  fronts from the CSR values, one-hot matmuls extend-add the children's
+  Schur complements, the hand-written front-LU kernel factors the
+  fully-summed blocks (``solvers/batched_lu``), and batched products form
+  the Schur update.
+  - ``invert=True``: triangular solves against the identity invert L and U
+    once, so every apply is batched matvecs (a Krylov wrapper absorbs the
+    inverse-apply rounding).
+  - ``invert=False``: the packed LU is kept, and every apply is an exact
+    substitution through the hand-written kernel ``solvers/batched_trsv``;
+    ``solve_refined`` adds iterative refinement against the fresh operator.
 
 Static pivoting (SuperLU_DIST GESP-style): no pivoting across the
-own/boundary split; tiny pivots are boosted to tau*max|diag|. The Krylov
-wrapper absorbs the boost and the inverse-apply rounding.
+own/boundary split; tiny pivots are boosted to tau*max|diag|.
 
-Not in this slice (raise ``NotImplementedError``): ``invert=False`` (exact
-substitution, the ``tpu_direct`` rung with its ``batched_trsv`` kernel),
-the blocked and pivoted library LU branches (fronts with s == 1 or
-s > 1000), and ``solve_refined``. The main deck never reaches them.
+Not in this slice (raise ``NotImplementedError``): the blocked and pivoted
+library LU branches (fronts with s == 1 or s > 1000). The decks of the
+port never reach them.
 """
 
 from __future__ import annotations
@@ -420,9 +424,11 @@ def _scatter_plan(idx: np.ndarray, n: int):
 
 
 class NDLU:
-    """Device multifrontal LU for a fixed :class:`CSRPattern`, selectively
-    inverted (``invert=True``): ``factor(vals)`` -> per-level factors,
-    ``solve(facs, b)`` applies the inverse through the tree.
+    """Device multifrontal LU for a fixed :class:`CSRPattern`:
+    ``factor(vals)`` -> per-level factors, ``solve(facs, b)`` applies the
+    inverse through the tree (batched matvecs against explicit inverses
+    with ``invert=True``, kernel substitution with ``invert=False``),
+    ``solve_refined`` wraps ``solve`` in iterative refinement.
 
     ``front_lu``: "auto" factors every level's
     fronts with ``solvers.batched_lu`` — the CUDA kernel for a CUDA tensor,
@@ -438,14 +444,15 @@ class NDLU:
                  defer_dofs: np.ndarray | None = None,
                  front_lu: str = "auto", invert: bool = False,
                  clusters: np.ndarray | None = None, device=None):
-        if not invert:
-            raise NotImplementedError(
-                f"NDLU(invert=False) (exact substitution, tpu_direct): {_LATER}")
         if front_lu != "auto":
             raise NotImplementedError(f"NDLU(front_lu={front_lu!r}): {_LATER}")
         self.pattern = pattern
         self.dtype = dtype
         self.pivot_tol = pivot_tol
+        self.invert = invert
+        #: ``solve`` calls so far (each runs the substitution kernel twice
+        #: per level when ``invert=False``)
+        self.n_solve = 0
         self.device = config.resolve_device(device)
         self.levels = build_nd_tree(pattern, leaf_max=leaf_max,
                                     defer_dofs=defer_dofs,
@@ -506,8 +513,9 @@ class NDLU:
         return F
 
     def factor(self, vals):
-        """Per-level factors (fwd = L^-1, bwd = U^-1, X = A21 U^-1,
-        Y = L^-1 A12) of the equilibrated CSR values ``vals``."""
+        """Per-level factors (fwd, bwd, X, Y) of the equilibrated CSR values
+        ``vals``: fwd = L^-1, bwd = U^-1 with ``invert=True``, both the
+        packed LU with ``invert=False``; X = A21 U^-1, Y = L^-1 A12."""
         facs = []
         S_prev = None
         for li in range(len(self.levels)):
@@ -528,15 +536,25 @@ class NDLU:
                 f"NDLU level with s={s} outside the front kernel's gate "
                 f"1 < s <= 1000 (goma_tpu's library LU branch): {_LATER}")
         lu = batched_lu(F[:, :s, :s].contiguous(), pivot_tol=self.pivot_tol)
-        # invert ONCE so every later apply is a batched matvec
-        eye = torch.eye(s, dtype=self.dtype,
-                        device=self.device).expand(lev.nn, s, s)
-        fwd = torch.linalg.solve_triangular(lu, eye, upper=False,
-                                            unitriangular=True)
-        bwd = torch.linalg.solve_triangular(lu, eye, upper=True)
+        if self.invert:
+            # invert ONCE so every later apply is a batched matvec
+            eye = torch.eye(s, dtype=self.dtype,
+                            device=self.device).expand(lev.nn, s, s)
+            fwd = torch.linalg.solve_triangular(lu, eye, upper=False,
+                                                unitriangular=True)
+            bwd = torch.linalg.solve_triangular(lu, eye, upper=True)
+        else:
+            fwd = bwd = lu  # substitution path (exact triangular solves)
         if lev.bmax:
-            Y = fwd @ F[:, :s, s:]   # L^-1 A12
-            X = F[:, s:, :s] @ bwd   # A21 U^-1
+            if self.invert:
+                Y = fwd @ F[:, :s, s:]   # L^-1 A12
+                X = F[:, s:, :s] @ bwd   # A21 U^-1
+            else:
+                Y = torch.linalg.solve_triangular(lu, F[:, :s, s:],
+                                                  upper=False,
+                                                  unitriangular=True)
+                X = torch.linalg.solve_triangular(lu, F[:, s:, :s],
+                                                  upper=True, left=False)
             S = F[:, s:, s:] - X @ Y
         else:
             X = Y = None
@@ -544,15 +562,27 @@ class NDLU:
                             device=self.device)
         return (fwd, bwd, X, Y), S
 
-    def solve(self, facs, b):
+    def solve(self, facs, b, trace: list | None = None):
         """x = A^-1 b through the tree: a forward sweep (deepest level
-        first) and a backward sweep, batched matvecs against the inverses.
-        Returns x at the factor dtype."""
+        first) and a backward sweep, batched matvecs against the inverses
+        (``invert=True``) or kernel substitutions against the packed LUs
+        (``invert=False``). Returns x at the factor dtype. ``trace``: a
+        list that receives (lu, rhs, lower) of every substitution, in
+        order."""
+        from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+
+        self.n_solve += 1
         n = self.n
         w = torch.zeros(n + 2, dtype=self.dtype, device=self.device)
         w[:n] = b.to(self.dtype)
         for lev, tb, (fwd, bwd, X, Y) in zip(self.levels, self.tabs, facs):
-            y = torch.bmm(fwd, w[tb["own_w"]].unsqueeze(2)).squeeze(2)
+            bs = w[tb["own_w"]]
+            if self.invert:
+                y = torch.bmm(fwd, bs.unsqueeze(2)).squeeze(2)
+            else:
+                if trace is not None:
+                    trace.append((fwd, bs, True))
+                y = batched_trsv(fwd, bs, lower=True)
             w[tb["own_dofs"]] = y.reshape(-1)[tb["own_sel"]]
             if lev.bmax:
                 c = torch.bmm(X, y.unsqueeze(2)).reshape(-1)
@@ -563,6 +593,61 @@ class NDLU:
             y = w[tb["own_w"]]
             if lev.bmax:
                 y = y - torch.bmm(Y, w[tb["bnd_w"]].unsqueeze(2)).squeeze(2)
-            x = torch.bmm(bwd, y.unsqueeze(2)).squeeze(2)
+            if self.invert:
+                x = torch.bmm(bwd, y.unsqueeze(2)).squeeze(2)
+            else:
+                if trace is not None:
+                    trace.append((bwd, y, False))
+                x = batched_trsv(bwd, y, lower=False)
             w[tb["own_dofs"]] = x.reshape(-1)[tb["own_sel"]]
         return w[:n]
+
+    def solve_refined(self, facs, b, matvec, refine: int = 2,
+                      rel_tol: float = 0.0, max_refine: int = 8,
+                      return_rel: bool = False, sweep=None):
+        """x = A^-1 b with iterative-refinement sweeps; ``matvec`` applies
+        the SAME (equilibrated) operator the factorization saw, at its
+        native (possibly higher) precision.
+
+        ``refine`` fixed sweeps are always taken; if ``rel_tol > 0``,
+        refinement continues (up to ``max_refine`` in all) until
+        ||b - A x|| <= rel_tol * ||b||, and stops early when a sweep fails
+        to cut the residual below 0.9x the last one (a lagged factor
+        against a fresh operator stalls there; the caller decides whether
+        to refactor).
+
+        ``return_rel``: also return the measured ||b - A x|| / ||b|| of the
+        RETURNED iterate, or None when the loop exited without measuring
+        it (the caller recomputes it if needed).
+
+        ``sweep``: optional step ``(facs, b, x) -> (x_new, rn)`` computing
+        ``r = b - A x; rn = ||r||; x_new = x + solve(facs, r)``; the math is
+        that of the path through ``matvec``."""
+        x = self.solve(facs, b).to(b.dtype)
+        bnorm = None
+        prev_rn = None
+        rel = None
+        for it in range(max_refine):
+            if sweep is not None:
+                x_new, rn_d = sweep(facs, b, x)
+            else:
+                r = b - matvec(x)
+                rn_d = None
+            if it >= refine:
+                if rel_tol <= 0.0:
+                    break
+                if bnorm is None:
+                    bnorm = float(torch.linalg.norm(b))
+                if rn_d is None:
+                    rn_d = torch.linalg.norm(r)
+                rn = float(rn_d)
+                rel = rn / (bnorm + 1e-300)  # residual of the CURRENT x
+                if not np.isfinite(rn) or rn <= rel_tol * (bnorm + 1e-300):
+                    break
+                if prev_rn is not None and rn >= 0.9 * prev_rn:
+                    break  # refinement stalled or diverging
+                prev_rn = rn
+            x = (x_new if sweep is not None
+                 else x + self.solve(facs, r).to(b.dtype))
+            rel = None  # x moved past the last measurement
+        return (x, rel) if return_rel else x

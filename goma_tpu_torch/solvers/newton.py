@@ -1,16 +1,22 @@
 """Damped full-Newton nonlinear solver (counterpart of
-``goma_tpu/solvers/newton.py``), cut to the main path: the vals-free fast
-prep, restarted GMRES with host restarts, and a lagged, selectively
-inverted NDLU preconditioner.
+``goma_tpu/solvers/newton.py``), cut to two linear-solver paths.
 
-Per iteration: assemble R, element Jacobians and element row sums
-(``Problem._assemble_fast``), take the row-sum-scaled norms, test
-convergence, solve the symmetrically equilibrated system (DAD) z = D R with
-GMRES (operator: the element matvec; preconditioner: NDLU of the
-equilibrated CSR values, built only when a (re)factor needs them), and
-update x <- x - lambda D z. Eisenstat-Walker forcing sets each linear
-tolerance; ``prep32_tol`` runs the far-from-solution preps entirely at the
-Jacobian dtype.
+``linear_solver="gmres"`` (with ``precond="ndlu"``): per iteration, assemble
+R, element Jacobians and element row sums (``Problem._assemble_fast``), take
+the row-sum-scaled norms, test convergence, solve the symmetrically
+equilibrated system (DAD) z = D R with GMRES (operator: the element matvec;
+preconditioner: a lagged, selectively inverted NDLU of the equilibrated CSR
+values, built only when a (re)factor needs them), and update
+x <- x - lambda D z. Eisenstat-Walker forcing sets each linear tolerance;
+``prep32_tol`` runs the far-from-solution preps entirely at the Jacobian
+dtype.
+
+``linear_solver="tpu_direct"``: per iteration, assemble R and the CSR
+values (``Problem._assemble_with_elem``), equilibrate them with the ELL row
+sums, and solve (DAD) z = D R with a lagged NDLU(invert=False): exact
+substitution through the ``batched_trsv`` kernel plus iterative refinement
+against the fresh operator, refactoring once when the lagged factor misses
+the residual guard.
 
 goma_tpu routes this configuration to ``_solve_pipelined``, which hides
 remote-TPU round trips and yields the same norm sequence; the port runs
@@ -25,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from goma_tpu_torch.fem.sparsity import EllOperator, row_sums_ell
 from goma_tpu_torch.solvers.linear import LinearResult, gmres
 
 _LATER = "later slice of the port, see ROADMAP"
@@ -34,8 +41,8 @@ _LATER = "later slice of the port, see ROADMAP"
 class NewtonOptions:
     """goma_tpu's options, every field and default kept so decks carry
     over. Values outside the ported slice raise at construction (see
-    :func:`check_slice`); the fields that only steer unported paths
-    (tpu_direct, the other preconditioners) are accepted and unused."""
+    :func:`check_slice`); the fields that only steer unported paths (the
+    other preconditioners and Krylov methods) are accepted and unused."""
 
     max_iter: int = 15
     # convergence on the row-scaled residual, like the reference's Epsilon[0]
@@ -52,7 +59,7 @@ class NewtonOptions:
     custom_tol2: float = -1.0
     custom_tol3: float = -1.0
     row_scaling: bool = True
-    linear_solver: str = "gmres"  # gmres (bicgstab | direct | tpu_direct: later)
+    linear_solver: str = "gmres"  # gmres | tpu_direct (bicgstab | direct: later)
     ndlu_leaf_max: int = 96
     ndlu_refine: int = 1
     # atomic mesh-node clustering of the ND bisection: every saddle
@@ -61,7 +68,9 @@ class NewtonOptions:
     ndlu_dtype: str = "float32"  # factorization precision
     ndlu_lag: bool = True
     ndlu_max_refine: int = 8
-    precond: str = "auto"  # ndlu (auto | block_jacobi | ...: later)
+    # gmres needs "ndlu" (auto | block_jacobi | ...: later); tpu_direct
+    # reads no preconditioner and accepts any value
+    precond: str = "auto"
     fieldsplit_mu: float | None = None
     fieldsplit_rho: float | None = None
     fieldsplit_sweeps: int = 2
@@ -101,18 +110,18 @@ class NewtonOptions:
 
 def check_slice(opts: NewtonOptions) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    if opts.precond != "ndlu":
-        raise NotImplementedError(f"precond={opts.precond!r}: {_LATER}")
-    if opts.linear_solver != "gmres":
+    if opts.linear_solver not in ("gmres", "tpu_direct"):
         raise NotImplementedError(
             f"linear_solver={opts.linear_solver!r}: {_LATER}")
+    if opts.linear_solver == "gmres" and opts.precond != "ndlu":
+        raise NotImplementedError(f"precond={opts.precond!r}: {_LATER}")
     if opts.recycle_k > 0:
         raise NotImplementedError(f"recycle_k > 0 (GCRO-DR): {_LATER}")
     if opts.precond_dtype != "f32":
         raise NotImplementedError(
             f"precond_dtype={opts.precond_dtype!r}: {_LATER}")
     if not opts.row_scaling:
-        raise NotImplementedError(f"row_scaling=False (assembled-vals prep): {_LATER}")
+        raise NotImplementedError(f"row_scaling=False (unscaled prep): {_LATER}")
 
 
 @dataclass
@@ -146,17 +155,27 @@ class NewtonSolver:
         from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
         from goma_tpu_torch.solvers.twolevel import _saddle_mask
 
-        # near-exact preconditioner: the multifrontal LU, selectively
-        # inverted (applies are batched matvecs; GMRES wraps the apply)
-        self.precond = NDLU(problem.pattern,
-                            leaf_max=self.opts.ndlu_leaf_max,
-                            dtype=_DTYPES[self.opts.ndlu_dtype],
-                            defer_dofs=_saddle_mask(problem),
-                            invert=True,
-                            clusters=node_clusters(problem)
-                            if self.opts.ndlu_cluster else None,
-                            device=self.device)
+        self._direct = self.opts.linear_solver == "tpu_direct"
         pat = problem.pattern
+        if self._direct:
+            # tpu_direct reads no preconditioner, so none is built (goma_tpu
+            # builds the TwoLevel or BlockJacobi that precond="auto" names
+            # and never applies it). The refinement operator is the CSR (ELL)
+            # matvec of the assembled values, and the multifrontal LU is
+            # built lazily from the first iteration's values (_linsolve_direct)
+            self.precond = None
+            self._ell = EllOperator(pat, device=self.device)
+        else:
+            # near-exact preconditioner: the multifrontal LU, selectively
+            # inverted (applies are batched matvecs; GMRES wraps the apply)
+            self.precond = NDLU(pat,
+                                leaf_max=self.opts.ndlu_leaf_max,
+                                dtype=_DTYPES[self.opts.ndlu_dtype],
+                                defer_dofs=_saddle_mask(problem),
+                                invert=True,
+                                clusters=node_clusters(problem)
+                                if self.opts.ndlu_cluster else None,
+                                device=self.device)
         self._rows = torch.as_tensor(pat.rows.astype(np.int64), device=self.device)
         self._cols = torch.as_tensor(pat.indices.astype(np.int64), device=self.device)
         self._n = problem.dofmap.n_dof
@@ -168,11 +187,20 @@ class NewtonSolver:
         #: fresh preconditioner factorizations so far (each one runs the
         #: front-LU kernel once per ND level)
         self.n_factor = 0
+        self._ndlu = None  # lazy tpu_direct multifrontal LU
+        self._ndlu_fac = None  # lagged tpu_direct factors (opts.ndlu_lag)
+        #: fresh tpu_direct factorizations so far
+        self._ndlu_nfactor = 0
+        #: per tpu_direct solve: (refinement sweeps, i.e. residual
+        #: evaluations each with a substitution, the relative residual of
+        #: the step, whether its factor was fresh)
+        self.direct_log = []
 
     def reset_lagged(self):
-        """Drop the lagged preconditioner factor."""
+        """Drop the lagged factors (preconditioner and tpu_direct NDLU)."""
         self._fac_cache = None
         self._fac_base_its = None
+        self._ndlu_fac = None
 
     # ------------------------------------------------------------ prep
     @staticmethod
@@ -202,12 +230,24 @@ class NewtonSolver:
         norms, scale = self._norms(R, rs)
         return R, norms, scale, aux
 
+    def _prepare_direct(self, x, params):
+        """Assembled-vals prep of the direct path: (R, vals, norms, scale)
+        with the CSR values at the Jacobian dtype, row sums from the ELL
+        gather, and the values symmetrically equilibrated."""
+        R, vals, _ = self.problem._assemble_with_elem(x, params)
+        rs = row_sums_ell(vals, self._ell.tables["pos"])
+        norms, scale = self._norms(R, rs)
+        return R, self._equilibrate(vals, scale), norms, scale
+
+    def _equilibrate(self, vals, scale):
+        """(DAD) values: vals[ij] * scale[i] * scale[j] at the vals dtype."""
+        return vals * (scale[self._rows] * scale[self._cols]).to(vals.dtype)
+
     def _scaled_vals(self, x, params, scale):
         """Global CSR values, symmetrically equilibrated with the fast-prep
         scale — built only when the preconditioner (re)factors."""
         _, vals, _ = self.problem._assemble_with_elem(x, params)
-        d = (scale[self._rows] * scale[self._cols]).to(vals.dtype)
-        return vals * d
+        return self._equilibrate(vals, scale)
 
     # ------------------------------------------------------------ linear
     def _factor_num(self, vals):
@@ -289,6 +329,79 @@ class NewtonSolver:
         return LinearResult(x=scale * z, iters=it, resnorm=rn,
                             converged=rn <= target)
 
+    def _direct_ndlu(self, vals):
+        """The tpu_direct multifrontal LU, built on first use from the first
+        iteration's equilibrated values: value-based saddle detection puts
+        the zero-diagonal rows last in every front."""
+        from goma_tpu_torch.solvers.ndlu import (NDLU, node_clusters,
+                                                 zero_diag_defer_mask)
+
+        if self._ndlu is None:
+            opts = self.opts
+            self._ndlu = NDLU(
+                self.problem.pattern, leaf_max=opts.ndlu_leaf_max,
+                dtype=_DTYPES[opts.ndlu_dtype],
+                defer_dofs=zero_diag_defer_mask(self.problem.pattern,
+                                                vals.cpu().numpy()),
+                clusters=node_clusters(self.problem)
+                if opts.ndlu_cluster else None,
+                device=self.device)
+        return self._ndlu
+
+    def _linsolve_direct(self, R, vals, scale):
+        """The tpu_direct step: dx = D z with (DAD) z = D R solved by the
+        lagged NDLU(invert=False) plus iterative refinement against the
+        fresh operator, one refactor when a lagged factor misses the guard.
+        Returns dx, or None when even a fresh factor leaves a relative
+        residual above the guard (the Newton loop then stops unconverged)."""
+        opts = self.opts
+        nd = self._direct_ndlu(vals)
+        bD = scale * R
+        rel_tol = max(1e-5, opts.linear_tol)
+        ell = self._ell
+        n_sweeps = [0]
+
+        def sweep(facs, b, x):
+            n_sweeps[0] += 1
+            r = b - ell.matvec(vals, x)
+            return x + nd.solve(facs, r).to(b.dtype), torch.linalg.norm(r)
+
+        def _try(fac):
+            # refine to 0.5x the guard: where a fixed count lands varies
+            # with rounding; solve_refined hands back the residual it
+            # measured for the returned iterate when it has one
+            n_sweeps[0] = 0
+            z, rel = nd.solve_refined(fac, bD, None, refine=opts.ndlu_refine,
+                                      rel_tol=0.5 * rel_tol,
+                                      max_refine=opts.ndlu_max_refine,
+                                      return_rel=True, sweep=sweep)
+            if rel is None:
+                rel = float(torch.linalg.norm(bD - ell.matvec(vals, z))
+                            / (torch.linalg.norm(bD) + 1e-300))
+            return z, rel, n_sweeps[0]
+
+        fresh = not (opts.ndlu_lag and self._ndlu_fac is not None)
+        if fresh:
+            self._ndlu_nfactor += 1
+        fac = nd.factor(vals) if fresh else self._ndlu_fac
+        z, rel, sweeps = _try(fac)
+        if (not np.isfinite(rel) or rel > rel_tol) and not fresh:
+            # a stale factor cannot carry refinement to tolerance on this
+            # Jacobian: refactor and retry once
+            fac = nd.factor(vals)
+            fresh = True
+            self._ndlu_nfactor += 1
+            z, rel, sweeps = _try(fac)
+        if opts.ndlu_lag:
+            self._ndlu_fac = fac
+        self.direct_log.append((sweeps, rel, fresh))
+        # singular/rank-deficient guard: the refined solve must leave a
+        # small relative residual (the float32-factor refinement floor, or
+        # the configured linear_tol when that is looser)
+        if not np.isfinite(rel) or rel > rel_tol:
+            return None
+        return (scale * z).to(R.dtype)
+
     def _select_damp(self, norm_inf: float) -> float:
         """Per-iteration relaxation factor: the reference's damp_factor1-3
         ladder keyed on ||R||_inf (src/mm_sol_nonlinear.c:1998-2040)."""
@@ -337,7 +450,8 @@ class NewtonSolver:
     def solve(self, x0, params) -> NewtonResult:
         """Newton from ``x0`` (array or tensor) with ``params`` from
         ``problem.base_params()``. ``assembly_time`` covers the preps and
-        their norm reads; ``solve_time`` the linear solves and updates."""
+        their norm reads; ``solve_time`` the linear solves (factorizations
+        included) and updates."""
         opts = self.opts
         prob = self.problem
         x = torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0) else x0,
@@ -347,13 +461,17 @@ class NewtonSolver:
         t_asm = t_slv = 0.0
         it = 0
         prev_l2 = None
-        prep32 = opts.prep32_tol > 0 and self._jdt != prob.dtype
+        direct = self._direct
+        prep32 = (not direct and opts.prep32_tol > 0
+                  and self._jdt != prob.dtype)
         boundary = max(opts.prep32_tol, 2.0 * opts.tol_residual)
         for it in range(opts.max_iter):
             self._cur_x = x
             self._cur_params = params
             t0 = time.perf_counter()
-            if prep32:
+            if direct:
+                R, vals, norms, scale = self._prepare_direct(x, params)
+            elif prep32:
                 R, norms, scale, aux = self._prepare_fast32(x, params)
             else:
                 R, norms, scale, aux = self._prepare_fast(x, params)
@@ -372,9 +490,18 @@ class NewtonSolver:
             eta = self._eta(l2, prev_l2)
             prev_l2 = l2
             t0 = time.perf_counter()
-            lr = self._linsolve_gmres(R, scale, aux, tol=eta)
-            dx = lr.x
-            lin_iters.append(lr.iters)
+            if direct:
+                dx = self._linsolve_direct(R, vals, scale)
+                if dx is None:
+                    # the refined solve missed its residual guard: stop
+                    # unconverged (direct-path semantics)
+                    t_slv += time.perf_counter() - t0
+                    break
+                lin_iters.append(1)
+            else:
+                lr = self._linsolve_gmres(R, scale, aux, tol=eta)
+                dx = lr.x
+                lin_iters.append(lr.iters)
             x = x - self._select_damp(li) * dx.to(x.dtype)
             if opts.tol_update > 0 or opts.full_history:
                 # kept on the device; read once after the loop unless the
@@ -384,7 +511,10 @@ class NewtonSolver:
             if opts.tol_update > 0 and float(upd_norms[-1]) < opts.tol_update:
                 # correction-norm convergence (reference Epsilon[2] path)
                 t0 = time.perf_counter()
-                R, norms, scale, aux = self._prepare_fast(x, params)
+                if direct:
+                    norms = self._prepare_direct(x, params)[2]
+                else:
+                    norms = self._prepare_fast(x, params)[1]
                 res_norms.append(tuple(norms.tolist()))
                 t_asm += time.perf_counter() - t0
                 converged = True

@@ -50,6 +50,19 @@ def cavity(pkg, n, Re=100.0, finalize=True):
     return prob
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_nd_bisection():
+    """goma_tpu's nested-dissection bisection runs through the port's native
+    build of the same ``meshprep.cpp`` while a module's tests run, so both
+    packages cut the same tree. goma_tpu's own loader writes its library in
+    place, and a parallel worker can load it half-written and fall back to
+    a BFS bisection (another tree); the port's build is atomic. Test modules
+    that build a goma_tpu ND tree import this fixture."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jndlu, "_bisect", tndlu._bisect)
+        yield
+
+
 @pytest.fixture(scope="module")
 def pair():
     return cavity(JAX_PKG, 8), cavity(TORCH_PKG, 8)
@@ -135,7 +148,7 @@ def test_port_imports_and_builds_without_jax():
 
 @pytest.mark.parametrize("kw", [
     {"precond": "auto"}, {"precond": "twolevel"},
-    {"precond": "ndlu", "linear_solver": "tpu_direct"},
+    {"precond": "ndlu", "linear_solver": "direct"},
     {"precond": "ndlu", "linear_solver": "bicgstab"},
     {"precond": "ndlu", "recycle_k": 4},
     {"precond": "ndlu", "precond_dtype": "bf16"},

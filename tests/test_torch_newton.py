@@ -25,6 +25,7 @@ from goma_tpu.solvers import NewtonOptions as JOptions
 from goma_tpu.solvers import NewtonSolver as JSolver
 from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, cavity
+from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
 
 GMRES_NDLU = dict(precond="ndlu", linear_solver="gmres", max_iter=20,
                   linear_tol=1e-4, gmres_restart=60, linear_maxiter=240)
