@@ -5,9 +5,11 @@ default (the JAX package's x64 test setup). Lower-precision pieces are
 explicit per-object dtypes (``Problem.jacobian_dtype``, the NDLU factor
 dtype), never a global switch.
 
-Devices are never chosen silently: every object that owns device tensors
-takes a ``device`` argument and :func:`resolve_device` turns it into a
-``torch.device``. ``None`` means the CPU; a CUDA device must be asked for.
+Every object that owns device tensors takes a ``device`` argument and
+:func:`resolve_device` turns it into a ``torch.device``. ``None`` means the
+card (``cuda``): the port runs there unless the caller asks for the CPU
+with ``device="cpu"``, as the CPU tests do. There is no fallback: without
+CUDA, ``None`` and ``"cuda"`` raise.
 """
 
 from __future__ import annotations
@@ -30,9 +32,9 @@ def fp_dtype() -> torch.dtype:
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` -> CPU; otherwise the device asked for. Asking for CUDA on a
-    machine without it raises instead of falling back."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    """``None`` -> ``cuda``; otherwise the device asked for. CUDA on a
+    machine without it raises instead of falling back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {dev} requested but CUDA is not available")
     return dev

@@ -1,21 +1,30 @@
 """Global residual + Jacobian assembly (counterpart of
-``goma_tpu/fem/assembly.py``), cut to the slice the lid-driven cavity runs.
+``goma_tpu/fem/assembly.py``), cut to the slices the lid-driven cavity and
+the buoyant-convection deck run.
 
-The slice assembles blocks that the fused Navier-Stokes kernel recognizes
-(``fem/fastns.py``): per-element residuals and hand-derived Jacobians,
-combined into global arrays by GATHERS through precomputed
-transpose-gather maps — ``tg`` for dof-indexed vectors (R, row sums, the
-element matvec) and ``nnztg`` for CSR values. A gather + sum is
-deterministic on the GPU; a scatter-add would need atomics, whose
-summation order changes from run to run.
+Two element paths, chosen per block at ``finalize``:
+
+- the Navier-Stokes Q2/Q1 Galerkin block that ``fem/fastns.py`` recognizes
+  runs its fused kernel: per-element residuals and hand-derived Jacobians;
+- every other block runs the generic path: the equations' integrands
+  (``Equation.residual``) on the quadrature-point fields of
+  ``fem/fields.py``, the element Jacobian by forward-mode AD,
+  ``torch.func.vmap(torch.func.jacfwd(...))`` over the block's elements.
+
+Per-element results are combined into global arrays by GATHERS through
+precomputed transpose-gather maps — ``tg`` for dof-indexed vectors (R, row
+sums, the element matvec) and ``nnztg`` for CSR values. A gather + sum is
+deterministic on the GPU; a scatter-add would need atomics, whose summation
+order changes from run to run.
 
 Dirichlet conditions are masked row surgery: ``R = x - x_bc`` on
 constrained rows, identity rows in the CSR values and in the matvec.
 
-Everything else goma_tpu's Problem supports (generic AD blocks, face /
-edge / interface / overset kernels, rotated and pointwise conditions, row
-injection, periodicity, external fields, axisymmetric coordinates) raises
-``NotImplementedError`` at ``finalize``: later slices (see ROADMAP).
+Everything else goma_tpu's Problem supports (face / edge / interface /
+overset kernels, rotated and pointwise conditions, row injection,
+periodicity, external fields, axisymmetric coordinates, ALE, shell and
+Nedelec blocks, the residual-only pass) raises ``NotImplementedError`` at
+``finalize``: later slices (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -30,7 +39,9 @@ import torch
 from goma_tpu_torch import config
 from goma_tpu_torch.fem import fastns
 from goma_tpu_torch.fem.dofmap import DofMap, build_dofmap
+from goma_tpu_torch.elements import element_type
 from goma_tpu_torch.fem.equations import Equation
+from goma_tpu_torch.fem.fields import BlockTables, build_block_tables, eval_fieldvars
 from goma_tpu_torch.fem.sparsity import CSRPattern, build_pattern, nnz_map_for_gather
 from goma_tpu_torch.mesh.mesh import Mesh
 
@@ -43,11 +54,12 @@ def _cast_floats(params: dict, dtype) -> dict:
 
 
 class Problem:
-    """A Navier-Stokes Q2/Q1 problem on a mesh, with its tensors on
-    ``device``. Usage mirrors goma_tpu:
+    """A finite-element problem on a mesh, with its tensors on ``device``
+    (``None``: the card; the CPU only when asked for, ``device="cpu"``).
+    Usage mirrors goma_tpu:
 
         prob = Problem(mesh, [Momentum(dim=2), Continuity()], {"rho": 1.0,
-                       "mu": 0.01}, device="cuda")
+                       "mu": 0.01})
         prob.add_dirichlet("top", "velocity", 0, 1.0)
         prob.finalize()
         R, rs, aux = prob._assemble_fast(x, prob.base_params())
@@ -141,16 +153,24 @@ class Problem:
             [(eq.var, eq.ncomp, eq.interp) for eq in eqs] for eqs in self.equations
         ]
         self.dofmap: DofMap = build_dofmap(mesh, block_vars)
-        # fused fast-path recognition: every block must be the NS Galerkin
-        # block (the generic AD path is a later slice)
+        # fused fast-path recognition (fem/fastns.py); every other block
+        # takes the generic AD path
         self._fast_meta = {}
-        for bi in range(len(self.dofmap.blocks)):
+        for bi, bd in enumerate(self.dofmap.blocks):
             m = fastns.match_ns_q2q1(self, bi)
-            if m is None:
-                raise NotImplementedError(
-                    f"block {bi} is not the Navier-Stokes Q2/Q1 Galerkin "
-                    f"block of fem/fastns.py; generic AD assembly: {_LATER}")
-            self._fast_meta[bi] = m
+            if m is not None:
+                self._fast_meta[bi] = m
+                continue
+            if bd.edge_signs is not None:
+                raise NotImplementedError(f"Nedelec (edge-signed) blocks: {_LATER}")
+            if element_type(bd.elem_type).dim < mesh.dim:
+                raise NotImplementedError(f"shell/curve blocks: {_LATER}")
+            for eq in self.equations[bi]:
+                eq.check_slice()
+        self.tables: list[BlockTables] = [
+            build_block_tables(blk.elem_type, {s.interp for s in bd.slots},
+                               self.quad_order)
+            for bd, blk in zip(self.dofmap.blocks, mesh.blocks)]
         gathers = [b.gather for b in self.dofmap.blocks]
         self.pattern: CSRPattern = build_pattern(self.dofmap.n_dof, gathers)
         self._nnz_maps = [nnz_map_for_gather(self.pattern, g) for g in gathers]
@@ -237,8 +257,12 @@ class Problem:
                                    device=dev)
 
         T = {}
-        for bi, bd in enumerate(self.dofmap.blocks):
+        for bi, (bd, blk) in enumerate(zip(self.dofmap.blocks, self.mesh.blocks)):
             T[f"g{bi}"] = put(bd.gather.astype(np.int64))
+            if bi not in self._fast_meta:
+                # generic block: element node coordinates
+                T[f"x{bi}"] = put(self.mesh.coords[blk.conn], dt)
+                continue
             tabs, static = fastns.build_tables(self, bi)
             self._fast_static[bi] = static
             for k, a in tabs.items():
@@ -285,24 +309,66 @@ class Problem:
                 vals[T["dirdiag"]] = 1.0
         return R, vals
 
-    def _elem_rj_parts(self, x, params, T, rdt=None):
+    def _elem_residual_fn(self, bi: int, dtype=None):
+        """The generic element residual of block ``bi`` at ``dtype``:
+        ``elem_res(q_e, hist_e, X_e, params) -> (r, r)`` for ONE element
+        (local dofs, history, node coordinates), the residual doubled as
+        the aux output of ``jacfwd(..., has_aux=True)``. Each equation's
+        integrand is contracted with its measure, and ``r`` is built out of
+        place in slot order (an in-place add into a fresh tensor does not
+        map under ``torch.func.vmap``)."""
+        bd = self.dofmap.blocks[bi]
+        tables = self.tables[bi]
+        eqs = self.equations[bi]
+        mat = self.materials[bi]
+        dtype = dtype or self.dtype
+
+        def elem_res(q_e, hist_e, X_e, params):
+            qdot_e = params["ct"] * q_e + hist_e
+            fv = eval_fieldvars(q_e, qdot_e, X_e, tables, bd.slots, dtype)
+            acc = {}
+            for eq in eqs:
+                contrib = eq.residual(fv, mat, params)  # (nq, ncomp, nbf)
+                w = fv.wdetJ0 if eq.measure == "reference" else fv.wdetJ
+                a = torch.einsum("q,qcn->cn", w, contrib).reshape(-1)
+                acc[eq.var] = acc[eq.var] + a if eq.var in acc else a
+            r = torch.cat([acc[s.var] if s.var in acc   # slots in start order
+                           else q_e.new_zeros(s.size) for s in bd.slots])
+            return r, r
+
+        return elem_res
+
+    def _elem_rj_parts(self, x, params, T, rdt=None, jdt=None):
         """Per-block residual vectors (at ``rdt`` or the problem dtype),
-        element Jacobians (at ``jacobian_dtype``) and element-level absolute
-        row sums. With ``rdt == jacobian_dtype`` the residual and Jacobian
-        come out of ONE fused call (the switched-precision Newton prep)."""
+        element Jacobians (at ``jdt``, by default ``jacobian_dtype``) and
+        element-level absolute row sums (None for generic blocks). With
+        ``rdt == jacobian_dtype`` the residual and Jacobian come out of ONE
+        fused or ``jacfwd`` call (the switched-precision Newton prep). A
+        mixed-precision generic block differentiates a second element
+        residual built at the Jacobian dtype, with params, x, history and
+        coordinates cast — not a cast of the full-precision Jacobian."""
         dtype = rdt if rdt is not None else self.dtype
-        jdt = self.jacobian_dtype or self.dtype
+        jdt = jdt or self.jacobian_dtype or self.dtype
         if dtype != self.dtype:
             params = _cast_floats(params, dtype)
         mixed = jdt != dtype
         x = x.to(dtype)
         hist = params["hist"].to(dtype)
         if mixed:
-            ct_j = params["ct"].to(jdt)
+            params_j = _cast_floats(params, jdt)
             xj = x.to(jdt)
             histj = hist.to(jdt)
         r_parts, blockJ, rs_parts = [], [], []
         for bi in range(len(self.dofmap.blocks)):
+            g = T[f"g{bi}"]
+            if bi not in self._fast_meta:
+                r, J = self._generic_rj(bi, T, g, x, hist, params, dtype,
+                                        (xj, histj, params_j, jdt)
+                                        if mixed else None)
+                r_parts.append(r)
+                blockJ.append(J)
+                rs_parts.append(None)
+                continue
             meta = self._fast_meta[bi]
             static = self._fast_static[bi]
             gn = T.get(f"fns:gnode{bi}")
@@ -310,7 +376,6 @@ class Problem:
                 gp = T[f"fns:gp{bi}"]
                 gat = lambda v: fastns.node_gather(v, gn, gp)  # noqa: E731
             else:
-                g = T[f"g{bi}"]
                 gat = lambda v: v[g]  # noqa: E731
             if mixed:
                 r, _ = fastns.ns_q2q1_rj(
@@ -318,7 +383,7 @@ class Problem:
                     meta, static, params["ct"], dtype, with_jac=False)
                 _, J, rs = fastns.ns_q2q1_rj(
                     gat(xj), gat(histj), fastns.select_tables(T, bi, jdt),
-                    meta, static, ct_j, jdt, with_rs=True)
+                    meta, static, params_j["ct"], jdt, with_rs=True)
             else:
                 r, J, rs = fastns.ns_q2q1_rj(
                     gat(x), gat(hist), fastns.select_tables(T, bi, dtype),
@@ -327,6 +392,30 @@ class Problem:
             blockJ.append(J)
             rs_parts.append(rs)
         return r_parts, blockJ, rs_parts
+
+    def _coords(self, T, bi, dtype):
+        """Block ``bi``'s element node coordinates at ``dtype``."""
+        return T[f"x{bi}"].to(dtype)
+
+    def _generic_rj(self, bi, T, g, x, hist, params, dtype, mixed):
+        """(r (ne, nl), J (ne, nl, nl)) of a generic block: ``vmap`` over
+        the elements of ``jacfwd`` of the element residual. ``mixed``:
+        (x, hist, params, dtype) of a separate Jacobian pass, or None."""
+        from torch.func import jacfwd, vmap
+
+        axes = (0, 0, 0, None)
+        elem_res = self._elem_residual_fn(bi, dtype)
+        Xref = self._coords(T, bi, dtype)
+        if mixed is None:
+            J, r = vmap(jacfwd(elem_res, argnums=0, has_aux=True),
+                        in_dims=axes)(x[g], hist[g], Xref, params)
+            return r, J
+        r, _ = vmap(elem_res, in_dims=axes)(x[g], hist[g], Xref, params)
+        xj, histj, params_j, jdt = mixed
+        J, _ = vmap(jacfwd(self._elem_residual_fn(bi, jdt), argnums=0,
+                           has_aux=True), in_dims=axes)(
+            xj[g], histj[g], self._coords(T, bi, jdt), params_j)
+        return r, J
 
     def _assemble_with_elem(self, x, params):
         """Residual, CSR values (at ``jacobian_dtype``) and the element
@@ -341,6 +430,18 @@ class Problem:
         R, vals = self._apply_dirichlet(x, R, vals, params)
         return R, vals, tuple(blockJ)
 
+    def _assemble(self, x, params):
+        """(R, vals): the global residual and CSR Jacobian values, both at
+        the problem dtype (``jacobian_dtype`` is not read, as in goma_tpu),
+        with Dirichlet rows replaced (R_d = x_d - x_bc, row = e_d)."""
+        T = self._tables
+        dtype = self.dtype
+        x = x.to(dtype)
+        r_parts, blockJ, _ = self._elem_rj_parts(x, params, T, jdt=dtype)
+        R = _combine(r_parts, T["tg"], dtype)
+        vals = _combine(blockJ, T["nnztg"], dtype)
+        return self._apply_dirichlet(x, R, vals, params)
+
     def _assemble_fast(self, x, params, rdt=None):
         """Vals-free assembly for the iterative path: residual, element
         Jacobians, and element-level absolute row sums — no global CSR
@@ -350,7 +451,9 @@ class Problem:
 
         upper-bound the assembled row sums (exact where contributions to a
         shared entry agree in sign) and serve the reference's row-sum
-        scaling (src/sl_matrix_util.c:442). Returns (R, rs, aux)."""
+        scaling (src/sl_matrix_util.c:442). Fast blocks hand them back with
+        the kernel; generic blocks re-read their (ne, nl, nl) Jacobians.
+        Returns (R, rs, aux)."""
         T = self._tables
         dtype = rdt if rdt is not None else self.dtype
         jdt = self.jacobian_dtype or self.dtype
@@ -358,6 +461,8 @@ class Problem:
             params = _cast_floats(params, dtype)
         x = x.to(dtype)
         r_parts, blockJ, rs_el = self._elem_rj_parts(x, params, T, rdt=rdt)
+        rs_el = [torch.sum(torch.abs(J), dim=2) if s is None else s
+                 for J, s in zip(blockJ, rs_el)]
         R = _combine(r_parts, T["tg"], dtype)
         rs = _combine(rs_el, T["tg"], jdt)
         R, _ = self._apply_dirichlet(x, R, None, params)

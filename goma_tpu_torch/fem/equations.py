@@ -1,15 +1,15 @@
 """Equation base class (counterpart of ``goma_tpu/fem/equations.py``).
 
-In this slice an Equation is a descriptor: the variable it tests, its
-component count and interpolation. The assembler recognizes the
-Navier-Stokes Q2/Q1 block (``fem/fastns.py``) and uses its hand-derived
-residual and Jacobian; the generic per-equation residual (assembled by
-automatic differentiation in goma_tpu) is a later slice.
+An Equation is bound to one variable (its Galerkin test space) and declares
+the interpolation. ``residual`` returns the volume integrand per test
+function, shape (nq, ncomp, nbf), which the assembler contracts with
+``wdetJ``; the element Jacobian is ``torch.func.jacfwd`` of the whole
+element residual (the reference's hand-coded ``lec->J`` sensitivities).
+The Navier-Stokes Q2/Q1 Galerkin block skips this path: the assembler
+recognizes it and runs the fused kernel of ``fem/fastns.py``.
 """
 
 from __future__ import annotations
-
-GENERIC_AD_TODO = "generic AD assembly: later slice, see ROADMAP"
 
 
 class Equation:
@@ -25,6 +25,10 @@ class Equation:
         self.ncomp = ncomp
         self.interp = interp
 
+    def check_slice(self) -> None:
+        """Raise ``NotImplementedError`` for options outside the ported
+        slice (called at ``Problem.finalize`` for generic blocks)."""
+
     def residual(self, fv, mat: dict, params: dict):
         """Volume integrand (nq, ncomp, nbf) of the generic path."""
-        raise NotImplementedError(GENERIC_AD_TODO)
+        raise NotImplementedError

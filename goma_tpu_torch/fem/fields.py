@@ -1,8 +1,161 @@
-"""Field-variable names shared with ``goma_tpu/fem/fields.py``.
+"""Per-element field-variable evaluation at quadrature points (counterpart
+of ``goma_tpu/fem/fields.py``).
 
-Only the mesh-displacement variable name is needed in this slice (the
-fast-kernel matcher refuses ALE blocks); quadrature-point field evaluation
-belongs to the generic assembly path, a later slice.
+Everything is evaluated for all quadrature points of ONE element at once
+(leading axis = qp); the assembler maps the function over a block's
+elements with ``torch.func.vmap`` and differentiates it with
+``torch.func.jacfwd``, so the element Jacobian is exact forward-mode AD of
+the residual, as in goma_tpu.
+
+Cut to this slice: volume elements with Lagrange interpolations, cartesian
+coordinates, no mesh-displacement variable, no external fields. The N1
+(Nedelec) and H3 (Hermite) tables and the ALE reference-configuration
+quantities raise ``NotImplementedError`` here; ``Problem.finalize`` refuses
+axisymmetric coordinates, external fields and shell/curve blocks (later
+slices, see ROADMAP).
 """
 
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any
+
+import numpy as np
+import torch
+
+from goma_tpu_torch.elements import (element_type, eval_basis, geom_interp,
+                                     volume_rule)
+from goma_tpu_torch.fem.dofmap import LocalSlot
+from goma_tpu_torch.utils.la import det_and_inv
+
 MESH_VAR = "mesh_displacement"
+_LATER = "later slice of the port, see ROADMAP"
+
+
+@dataclass
+class BlockTables:
+    """Static (host numpy) basis tables for one block's volume quadrature."""
+
+    elem_type: str
+    dim: int
+    nq: int
+    qwts: np.ndarray  # (nq,)
+    Ng: np.ndarray  # (nq, n_geom_nodes) geometric basis
+    dNg: np.ndarray  # (nq, n_geom_nodes, dim)
+    N: dict[str, np.ndarray]  # interp -> (nq, nbf)
+    dN: dict[str, np.ndarray]  # interp -> (nq, nbf, dim) (reference coords)
+    _on: dict = field(default_factory=dict, repr=False)
+
+    def on(self, dtype, device) -> dict:
+        """The tables as tensors at ``dtype`` on ``device`` (made once per
+        pair): ``qwts``, ``Ng``, ``dNg`` and ``N:<interp>``/``dN:<interp>``."""
+        key = (dtype, torch.device(device))
+        if key not in self._on:
+            arrs = {"qwts": self.qwts, "Ng": self.Ng, "dNg": self.dNg}
+            for itp in self.N:
+                arrs[f"N:{itp}"] = self.N[itp]
+                arrs[f"dN:{itp}"] = self.dN[itp]
+            self._on[key] = {k: torch.as_tensor(np.ascontiguousarray(a),
+                                                dtype=dtype, device=device)
+                             for k, a in arrs.items()}
+        return self._on[key]
+
+
+def build_block_tables(elem_type_name: str, interps: set[str],
+                       quad_order: int) -> BlockTables:
+    et = element_type(elem_type_name)
+    qpts, qwts = volume_rule(et.family, quad_order)
+    gi = geom_interp(et)
+    Ng, dNg = eval_basis(et.family, gi, qpts)
+    N, dN = {}, {}
+    for itp in sorted(interps | {gi}):
+        if itp in ("N1", "H3"):
+            raise NotImplementedError(f"interpolation {itp}: {_LATER}")
+        N[itp], dN[itp] = eval_basis(et.family, itp, qpts)
+    return BlockTables(elem_type_name, et.dim, qpts.shape[0], qwts, Ng, dNg,
+                       N, dN)
+
+
+class FieldVars:
+    """Field values/gradients/time-derivatives at all quadrature points of
+    one element (leading qp axis; mapped over elements).
+
+    Attributes:
+      x        (nq, dim)        position
+      detJ     (nq,)
+      wdetJ    (nq,)            quadrature weight x detJ
+      val[v]   (nq, ncomp)
+      grad[v]  (nq, ncomp, dim)
+      dot[v]   (nq, ncomp)      time derivative
+      phi[v]   (nq, nbf)        basis of v's interpolation
+      gphi[v]  (nq, nbf, dim)   physical gradient of basis
+      h_elem   (nq,)            element size measure (for SUPG/PSPG tau)
+
+    Without mesh motion the reference configuration is the current one:
+    ``X0``, ``wdetJ0``, ``gphi0`` and ``grad0`` alias their current
+    counterparts, as in goma_tpu. (goma_tpu's axisymmetric, ALE,
+    external-field and node-anchored attributes belong to branches this
+    slice does not carry.)
+    """
+
+    def __init__(self):
+        self.val: dict[str, Any] = {}
+        self.grad: dict[str, Any] = {}
+        self.dot: dict[str, Any] = {}
+        self.phi: dict[str, Any] = {}
+        self.gphi: dict[str, Any] = {}
+        self.x = None
+        self.detJ = None
+        self.wdetJ = None
+        self.h_elem = None
+        self.dim = None
+        self.invJ = None
+        self.X0 = None
+        self.wdetJ0 = None
+        self.gphi0: dict[str, Any] = {}
+        self.grad0: dict[str, Any] = {}
+
+
+def _unpack(q_e, slots: list[LocalSlot]):
+    return {s.var: q_e[s.start:s.start + s.size].reshape(s.ncomp, s.nbf)
+            for s in slots}
+
+
+def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
+                   slots: list[LocalSlot], dtype) -> FieldVars:
+    """FieldVars of one element: local dofs ``q_e``/``qdot_e`` (n_ldof,),
+    node coordinates ``X_e`` (n_geom_nodes, dim), tables at ``dtype``."""
+    u = _unpack(q_e, slots)
+    if MESH_VAR in u:
+        raise NotImplementedError(f"ALE ({MESH_VAR}): {_LATER}")
+    udot = _unpack(qdot_e, slots)
+    tb = tables.on(dtype, q_e.device)
+
+    # isoparametric map: Jmat[q,k,d] = dx_k/dxi_d; invJ[q,d,k] = dxi_d/dx_k
+    Jmat = torch.einsum("qnd,nk->qkd", tb["dNg"], X_e)
+    detJ, invJ = det_and_inv(Jmat)
+
+    fv = FieldVars()
+    fv.dim = tables.dim
+    fv.invJ = invJ
+    fv.x = torch.einsum("qn,nk->qk", tb["Ng"], X_e)
+    fv.detJ = detJ
+    fv.wdetJ = tb["qwts"] * detJ
+    fv.h_elem = 2.0 * torch.abs(detJ) ** (1.0 / tables.dim)
+    fv.X0 = fv.x
+    fv.wdetJ0 = fv.wdetJ
+
+    gphi_cache: dict[str, Any] = {}
+    for s in slots:
+        Ni, dNi = tb[f"N:{s.interp}"], tb[f"dN:{s.interp}"]
+        if s.interp not in gphi_cache:
+            gphi_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, invJ)
+        gp = gphi_cache[s.interp]
+        fv.phi[s.var] = Ni
+        fv.gphi[s.var] = gp
+        fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
+        fv.grad[s.var] = torch.einsum("qnk,cn->qck", gp, u[s.var])
+        fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
+        fv.gphi0[s.var] = gp
+        fv.grad0[s.var] = fv.grad[s.var]
+    return fv

@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from goma_tpu_torch import config
 
 @dataclass
 class CSRPattern:
@@ -81,9 +82,11 @@ def nnz_map_for_gather(pat: CSRPattern, gather: np.ndarray) -> np.ndarray:
 class EllOperator:
     """Padded-row (ELL) sparse matvec: y = sum_k vals[pos[:, k]] *
     x[cols[:, k]], pure gather + elementwise + row sum (no scatter, so no
-    atomics on the GPU). Pad slots point at position nnz, which holds 0."""
+    atomics on the GPU). Pad slots point at position nnz, which holds 0.
+    ``device=None`` is the card (:func:`config.resolve_device`)."""
 
     def __init__(self, pat: CSRPattern, device=None):
+        device = config.resolve_device(device)
         n = pat.n
         deg = np.diff(pat.indptr)
         K = int(deg.max())

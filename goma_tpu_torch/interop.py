@@ -1,6 +1,8 @@
-"""Carry state across from goma_tpu: its parameter dicts, state vectors and
-NDLU factors, fetched to numpy, become the port's tensors, so both packages can compute
-on the same state (the port's counterpart of loading weights).
+"""Carry state across from goma_tpu: its parameter dicts, state vectors,
+NDLU factors and material dicts, fetched to numpy, become the port's
+tensors and objects, so both packages can compute on the same state (the
+port's counterpart of loading weights). ``device=None`` is the card, as
+everywhere in the port; the CPU tests pass ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -48,4 +50,27 @@ def ndlu_factors_from_numpy(facs, device=None) -> list:
         empty = np.asarray(X).size == 0
         out.append((put(fwd), put(bwd), None if empty else put(X),
                     None if empty else put(Y)))
+    return out
+
+
+def materials_from_goma(mat: dict) -> dict:
+    """A goma_tpu material dict -> the port's. Python scalars pass through;
+    goma_tpu's ``BoussinesqBodyForce`` is recognised by its class name and
+    attributes (gravity fetched to numpy, beta, T0, tvar), without importing
+    goma_tpu. Any other callable or array property model is a later slice
+    and raises."""
+    from goma_tpu_torch.physics.materials import BoussinesqBodyForce
+
+    out = {}
+    for k, v in mat.items():
+        if isinstance(v, (bool, int, float)):
+            out[k] = v
+        elif type(v).__name__ == "BoussinesqBodyForce":
+            out[k] = BoussinesqBodyForce(np.asarray(v.gravity, dtype=np.float64),
+                                         beta=float(v.beta), T0=float(v.T0),
+                                         tvar=v.tvar)
+        else:
+            raise NotImplementedError(
+                f"material property {k!r} of type {type(v).__name__}: later "
+                "slice of the port, see ROADMAP")
     return out

@@ -1,2 +1,3 @@
 from goma_tpu_torch.physics.fluid import Continuity, Momentum
+from goma_tpu_torch.physics.scalar_transport import Energy, Species
 from goma_tpu_torch.physics import materials

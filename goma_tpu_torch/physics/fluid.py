@@ -1,27 +1,58 @@
-"""Incompressible fluid momentum + continuity descriptors.
+"""Incompressible fluid momentum + continuity (counterpart of
+``goma_tpu/physics/fluid.py``), with the same constructor options and
+defaults, so decks carry over unchanged.
 
-Counterpart of ``goma_tpu/physics/fluid.py`` with the same constructor
-options and defaults, so decks carry over unchanged. Galerkin weak forms:
+Parity: reference ``src/mm_fill_momentum.c:98 assemble_momentum`` and
+``src/mm_fill_continuity.c:113 assemble_continuity`` with the PSPG/SUPG
+formulas of ``src/mm_fill_stabilization.c`` (Shakib tau). Weak forms:
 
   momentum:   R_ai = int phi_i rho (udot_a + u.grad u_a - f_a)
                    + grad(phi_i) : sigma_a   dOmega,
               sigma = -p I + mu (grad u + grad u^T)
-  continuity: R_i = int psi_i (div u) dOmega
+  continuity: R_i = int psi_i (div u - s) dOmega  (+ PSPG)
 
-The Q2/Q1 Galerkin form is assembled by the fused kernel in
-``fem/fastns.py``; the generic residual (stabilization, viscoelastic
-coupling, axisymmetry) is a later slice and raises.
+The Q2/Q1 Galerkin block with constant rho/mu is assembled by the fused
+kernel in ``fem/fastns.py``; every other block runs ``residual`` through the
+generic AD path. Cut to this slice: cartesian coordinates with the
+transient, convection, body-force and mass-source terms and PSPG/SUPG. The
+viscoelastic (stress modes, log/sqrt conformation), DEVSS and swirl terms
+raise at ``Problem.finalize`` (later slices, see ROADMAP).
 """
 
 from __future__ import annotations
 
+import torch
+
 from goma_tpu_torch.fem.equations import Equation
+from goma_tpu_torch.physics.materials import prop
+
+_LATER = "later slice of the port, see ROADMAP"
+
+
+def _as_nq(a, nq, like):
+    """A property value as an (nq,) tensor at ``like``'s dtype and device:
+    a python scalar is filled, a 0-d tensor broadcast, an (nq,) kept."""
+    if not torch.is_tensor(a):
+        return torch.full((nq,), float(a), dtype=like.dtype, device=like.device)
+    if a.ndim == 0:
+        return a.expand(nq)
+    return a
+
+
+def advective_velocity(fv, var: str = "velocity"):
+    """The advective velocity at the quadrature points: ``u``, or zero for
+    a pure-transport block with no flow field. (goma_tpu subtracts the mesh
+    velocity under ALE, which this slice does not carry.)"""
+    if var not in fv.val:
+        return torch.zeros_like(fv.x)
+    return fv.val[var]
 
 
 class Momentum(Equation):
     """Navier-Stokes momentum. ``transient`` includes rho*udot;
-    ``convection`` the advective term; the remaining options
-    (viscoelastic modes, DEVSS, SUPG) select terms of the generic path."""
+    ``convection`` the advective term; the material key ``body_force`` an
+    (nq, dim) acceleration (callable) or constant vector; ``supg`` the
+    streamline stabilization of the generic path."""
 
     def __init__(
         self,
@@ -45,11 +76,85 @@ class Momentum(Equation):
         self.supg = supg
         self.devss_mu = devss_mu
 
+    def check_slice(self):
+        if (self.ve_stress_modes or self.logconf_modes or self.sqrtconf_modes
+                or self.devss_mu > 0.0):
+            raise NotImplementedError(
+                f"viscoelastic / DEVSS momentum terms: {_LATER}")
+
+    def residual(self, fv, mat, params):
+        x = fv.x
+        nq, dim = x.shape[0], self.dim
+        gu = fv.grad["velocity"]  # (nq, dim, dim): gu[q,a,k] = du_a/dx_k
+        p = fv.val["pressure"][:, 0]
+        rho = _as_nq(prop(mat, "rho", fv, params, 1.0), nq, x)
+        mu = _as_nq(prop(mat, "mu", fv, params), nq, x)
+        phi = fv.phi["velocity"]  # (nq, nbf)
+        gphi = fv.gphi["velocity"]  # (nq, nbf, dim)
+
+        inert = torch.zeros((nq, dim), dtype=x.dtype, device=x.device)
+        if self.transient:
+            inert = inert + fv.dot["velocity"]
+        if self.convection:
+            inert = inert + torch.einsum("qk,qak->qa", advective_velocity(fv), gu)
+        f = mat.get("body_force", None)
+        if f is not None:
+            fval = f(fv, mat, params) if callable(f) else torch.as_tensor(
+                f, dtype=x.dtype, device=x.device).expand(nq, dim)
+            inert = inert - fval
+        contrib = torch.einsum("qa,qi->qai", rho[:, None] * inert, phi)
+
+        # stress: sigma[q,a,k] = -p delta + mu (gu + gu^T)
+        eye = torch.eye(dim, dtype=x.dtype, device=x.device)
+        sigma = (mu[:, None, None] * (gu + gu.transpose(1, 2))
+                 - p[:, None, None] * eye[None])
+        contrib = contrib + torch.einsum("qak,qik->qai", sigma, gphi)
+
+        if self.supg > 0.0:
+            # streamline stabilization with the strong inertial + pressure
+            # residual (Shakib-style tau, reference tau_momentum_shakib)
+            u_adv = advective_velocity(fv)
+            h = fv.h_elem
+            unorm = torch.sqrt(torch.sum(u_adv * u_adv, dim=1) + 1e-30)
+            tau = self.supg / torch.sqrt(
+                (2.0 * rho * unorm / h) ** 2 + (4.0 * mu / h ** 2) ** 2 + 1e-30)
+            rm = rho[:, None] * inert + fv.grad["pressure"][:, 0, :]
+            wsup = torch.einsum("qk,qik->qi", u_adv, gphi)
+            contrib = contrib + torch.einsum("q,qa,qi->qai", tau, rm, wsup)
+        return contrib
+
 
 class Continuity(Equation):
-    """div(u) = 0 tested with the pressure basis; ``pspg`` selects the
-    generic path's PSPG stabilization."""
+    """div(u) = 0 tested with the pressure basis; material key
+    ``mass_source`` a volumetric source; ``pspg`` the PSPG stabilization
+    for equal-order pairs (reference ``calc_pspg``,
+    ``src/mm_fill_stabilization.c:691``)."""
 
     def __init__(self, interp: str = "Q1", pspg: float = 0.0):
         super().__init__("pressure", 1, interp)
         self.pspg = pspg
+
+    def residual(self, fv, mat, params):
+        x = fv.x
+        nq = x.shape[0]
+        gu = fv.grad["velocity"]
+        divu = torch.diagonal(gu, dim1=1, dim2=2).sum(dim=1)  # (nq,)
+        S = mat.get("mass_source", None)
+        if S is not None:
+            divu = divu - _as_nq(S(fv, mat, params) if callable(S) else S, nq, x)
+        contrib = torch.einsum("q,qi->qi", divu, fv.phi["pressure"])[:, None, :]
+        if self.pspg > 0.0:
+            rho = _as_nq(prop(mat, "rho", fv, params, 1.0), nq, x)
+            mu = _as_nq(prop(mat, "mu", fv, params), nq, x)
+            u = fv.val["velocity"]
+            h = fv.h_elem
+            unorm = torch.sqrt(torch.sum(u * u, dim=1) + 1e-30)  # AD-safe at 0
+            tau = self.pspg / torch.sqrt(
+                (2.0 * rho * unorm / h) ** 2 + (4.0 * mu / h ** 2) ** 2 + 1e-30)
+            # momentum strong residual approx: rho (u.grad u) + grad p
+            rm = (rho[:, None] * torch.einsum("qk,qak->qa", u, gu)
+                  + fv.grad["pressure"][:, 0, :])
+            contrib = contrib + torch.einsum(
+                "q,qa,qia->qi", tau / torch.clamp(rho, min=1e-30), rm,
+                fv.gphi["pressure"])[:, None, :]
+        return contrib

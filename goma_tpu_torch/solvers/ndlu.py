@@ -7,8 +7,9 @@ preconditioner of the GMRES path and the exact direct solver of the
   goma_tpu's): recursive graph bisection builds a nested-dissection
   separator tree; each tree node owns its separator dofs, and its *front*
   is [own | boundary]. Levels are processed deepest-first.
-- **Device numeric phase**: per level, a compact scatter-set builds the
-  fronts from the CSR values, one-hot matmuls extend-add the children's
+- **Device numeric phase**: per level, the hand-written front-gather kernel
+  (``solvers/front_gather``) writes every front slot from the CSR values
+  through a dense per-slot map, one-hot matmuls extend-add the children's
   Schur complements, the hand-written front-LU kernel factors the
   fully-summed blocks (``solvers/batched_lu``), and batched products form
   the Schur update.
@@ -50,7 +51,7 @@ class _Level:
     own_w: np.ndarray   # (nn, smax) int32 dof ids; pad -> n (dummy slot)
     bnd_w: np.ndarray   # (nn, bmax) int32 dof ids; pad -> n+1
     # compact (front-linear-position, source) pairs for the CSR entries;
-    # the dense gather map is built from these in NDLU.__init__
+    # NDLU.__init__ builds the dense per-slot gather map from them
     a_lin: np.ndarray   # int32 into nn*f*f
     a_src: np.ndarray   # int32 into vals
     # child Schur extend-add as PERMUTED DENSE BLOCKS: the child's Schur
@@ -357,12 +358,10 @@ def build_nd_tree(pattern: CSRPattern, leaf_max: int = 96, debug: bool = False,
         pad_node = np.concatenate(pad_node) if pad_node else np.empty(0, np.int32)
         pad_slot = np.concatenate(pad_slot) if pad_slot else np.empty(0, np.int32)
 
-        # COMPACT (lin, src) pairs only — the dense (nn, f, f) gather maps
-        # are materialized ON DEVICE in NDLU.__init__ (host first-touch page
-        # faults are ~100x slower than normal inside the microVM this runs
-        # in; HBM has no such problem). Sentinel convention: dense-map slot 0
-        # is the dummy, real sources are stored +1 (the source arrays get a
-        # zero prepended on device).
+        # COMPACT (lin, src) pairs only — NDLU.__init__ expands them into
+        # the dense per-slot gather map. Sentinel convention: map value 0 is
+        # the dummy, real sources are stored +1 (the source array gets a
+        # zero prepended, NDLU.front_values).
         if nn * f * f + 1 >= np.iinfo(np.int32).max:
             raise RuntimeError("ndlu: level front array exceeds int32 "
                                "indexing; raise leaf_max")
@@ -430,6 +429,8 @@ class NDLU:
     with ``invert=True``, kernel substitution with ``invert=False``),
     ``solve_refined`` wraps ``solve`` in iterative refinement.
 
+    ``device``: ``None`` is the card (``config.resolve_device``).
+
     ``front_lu``: "auto" factors every level's
     fronts with ``solvers.batched_lu`` — the CUDA kernel for a CUDA tensor,
     its plain twin for a CPU tensor — so the CPU tests and the GPU run one
@@ -476,6 +477,10 @@ class NDLU:
         self.tabs = []
         for lev in self.levels:
             f = lev.smax + lev.bmax
+            # dense per-slot source map of the level's fronts: CSR position
+            # + 1, or 0 (the zero that ``front_values`` prepends)
+            gmap = np.zeros(lev.nn * f * f, np.int32)
+            gmap[lev.a_lin] = lev.a_src + 1
             p0 = p1 = i0 = i1 = None
             if lev.c0_pos is not None and lev.cb:
                 p0 = onehot(lev.c0_pos, f)
@@ -489,21 +494,31 @@ class NDLU:
                 own_w=put(lev.own_w), bnd_w=put(lev.bnd_w),
                 own_sel=put(own_sel), own_dofs=put(own_flat[own_sel]),
                 bnd_dofs=put(bnd_dofs), bnd_pos=put(bnd_pos),
-                a_lin=put(lev.a_lin), a_src=put(lev.a_src),
+                gmap=put(gmap, torch.int32),
                 p0=p0, p1=p1, i0=i0, i1=i1,
                 pad_node=put(lev.pad_node), pad_slot=put(lev.pad_slot),
             ))
 
-    def front(self, li: int, vals, S_prev=None):
-        """Assembled fronts (nn, f, f) of level ``li`` (deepest first): CSR
-        entries by a unique-index scatter-set, the children's Schur
+    def front_values(self, vals):
+        """The gather source of ``front``: [0, CSR values] at the factor
+        dtype, built once per factorization."""
+        v = vals.to(self.dtype)
+        return torch.cat([v.new_zeros(1), v])
+
+    def front(self, li: int, vals_ext, S_prev=None):
+        """Assembled fronts (nn, f, f) of level ``li`` (deepest first): every
+        slot gathered from ``vals_ext`` (``front_values``) through the
+        level's slot map by the front-gather kernel, the children's Schur
         complements ``S_prev`` by one-hot extend-add, identity on pad own
         slots."""
+        from goma_tpu_torch.solvers.front_gather import front_gather
+
         lev, tb = self.levels[li], self.tabs[li]
+        if vals_ext.shape != (self.pattern.nnz + 1,):
+            raise ValueError("NDLU.front takes front_values(vals), "
+                             f"(nnz + 1,), got {tuple(vals_ext.shape)}")
         f = lev.smax + lev.bmax
-        F = torch.zeros(lev.nn * f * f, dtype=self.dtype, device=self.device)
-        F[tb["a_lin"]] = vals.to(self.dtype)[tb["a_src"]]
-        F = F.view(lev.nn, f, f)
+        F = front_gather(vals_ext, tb["gmap"]).view(lev.nn, f, f)
         if S_prev is not None and tb["p0"] is not None:
             for P, idx in ((tb["p0"], tb["i0"]), (tb["p1"], tb["i1"])):
                 F = F + P @ S_prev[idx] @ P.transpose(1, 2)
@@ -518,8 +533,9 @@ class NDLU:
         packed LU with ``invert=False``; X = A21 U^-1, Y = L^-1 A12."""
         facs = []
         S_prev = None
+        vals_ext = self.front_values(vals)
         for li in range(len(self.levels)):
-            fac, S_prev = self.factor_level(li, self.front(li, vals, S_prev))
+            fac, S_prev = self.factor_level(li, self.front(li, vals_ext, S_prev))
             facs.append(fac)
         return facs
 

@@ -58,7 +58,7 @@ def cavity_fronts(n=6, seed=3):
     vals = solver._scaled_vals(x, params, scale)
     nd = solver.precond
     s = nd.levels[0].smax
-    return nd.front(0, vals.to(torch.float64)).numpy()[:, :s, :s]
+    return nd.front(0, nd.front_values(vals)).numpy()[:, :s, :s]
 
 
 def _rel(a, b):

@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from goma_tpu_torch.interop import params_from_numpy, state_from_numpy
-from test_torch_host import JAX_PKG, TORCH_PKG, cavity
+from test_torch_host import JAX_PKG, TORCH_PKG, cavity, cpu
 
 
 def _transient_cavity(pkg, n):
@@ -26,7 +26,7 @@ def _transient_cavity(pkg, n):
     mesh = mesh_m.rectangle_mesh(n, n, elem="QUAD9")
     prob = fem.Problem(mesh, [phys.Momentum(dim=2, interp="Q2", transient=True),
                               phys.Continuity(interp="Q1")],
-                       {"rho": 1.3, "mu": 0.02})
+                       {"rho": 1.3, "mu": 0.02}, **cpu(pkg))
     for ns in ("left", "right", "bottom"):
         prob.add_dirichlet(ns, "velocity", 0, 0.0)
         prob.add_dirichlet(ns, "velocity", 1, 0.0)
@@ -66,8 +66,8 @@ def _assembled(kind, jac):
         pt.jacobian_dtype = torch.float32
     x, p = _state(pj, seed=11)
     pjp = _jax_params(pj, p)
-    ptp = params_from_numpy(p)
-    xt = state_from_numpy(x)
+    ptp = params_from_numpy(p, device="cpu")
+    xt = state_from_numpy(x, device="cpu")
     return pj, pt, jnp.asarray(x), xt, pjp, ptp, (1e-5 if jac else 1e-12)
 
 
@@ -138,7 +138,7 @@ def test_ell_operator_and_row_sums_match(assembled):
     pj, pt, xj, xt, pjp, ptp, rtol = assembled
     _, valsj, _ = pj._assemble_with_elem(xj, pjp)
     _, valst, _ = pt._assemble_with_elem(xt, ptp)
-    ej, et = JEll(pj.pattern), TEll(pt.pattern)
+    ej, et = JEll(pj.pattern), TEll(pt.pattern, device="cpu")
     v = np.random.default_rng(9).standard_normal(pj.dofmap.n_dof)
     _close(et.matvec(valst, torch.as_tensor(v, dtype=valst.dtype)),
            ej.matvec(valsj, jnp.asarray(v, valsj.dtype)), rtol, "ELL matvec")

@@ -77,7 +77,7 @@ def _direct(dtype):
     defer = tndlu.zero_diag_defer_mask(pt.pattern, vals)
     nd = tndlu.NDLU(pt.pattern, leaf_max=96, dtype=getattr(torch, dtype),
                     invert=False, defer_dofs=defer,
-                    clusters=tndlu.node_clusters(pt))
+                    clusters=tndlu.node_clusters(pt), device="cpu")
     jnd = jndlu.NDLU(pj.pattern, leaf_max=96, dtype=jnp.dtype(dtype),
                      front_lu="pallas", invert=False, defer_dofs=defer,
                      clusters=jndlu.node_clusters(pj))
@@ -124,7 +124,7 @@ def test_factor_is_front_then_factor_level_per_level():
     facs = nd.factor(v)
     S = None
     for li in range(len(nd.levels)):
-        F = nd.front(li, v, S)
+        F = nd.front(li, nd.front_values(v), S)
         fac, S = nd.factor_level(li, F)
         for got, want in zip(fac, facs[li]):
             assert (got is None) == (want is None)
@@ -138,7 +138,7 @@ def test_gmres_matches_jax_gmres():
     pj, pt, nd, jnd, vals, vals_lag, b = _system()
     ft = nd.factor(torch.as_tensor(vals_lag))
     fj = jnd.factor(jnp.asarray(vals_lag))
-    tell, jell = TEll(pt.pattern), JEll(pj.pattern)
+    tell, jell = TEll(pt.pattern, device="cpu"), JEll(pj.pattern)
     vt, vj = torch.as_tensor(vals), jnp.asarray(vals)
     kw = dict(tol=1e-10, restart=30, maxiter=120)
     rt = gmres(lambda v: tell.matvec(vt, v), torch.as_tensor(b),
@@ -173,7 +173,8 @@ def test_factor_rejects_levels_outside_kernel_gate():
     from goma_tpu_torch.fem.sparsity import build_pattern
     from goma_tpu_torch.solvers.ndlu import NDLU
 
-    nd = NDLU(build_pattern(1, []), dtype=torch.float64, invert=True)
+    nd = NDLU(build_pattern(1, []), dtype=torch.float64, invert=True,
+              device="cpu")
     assert nd.levels[0].smax == 1
     with pytest.raises(NotImplementedError):
         nd.factor(torch.ones(1, dtype=torch.float64))
@@ -215,7 +216,8 @@ def test_port_substitution_on_goma_tpu_factors():
     _, pt, _, _, _, _, b = _system()
     nd, jnd, _, fj = _direct("float64")
     facs = ndlu_factors_from_numpy(
-        [tuple(None if a is None else np.asarray(a) for a in f) for f in fj])
+        [tuple(None if a is None else np.asarray(a) for a in f) for f in fj],
+        device="cpu")
     assert len(facs) == len(nd.levels)
     xt = nd.solve(facs, torch.as_tensor(b)).numpy()
     xj = np.asarray(jnd.solve(fj, jnp.asarray(b)))
@@ -236,7 +238,7 @@ def test_solve_refined_matches_goma_tpu(fused, lag, sweeps, xtol):
     nd, jnd, _, _ = _direct("float32")
     v_old = vals + lag * (vals_lag - vals)
     ft, fj = nd.factor(torch.as_tensor(v_old)), jnd.factor(jnp.asarray(v_old))
-    tell, jell = TEll(pt.pattern), JEll(pj.pattern)
+    tell, jell = TEll(pt.pattern, device="cpu"), JEll(pj.pattern)
     vt, vj = torch.as_tensor(vals), jnp.asarray(vals)
     calls = {"t": 0, "j": 0}
 
@@ -282,7 +284,8 @@ def test_ndlu_substitution_path_not_in_slice():
     from goma_tpu_torch.fem.sparsity import build_pattern
     from goma_tpu_torch.solvers.ndlu import NDLU
 
-    assert not NDLU(build_pattern(4, []), invert=False).invert
+    assert not NDLU(build_pattern(4, []), invert=False, device="cpu").invert
     for front_lu in ("lax", "pallas"):
         with pytest.raises(NotImplementedError):
-            NDLU(build_pattern(4, []), invert=True, front_lu=front_lu)
+            NDLU(build_pattern(4, []), invert=True, front_lu=front_lu,
+                 device="cpu")
