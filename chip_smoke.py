@@ -19,7 +19,10 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 3. hold the kernel against its plain PyTorch twin on the card, float32 and
    float64, at every nested-dissection level shape (nn fronts of size m)
    of that deck, on random fronts whose zero, tiny and negative pivots make
-   the static-pivot boost fire; print errors and median CUDA-event times.
+   the static-pivot boost fire; check the kernel's launch plan (cluster
+   size, threads, shared memory) against the wrapper's ``_plan``; print
+   each level's plan, errors and the median CUDA-event ms of the kernel,
+   the twin and ``lu_factor_ex(pivot=False)`` beside the bound.
    Then the real fully-summed block of every ND level, built on the card
    from the deck's CSR values and the children's Schur complements as
    ``NDLU.factor`` builds it, at the state the main path factors;
@@ -31,7 +34,8 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
    (launch counters), and the Ghia et al. (1982) Re=100 centerline
    velocity;
 6. kernel vs twin again on every level's real fronts, at the converged
-   state;
+   state; one factorization of the tree split into gather, extend-add,
+   front LU and inverses + Schur (CUDA events, ``factor_split_ms``);
 8. the substitution kernel against its twin, float32 and float64, lower and
    upper, at all 9 ND level shapes of the ``tpu_direct`` deck: the real
    packed LUs of its factorization at x = 0, with the real own-segments of
@@ -48,8 +52,8 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
     factorizations each), and
     that x agrees with phase 5's ``gmres+ndlu`` solution; print each
     iteration's refinement sweeps, relative residual and fresh or lagged
-    factor, the asm/slv buckets, s/iteration, and the CUDA-event ms of one
-    factorization split into front assembly (``NDLU.front``) and the rest;
+    factor, the asm/slv buckets, s/iteration, and one factorization split
+    as in phase 6;
 11. the front-gather kernel against its plain version on every level's
     real slot map of both 64x64 trees, float32 and float64 values, and on a
     map with indices out of range: exact (max |diff| = 0). Then, per
@@ -63,7 +67,10 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
     8x8 on cuda and on cpu: the same Newton count, x within a stated bound;
 13. the buoyant main path at 48x48 (40,037 dof), bench.py's options:
     the front-LU kernel against its twin on the real fronts of every level
-    of its tree (m up to 437) at x = 0, as in phase 3; one warm-up solve, ``reset_lagged()``, one timed solve; require
+    of its tree (m up to 437) at x = 0, and on random boosted fronts at its
+    9 level shapes with the kernel, ``lu_factor_ex`` and bound timed as in
+    phase 3; the factorization split of phase 6; one warm-up solve,
+    ``reset_lagged()``, one timed solve; require
     convergence to 1e-6 in 6 +- 1 Newton iterations (goma_tpu's record),
     and front-gather and front-LU launches = levels x factorizations; print
     the ND levels, norms, linear iterations, asm/slv and s/iteration, and
@@ -252,6 +259,50 @@ def check_kernel(A, name):
     return got, ref, abs_err, rel
 
 
+def lu_shapes(shapes, label, time_twin):
+    """Phase 3 (and 13): the front-LU kernel against its twin on random
+    boosted fronts at every (nn, m) level shape, float32 and float64; the
+    kernel's launch plan against the wrapper's; median CUDA-event ms of the
+    kernel, the twin (``time_twin``) and ``lu_factor_ex(pivot=False)`` per
+    shape. Returns (max abs err, {dtype: [kernel, twin, library] ms summed
+    over the shapes})."""
+    from goma_tpu_torch.solvers.batched_lu import (_plan, batched_lu,
+                                                   batched_lu_reference,
+                                                   kernel_plan)
+
+    max_abs = 0.0
+    tot = {dt: [0.0, 0.0, 0.0] for dt in (torch.float32, torch.float64)}
+    for dt in (torch.float32, torch.float64):
+        for nn, m in shapes:
+            plan = kernel_plan(nn, m, dt)
+            if plan[:4] != _plan(nn, m, dt) or plan[4] < 1:
+                raise RuntimeError(f"batched_lu ({nn},{m}) {dt}: kernel plan "
+                                   f"{plan} != wrapper plan {_plan(nn, m, dt)}")
+            A = torch.as_tensor(boosted_fronts(nn, m, seed=m), dtype=dt,
+                                device="cuda")
+            _, _, a_err, rel = check_kernel(A, f"{label} {dt} ({nn},{m})")
+            max_abs = max(max_abs, a_err)
+            k_ms = median_ms(lambda: batched_lu(A), 20)
+            p_ms = median_ms(lambda: batched_lu_reference(A), 5) if time_twin \
+                else float("nan")
+            # the library's unpivoted batched LU: no GESP boost, so it
+            # computes the same function only where no pivot is boosted
+            l_ms = median_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 20)
+            tot[dt] = [a + b for a, b in zip(tot[dt], (k_ms, p_ms, l_ms))]
+            log(f"kernel {label} {str(dt)[6:]} (nn={nn:3d}, m={m:3d}): cluster "
+                f"{plan[0]:2d} x {plan[2]} threads, {plan[3]} B shared, "
+                f"{plan[4]} clusters resident; rel err {rel:.2e}, kernel "
+                f"{k_ms:.4f} ms, twin {p_ms:.3f} ms, lu_factor_ex {l_ms:.4f} ms, "
+                f"bound {lu_bound([(nn, m)])[0]:.5f} ms")
+    bnd = lu_bound(shapes)
+    for dt, (k, tw, lib) in tot.items():
+        log(f"kernel {label}: one factorization's fronts (all {len(shapes)} "
+            f"level shapes), {str(dt)[6:]}: kernel {k:.4f} ms, twin {tw:.3f} ms, "
+            f"lu_factor_ex(pivot=False) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
+            f"({bnd[1]}, float32)")
+    return max_abs, tot
+
+
 def check_real_fronts(nd, vals, label):
     """Kernel vs twin on the real fully-summed block of every ND level of
     ``nd`` for the equilibrated CSR values ``vals``: each level's front
@@ -394,27 +445,38 @@ def check_substitutions(calls):
     return max_abs, tot
 
 
-def factor_split_ms(nd, vals, reps=5):
-    """Median CUDA-event ms of one factorization: front assembly
-    (``NDLU.front``, all levels) and the rest (``factor_level``)."""
+def factor_split_ms(nd, vals, label, reps=5):
+    """Median CUDA-event ms of one factorization of ``nd``, split into
+    front gather (``NDLU.gather``), extend-add (``NDLU.extend_add``), front
+    LU (``NDLU.front_lu``) and inverses or X/Y + Schur
+    (``NDLU.factor_rest``), each summed over the levels. Returns
+    {piece: ms}."""
+    names = ("gather", "extend-add", "front LU", "inverses + Schur")
     n_lev = len(nd.levels)
-    fronts, rest = [], []
+    runs = []
     for _ in range(reps + 1):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2 * n_lev + 1)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4 * n_lev + 1)]
         S = None
-        ev[0].record()
         vals_ext = nd.front_values(vals)
+        ev[0].record()
         for li in range(n_lev):
-            F = nd.front(li, vals_ext, S)
-            ev[2 * li + 1].record()
-            _, S = nd.factor_level(li, F)
-            ev[2 * li + 2].record()
+            F = nd.gather(li, vals_ext)
+            ev[4 * li + 1].record()
+            F = nd.extend_add(li, F, S)
+            ev[4 * li + 2].record()
+            lu = nd.front_lu(li, F)
+            ev[4 * li + 3].record()
+            _, S = nd.factor_rest(li, F, lu)
+            ev[4 * li + 4].record()
         ev[-1].synchronize()
-        fronts.append(sum(ev[2 * li].elapsed_time(ev[2 * li + 1])
-                          for li in range(n_lev)))
-        rest.append(sum(ev[2 * li + 1].elapsed_time(ev[2 * li + 2])
-                        for li in range(n_lev)))
-    return statistics.median(fronts[1:]), statistics.median(rest[1:])
+        runs.append([sum(ev[4 * li + j].elapsed_time(ev[4 * li + j + 1])
+                         for li in range(n_lev)) for j in range(4)])
+    split = {n: statistics.median(r[j] for r in runs[1:])
+             for j, n in enumerate(names)}
+    log(f"factorization split {label} (CUDA events, all {n_lev} levels): "
+        + ", ".join(f"{n} {ms:.3f} ms" for n, ms in split.items())
+        + f"; total {sum(split.values()):.3f} ms")
+    return split
 
 
 def bound_ms(nbytes, flops):
@@ -612,7 +674,7 @@ def main() -> int:
                          "runs the port on a GPU only)")
     from goma_tpu_torch import cuda_build
     from goma_tpu_torch.solvers import NewtonSolver
-    from goma_tpu_torch.solvers.batched_lu import batched_lu, batched_lu_reference
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
     from goma_tpu_torch.solvers.batched_trsv import batched_trsv
     from goma_tpu_torch.solvers.front_gather import front_gather
 
@@ -641,34 +703,8 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernel vs twin on the card
-    max_abs = 0.0
-    ms_sum = {torch.float32: 0.0, torch.float64: 0.0}
-    plain_sum = {torch.float32: 0.0, torch.float64: 0.0}
-    lib_sum = {torch.float32: 0.0, torch.float64: 0.0}
-    for dt in (torch.float32, torch.float64):
-        for nn, m in shapes:
-            A = torch.as_tensor(boosted_fronts(nn, m, seed=m), dtype=dt, device=dev)
-            _, _, a_err, rel = check_kernel(A, f"{dt} ({nn},{m})")
-            max_abs = max(max_abs, a_err)
-            k_ms = median_ms(lambda: batched_lu(A), 20)
-            p_ms = median_ms(lambda: batched_lu_reference(A), 5)
-            # the library's unpivoted batched LU: no GESP boost, so it
-            # computes the same function only where no pivot is boosted
-            l_ms = median_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 20)
-            ms_sum[dt] += k_ms
-            plain_sum[dt] += p_ms
-            lib_sum[dt] += l_ms
-            log(f"kernel {str(dt)[6:]} (nn={nn:3d}, m={m:3d}): rel err {rel:.2e}, "
-                f"kernel {k_ms:.3f} ms, twin {p_ms:.3f} ms, lu_factor_ex "
-                f"{l_ms:.3f} ms")
+    max_abs, lu_ms = lu_shapes(shapes, "cavity", time_twin=True)
     lu_bnd = lu_bound(shapes)
-    log(f"kernel: one factorization's fronts (all {len(shapes)} level shapes), "
-        f"float32: kernel {ms_sum[torch.float32]:.3f} ms, twin "
-        f"{plain_sum[torch.float32]:.3f} ms, lu_factor_ex(pivot=False) "
-        f"{lib_sum[torch.float32]:.3f} ms, bound {lu_bnd[0]:.4f} ms "
-        f"({lu_bnd[1]}); float64: kernel {ms_sum[torch.float64]:.3f} ms, twin "
-        f"{plain_sum[torch.float64]:.3f} ms, lu_factor_ex "
-        f"{lib_sum[torch.float64]:.3f} ms")
 
     # the main path's one factorization is at x = 0 with the float32 prep
     params = prob.base_params()
@@ -725,6 +761,7 @@ def main() -> int:
     xc = torch.as_tensor(x, dtype=prob.dtype, device=dev)
     max_abs = max(max_abs, check_real_fronts(solver.precond, scaled32(xc),
                                              "converged"))
+    factor_split_ms(solver.precond, scaled32(x0), "cavity gmres+ndlu tree")
 
     # ---- 8. substitution kernel vs twin on the tpu_direct deck's factors
     t0 = time.perf_counter()
@@ -796,15 +833,14 @@ def main() -> int:
     if dx_paths > X_PATHS_TOL:
         raise RuntimeError(f"tpu_direct and gmres+ndlu solutions differ by "
                            f"{dx_paths:.3e} > {X_PATHS_TOL:.0e}")
-    front_ms, rest_ms = factor_split_ms(nd, dvals)
+    split = factor_split_ms(nd, dvals, "cavity tpu_direct tree")
     bD = dscale * R
     facs = nd.factor(dvals)
     solve_ms = median_ms(lambda: nd.solve(facs, bD), 10)
     solve_dev, solve_kern = device_ms(lambda: nd.solve(facs, bD), 5)
     fac_dev, fac_kern = device_ms(lambda: nd.factor(dvals), 3)
-    log(f"tpu_direct: one factorization {front_ms + rest_ms:.3f} ms = front "
-        f"assembly (NDLU.front, all levels) {front_ms:.3f} ms + the rest "
-        f"(factor_level) {rest_ms:.3f} ms; one NDLU.solve {solve_ms:.3f} ms "
+    log(f"tpu_direct: one factorization {sum(split.values()):.3f} ms (CUDA "
+        f"events, the split above); one NDLU.solve {solve_ms:.3f} ms "
         f"(CUDA events); device time (torch.profiler): factorization "
         f"{fac_dev:.3f} ms in {fac_kern:.0f} kernels, NDLU.solve "
         f"{solve_dev:.3f} ms in {solve_kern:.0f} kernels")
@@ -851,6 +887,11 @@ def main() -> int:
     # the front LU on the buoyant tree's own fronts (m up to 437), at the
     # state its one factorization runs at
     max_abs = max(max_abs, check_real_fronts(bnd, bvals, "buoyant x=0"))
+    bshapes = [(nn, m) for nn, m, _ in blev]
+    b_abs, b_lu_ms = lu_shapes(bshapes, "buoyant", time_twin=False)
+    max_abs = max(max_abs, b_abs)
+    b_lu_bnd = lu_bound(bshapes)
+    factor_split_ms(bnd, bvals, "buoyant tree")
     gather_abs = max(gather_abs, check_gathers(bnd, bvals, "buoyant tree"))
     g_times, g_bound = gather_times(bnd, bvals, "buoyant tree")
     bx_init = np.zeros(bprob.dofmap.n_dof)
@@ -921,11 +962,14 @@ def main() -> int:
         "launches_by_path": {"gmres+ndlu": launches, "tpu_direct": d_lu,
                              "buoyant gmres+ndlu": b_lu},
         "max_abs_err": max_abs,
-        "ms": ms_sum[torch.float32],
-        "plain_ms": plain_sum[torch.float32],
+        "ms": lu_ms[torch.float32][0],
+        "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
         "bound_by": lu_bnd[1],
-        "library_ms": lib_sum[torch.float32],
+        "library_ms": lu_ms[torch.float32][2],
+        "buoyant_ms": b_lu_ms[torch.float32][0],
+        "buoyant_library_ms": b_lu_ms[torch.float32][2],
+        "buoyant_bound_ms": b_lu_bnd[0],
     }, {
         "name": "batched_trsv",
         "route": "cuda",

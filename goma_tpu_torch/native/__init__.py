@@ -1,11 +1,11 @@
 """Host-native (C++) graph kernels for the port's setup phase.
 
-The C++ sources are the JAX package's own (``goma_tpu/native/graph.cpp``
-and ``meshprep.cpp``), compiled here BY PATH with g++ into
-``goma_tpu_torch/native/_build/`` and bound with ctypes. One source for
-both packages means both build the same CSR pattern and the same
-nested-dissection tree by construction, which the NDLU parity tests rely
-on. Nothing here imports ``goma_tpu``.
+The C++ sources ``graph.cpp`` and ``meshprep.cpp`` beside this module are
+the port's own copies of the JAX package's (``goma_tpu/native/``), compiled
+with g++ into ``goma_tpu_torch/native/_build/`` and bound with ctypes.
+Identical sources mean both packages build the same CSR pattern and the
+same nested-dissection tree, which the NDLU parity tests check. Nothing
+here imports or reads ``goma_tpu``.
 
 If compilation fails the numpy fallbacks are used, exactly as in
 ``goma_tpu.native``: same results for ``sort_unique``/``searchsorted``, a
@@ -22,7 +22,7 @@ from pathlib import Path
 
 import numpy as np
 
-_SRC = Path(__file__).resolve().parents[2] / "goma_tpu" / "native"
+_SRC = Path(__file__).resolve().parent
 _BUILD = Path(__file__).resolve().parent / "_build"
 _LIBS: dict[str, ctypes.CDLL | None] = {}
 

@@ -11,12 +11,13 @@ from the caller's saddle-last (``defer_dofs``) ordering.
 - For a CUDA tensor it launches the hand-written Hopper kernel
   ``csrc/batched_lu.cu``, which replaces the TPU kernel
   ``goma_tpu/solvers/pallas_lu.py::_lu_kernel``. On the H100 the kernel is
-  bound by latency: a chain of m dependent, block-synchronized steps with
-  about m^3/3 FMAs per front read from and written back to L2. Its design
-  answers correctness first: one CTA per front, the front in global memory
-  (L2-resident at the main path's m <= 323), one warp per trailing row
-  (coalesced row sweeps, no barrier between the column division and the
-  rank-1 update), full-precision FMA in the working dtype.
+  bound by the chain of m dependent column steps of each front, and on the
+  top levels by having 1-8 fronts for 132 SMs. Its design: a blocked
+  right-looking LU, each panel of ``nb`` columns factored in registers and
+  shared memory by every CTA of a thread-block cluster of ``C`` CTAs per
+  front, the trailing update split over the cluster in register tiles of
+  full-precision FMA, one cluster barrier per panel. :func:`_plan` gives
+  the launch plan; a launch the card refuses raises.
 - For a CPU tensor it runs :func:`batched_lu_reference`, the plain PyTorch
   twin. Nothing on the CUDA path calls the twin; it is what the CPU tests
   hold against goma_tpu and what the GPU kernel is checked against.
@@ -34,6 +35,54 @@ import torch
 from goma_tpu_torch import cuda_build
 
 _FN = {torch.float32: "batched_lu_f32", torch.float64: "batched_lu_f64"}
+_PLAN_FN = {torch.float32: "batched_lu_plan_f32",
+            torch.float64: "batched_lu_plan_f64"}
+# mirrored from csrc/batched_lu.cu: panel width per dtype, U12 columns
+# staged at once, the card's SMs, the largest m and shared memory per CTA
+_NB = {torch.float32: 32, torch.float64: 16}
+_UCOLS = 128
+_SMS = 132
+MAX_M = 1024
+MAX_SMEM = 232448
+
+
+def _plan(nn: int, m: int, dtype) -> tuple[int, int, int, int]:
+    """The kernel's launch plan for nn fronts of size m: (cluster size C,
+    panel width nb, threads per CTA, dynamic shared bytes per CTA).
+
+    C is the largest of 16, 8, 4, 2 with nn * C <= 132 (so the clusters
+    fill the SMs without a second wave), else 1, and 1 when the front is a
+    single panel (m <= nb). Each thread holds two panel rows, except the
+    first warp, which holds the nb pivot rows alone, so the block is the
+    smallest of 128, 256, 512 threads with 2 * threads - 32 >= m (512
+    threads up to m = 1024, the first warp then holding more). Shared
+    memory: the panel (nb columns, odd leading dimension m | 1), the U12
+    block (nb x 128), the panel's nb pivot rows, the boosted pivots, a
+    reduction and a ready counter.
+    ``csrc/batched_lu.cu::make_plan`` computes the same; ``kernel_plan``
+    reads it back from the library."""
+    nb = _NB[dtype]
+    threads = 128 if m <= 224 else (256 if m <= 480 else 512)
+    cluster = 1
+    if m > nb:
+        cluster = next((c for c in (16, 8, 4, 2) if nn * c <= _SMS), 1)
+    esize = torch.empty((), dtype=dtype).element_size()
+    smem = esize * (nb * ((m | 1) + _UCOLS + nb + 1) + 33)
+    return cluster, nb, threads, smem
+
+
+def kernel_plan(nn: int, m: int, dtype) -> tuple[int, int, int, int, int]:
+    """The library's own plan for (nn, m, dtype), as :func:`_plan`, and
+    the number of such clusters the card holds at once
+    (``cudaOccupancyMaxActiveClusters``). Needs the card."""
+    fn = getattr(cuda_build.load("batched_lu"), _PLAN_FN[dtype])
+    fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 5)()
+    err = fn(nn, m, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"batched_lu plan query failed: cudaError {err}")
+    return tuple(out)
 
 
 def _kernel(dtype):
@@ -77,6 +126,8 @@ def batched_lu(A, pivot_tol: float = 1e-8):
     if not A.is_contiguous():
         raise ValueError("batched_lu: input must be contiguous")
     nn, m, _ = A.shape
+    if m > MAX_M:
+        raise ValueError(f"batched_lu: m = {m} > {MAX_M}")
     out = torch.empty_like(A)
     fn = _kernel(A.dtype)
     with torch.cuda.device(A.device):

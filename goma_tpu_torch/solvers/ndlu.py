@@ -511,6 +511,11 @@ class NDLU:
         level's slot map by the front-gather kernel, the children's Schur
         complements ``S_prev`` by one-hot extend-add, identity on pad own
         slots."""
+        return self.extend_add(li, self.gather(li, vals_ext), S_prev)
+
+    def gather(self, li: int, vals_ext):
+        """Level ``li``'s fronts (nn, f, f) with the CSR values only: every
+        slot gathered from ``vals_ext`` by the front-gather kernel."""
         from goma_tpu_torch.solvers.front_gather import front_gather
 
         lev, tb = self.levels[li], self.tabs[li]
@@ -518,7 +523,12 @@ class NDLU:
             raise ValueError("NDLU.front takes front_values(vals), "
                              f"(nnz + 1,), got {tuple(vals_ext.shape)}")
         f = lev.smax + lev.bmax
-        F = front_gather(vals_ext, tb["gmap"]).view(lev.nn, f, f)
+        return front_gather(vals_ext, tb["gmap"]).view(lev.nn, f, f)
+
+    def extend_add(self, li: int, F, S_prev=None):
+        """``F`` (from ``gather``) plus the children's Schur complements
+        ``S_prev`` (one-hot extend-add) and identity on pad own slots."""
+        lev, tb = self.levels[li], self.tabs[li]
         if S_prev is not None and tb["p0"] is not None:
             for P, idx in ((tb["p0"], tb["i0"]), (tb["p1"], tb["i1"])):
                 F = F + P @ S_prev[idx] @ P.transpose(1, 2)
@@ -543,15 +553,25 @@ class NDLU:
         """Factor level ``li``'s assembled fronts ``F`` (from ``front``):
         returns ((fwd, bwd, X, Y), S) with S the Schur complements that the
         parent level extend-adds."""
+        return self.factor_rest(li, F, self.front_lu(li, F))
+
+    def front_lu(self, li: int, F):
+        """Packed LU of level ``li``'s fully-summed blocks (the front-LU
+        kernel)."""
         from goma_tpu_torch.solvers.batched_lu import batched_lu
 
-        lev = self.levels[li]
-        s = lev.smax
+        s = self.levels[li].smax
         if not 1 < s <= 1000:
             raise NotImplementedError(
                 f"NDLU level with s={s} outside the front kernel's gate "
                 f"1 < s <= 1000 (goma_tpu's library LU branch): {_LATER}")
-        lu = batched_lu(F[:, :s, :s].contiguous(), pivot_tol=self.pivot_tol)
+        return batched_lu(F[:, :s, :s].contiguous(), pivot_tol=self.pivot_tol)
+
+    def factor_rest(self, li: int, F, lu):
+        """The rest of ``factor_level`` after the front LU ``lu``: the
+        inverses (``invert=True``), X and Y, and the Schur complements."""
+        lev = self.levels[li]
+        s = lev.smax
         if self.invert:
             # invert ONCE so every later apply is a batched matvec
             eye = torch.eye(s, dtype=self.dtype,

@@ -20,7 +20,9 @@ import pytest
 import torch
 
 from goma_tpu.solvers.pallas_lu import batched_lu as jax_batched_lu
-from goma_tpu_torch.solvers.batched_lu import batched_lu, batched_lu_reference
+from goma_tpu_torch.solvers.batched_lu import (MAX_SMEM, _plan, batched_lu,
+                                               batched_lu_reference,
+                                               kernel_plan)
 from test_torch_host import TORCH_PKG, cavity
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
@@ -110,19 +112,76 @@ def test_launch_counter_counts_only_kernel_launches():
     assert batched_lu.launches == before
 
 
+# every (nn, m) level shape of the 64x64 cavity tree and the 48x48 buoyant
+# tree, and the ends of NDLU's gate 1 < m <= 1000
+CAVITY_LEVELS = [(218, 154), (128, 190), (64, 74), (32, 84), (16, 169),
+                 (8, 103), (4, 236), (2, 220), (1, 323)]
+BUOYANT_LEVELS = [(58, 165), (128, 256), (64, 92), (32, 116), (16, 170),
+                  (8, 171), (4, 345), (2, 216), (1, 437)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nn,m", CAVITY_LEVELS + BUOYANT_LEVELS
+                         + [(1, 2), (1, 1000)])
+def test_launch_plan_fits_the_card(nn, m, dtype):
+    """The cluster fills at most the 132 SMs, the panel rows fit the block
+    (two rows a thread) and the shared memory fits one CTA."""
+    cluster, nb, threads, smem = _plan(nn, m, dtype)
+    assert cluster in (1, 2, 4, 8, 16)
+    assert cluster == 1 or nn * cluster <= 132
+    assert cluster == 1 or m > nb
+    assert nb == (32 if dtype == torch.float32 else 16)
+    assert threads in (128, 256, 512) and m <= 2 * threads
+    assert smem <= MAX_SMEM
+
+
+def test_launch_plan_fills_the_top_levels():
+    """The top levels of the trees get more than one CTA per front."""
+    assert [_plan(nn, m, torch.float32)[0] for nn, m in BUOYANT_LEVELS] == \
+        [2, 1, 2, 4, 8, 16, 16, 16, 16]
+    assert _plan(1, 32, torch.float32)[0] == 1  # a single panel
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-11), (torch.float32, 1e-4)])
 def test_cuda_kernel_matches_twin(dtype, tol):
-    """The hand-written sm_90a kernel against its twin, on the card."""
+    """The hand-written sm_90a kernel against its twin, on the card: the
+    main paths' largest shapes, a ragged last panel (m = 33), the smallest
+    and largest m of the gate. The input stays unchanged and every boosted
+    pivot is +-tau."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
-    for nn, m in ((218, 154), (1, 323)):
+    for nn, m in ((218, 154), (1, 323), (1, 437), (4, 345), (2, 216),
+                  (128, 256), (3, 2), (5, 33), (1, 1000)):
         A = torch.as_tensor(boosted_fronts(nn, m, seed=m), dtype=dtype,
                             device="cuda")
+        A0 = A.clone()
         before = batched_lu.launches
         got = batched_lu(A)
         torch.cuda.synchronize()
         assert batched_lu.launches == before + 1
+        assert torch.equal(A, A0)
         ref = batched_lu_reference(A)
         err = ((got - ref).abs().max() / ref.abs().max()).item()
-        assert err <= tol
+        assert err <= tol, (nn, m, err)
+        tau = 1e-8 * A.diagonal(dim1=1, dim2=2).abs().amax(dim=1)
+        diag = got.diagonal(dim1=1, dim2=2)
+        # the decoupled pivots are untouched by earlier steps: each one
+        # below tau is boosted to +-tau by the sign of its original value
+        for k in {0, m // 3, m // 2, m - 1}:
+            a = A0[:, k, k]
+            want = torch.where(a.abs() < tau,
+                               torch.where(a < 0, -tau, tau), a)
+            torch.testing.assert_close(diag[:, k], want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.gpu
+def test_cuda_plan_matches_the_library():
+    """The wrapper's plan is the one the compiled kernel launches with."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    for dtype in (torch.float32, torch.float64):
+        for nn, m in CAVITY_LEVELS + BUOYANT_LEVELS + [(1, 2), (1, 1000)]:
+            got = kernel_plan(nn, m, dtype)
+            assert got[:4] == _plan(nn, m, dtype)
+            assert got[4] >= 1

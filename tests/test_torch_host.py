@@ -236,6 +236,23 @@ def test_port_imports_and_builds_without_jax():
     assert out.stdout.startswith("ok")
 
 
+@pytest.mark.parametrize("name", ["graph", "meshprep"])
+def test_native_sources_are_the_ports_own(name):
+    """The port compiles its own copy of each C++ source, inside
+    goma_tpu_torch/ (not goma_tpu's file by path), and the copy is
+    identical to goma_tpu's, so both packages build the same CSR pattern
+    and nested-dissection tree."""
+    from goma_tpu_torch import native
+
+    pkg = Path(goma_tpu_torch.fem.__file__).resolve().parents[1]
+    src = native._SRC / f"{name}.cpp"
+    assert src.resolve().is_relative_to(pkg)
+    assert src.read_bytes() == (REPO / "goma_tpu" / "native"
+                                / f"{name}.cpp").read_bytes()
+    so = native._compile(name, ("-pthread",) if name == "graph" else ())
+    assert so is not None and so.resolve().is_relative_to(pkg)
+
+
 @pytest.mark.parametrize("kw", [
     {"precond": "auto"}, {"precond": "twolevel"},
     {"precond": "ndlu", "linear_solver": "direct"},
