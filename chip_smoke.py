@@ -39,9 +39,14 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 8. the substitution kernel against its twin, float32 and float64, lower and
    upper, at all 9 ND level shapes of the ``tpu_direct`` deck: the real
    packed LUs of its factorization at x = 0, with the real own-segments of
-   one solve and with seeded random right-hand sides; print errors and the
-   median CUDA-event ms of the kernel, its loop twin and
-   ``torch.linalg.solve_triangular``, per shape and in total;
+   one solve and with seeded random right-hand sides; check the kernel's
+   launch plan against the wrapper's ``_plan`` on every call; print each
+   level's plan, errors, the median CUDA-event ms of the kernel, its loop
+   twin and ``torch.linalg.solve_triangular``, and the profiler's device ms
+   of kernel and library beside the bound (on no level may the kernel take
+   more device time than the library); in total also the host time per
+   call; then the device time of one dependent step (the slope between two
+   single fronts) and the chain floor it gives one solve;
 9. solve the 8x8 cavity with ``tpu_direct`` on the GPU and on the CPU and
    require the same Newton count and x within phase 4's bound;
 10. the ``tpu_direct`` main path on the 64x64 deck (``bench._cavity_opts(
@@ -69,7 +74,10 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
     the front-LU kernel against its twin on the real fronts of every level
     of its tree (m up to 437) at x = 0, and on random boosted fronts at its
     9 level shapes with the kernel, ``lu_factor_ex`` and bound timed as in
-    phase 3; the factorization split of phase 6; one warm-up solve,
+    phase 3; the factorization split of phase 6; the substitution kernel as
+    in phase 8 on the 18 substitutions of one solve of an
+    ``NDLU(invert=False)`` built on the same pattern and ordering (the same
+    tree, m up to 437; every level's packed LU kept); one warm-up solve,
     ``reset_lagged()``, one timed solve; require
     convergence to 1e-6 in 6 +- 1 Newton iterations (goma_tpu's record),
     and front-gather and front-LU launches = levels x factorizations; print
@@ -130,19 +138,23 @@ N_BUOY, RA, PR, BUOY_NEWTON = 48, 1e4, 0.71, 6
 # the hydrostatic pressure (Ra Pr = 7100) and pass 1e-5 + 1e-6 |x|
 BUOY_X_TOL = 1e-4
 # Substitution kernel vs twin, relative to max|twin x|: the kernel sums each
-# row by a column sweep of FMAs (float32 fronts in a float64 register), the
-# twin by a row dot in the working dtype, so they differ by the twin's
-# rounding. On the H100 the largest readings over the 18 substitutions of
-# one solve of the 64x64 tpu_direct deck, real and random right-hand sides,
-# are 1.97e-7 (float32) and 1.95e-15 (float64); the limits sit 10x above.
-# The float32 kernel's distance from the float64 twin is at most 1.0x the
-# float32 twin's in those readings (ACC_RATIO allows 2x).
+# row in blocks of FMAs in float64 registers (float32 fronts too), the twin
+# by a row dot in the working dtype, so they differ by the twin's rounding.
+# On the H100 the largest readings over the 18 substitutions of one solve
+# of the 64x64 tpu_direct deck and of the 48x48 buoyant tree, real and
+# random right-hand sides, are 2.63e-7 (float32) and 5.5e-16 (float64)
+# with the blocked kernel (1.97e-7 and 1.95e-15 with the column sweep it
+# replaced); the limits are the ones set for that sweep. The float32
+# kernel's distance from the float64 twin is at most 1.2x the float32
+# twin's in those readings, mostly 0.3-0.7x (ACC_RATIO allows 2x).
 TRSV_TOL = {torch.float32: 2e-6, torch.float64: 2e-14}
 # max |x_tpu_direct - x_gmres| over the 64x64 solution: both paths stop at
 # ||R||_2 <= 1e-6, GMRES's last inexact step at 6.3e-7 and tpu_direct's at
 # 6.8e-9, so they differ by the GMRES endpoint's error. H100 reading
 # 1.36e-5; the limit sits ~4x above.
 X_PATHS_TOL = 5e-5
+# device_ms's guard tensor and its kernel's name (_guard_kernel)
+_GUARD = []
 
 
 def log(msg):
@@ -338,23 +350,92 @@ def check_real_fronts(nd, vals, label):
     return max_abs
 
 
-def device_ms(fn, reps):
-    """Device time per call of ``fn`` (sum of its kernels' durations, ms)
-    and kernels launched per call, from torch.profiler, after one warm-up
-    call. Unlike CUDA events around a call, this leaves out the host's
-    launch overhead and the device's idle gaps."""
+def _guard_kernel():
+    """The guard of ``device_ms``: a one-element tensor, an in-place op on it
+    that nothing else in this script launches (int16 xor), and the name of
+    that op's kernel, learned once from a profiler window of guards only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if not _GUARD:
+        g = torch.zeros(1, dtype=torch.int16, device="cuda")
+        g.bitwise_xor_(1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                g.bitwise_xor_(1)
+            torch.cuda.synchronize()
+        names = {e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA}
+        if len(names) != 1:
+            raise RuntimeError("torch.profiler: a window of four guard "
+                               f"kernels holds the kernel names {names}")
+        _GUARD.extend([g, names.pop()])
+    return _GUARD
+
+
+def device_ms(fn, reps, launches=None):
+    """Device time per call of ``fn`` (sum of its kernels' durations, ms;
+    the mean over ``reps`` calls) and kernels launched per call, from
+    torch.profiler, after one warm-up call. Unlike CUDA events around a
+    call, this leaves out the host's launch overhead and the device's idle
+    gaps.
+
+    The profiler at times comes back without the record of the first
+    kernel launched in a window, for many windows in a row (a window of one
+    kernel is then empty, one of five reads 0.8x). So every call gets a
+    window of its own that opens with two guard kernels (``_guard_kernel``)
+    and closes with one; the guards' records are taken off by name. Only
+    complete windows count and nothing is scaled. A window is complete when
+    its first record is a guard's and it holds ``launches`` other records,
+    where the caller knows how many kernels one call launches; otherwise
+    the most other records seen in any window, with at least two windows
+    holding that many (lost records do not repeat the same count at the
+    top). Up to ``reps + 12`` windows are taken until ``reps`` are
+    complete; failing that, or on a window with more than ``launches``
+    records, it raises with the counts seen. Windows left out are
+    logged."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    guard, guard_name = _guard_kernel()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    need = reps if launches is not None else max(reps, 2)
+    counts, totals, full = [], [], []
+    for _ in range(reps + 12):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            guard.bitwise_xor_(1)
+            guard.bitwise_xor_(1)
             fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return (sum(e.device_time_total for e in kernels) / 1000.0 / reps,
-            len(kernels) / reps)
+            guard.bitwise_xor_(1)
+            torch.cuda.synchronize()
+        seen = sorted((e for e in prof.events()
+                       if e.device_type == DeviceType.CUDA),
+                      key=lambda e: e.time_range.start)
+        inner = [e for e in seen if e.name != guard_name]
+        if not seen or seen[0].name != guard_name:
+            inner = []  # the record lost at the start may be one of fn's
+        counts.append(len(inner))
+        totals.append(sum(e.device_time_total for e in inner) / 1000.0)
+        per_call = launches if launches is not None else max(counts)
+        if counts[-1] > per_call:
+            break
+        if counts[-1] < per_call:
+            time.sleep(0.05)
+        full = [t for c, t in zip(counts, totals) if c == per_call]
+        if per_call > 0 and len(full) >= need:
+            if len(full) < len(counts):
+                log(f"device_ms: {len(counts) - len(full)} of {len(counts)} "
+                    f"profiler windows lacked records and were left out "
+                    f"(records per window {counts})")
+            return sum(full) / len(full), per_call
+    raise RuntimeError("torch.profiler gave too few complete windows of "
+                       f"kernel records: wanted {need} with "
+                       f"{launches if launches is not None else 'the same top'}"
+                       f" records each, saw {counts}")
 
 
 def check_trsv(lu, rhs, lower, name):
@@ -377,14 +458,25 @@ def check_trsv(lu, rhs, lower, name):
     return got, ref, abs_err, rel
 
 
-def check_substitutions(calls):
-    """Phase 8: kernel vs twin on every recorded substitution (float32 as
-    recorded, and cast to float64), with its real right-hand side and a
-    seeded random one; the float32 kernel must be as accurate as the
-    float32 twin against the float64 twin. Returns (max abs err, per-dtype
-    total ms of kernel, twin, solve_triangular)."""
-    from goma_tpu_torch.solvers.batched_trsv import (batched_trsv,
-                                                     batched_trsv_reference)
+def check_substitutions(calls, label):
+    """Phase 8 (and 13): kernel vs twin on every recorded substitution
+    (float32 as recorded, and cast to float64), with its real right-hand
+    side and a seeded random one; the float32 kernel must be as accurate as
+    the float32 twin against the float64 twin; the kernel's launch plan
+    must be the wrapper's; on no level may the kernel take more device time
+    than ``torch.linalg.solve_triangular``. Returns {"max_abs", "ms":
+    per-dtype [kernel, twin, solve_triangular] sums of per-call CUDA-event
+    medians, "device_ms": {"kernel", "solve_triangular"} for one float32
+    solve's calls by the profiler, "run_ms": CUDA events around one solve's kernel calls,
+    "host_us": (run_ms - kernel device ms) per call}."""
+    from goma_tpu_torch.solvers.batched_trsv import (_plan, batched_trsv,
+                                                     batched_trsv_reference,
+                                                     kernel_plan)
+
+    def lib(lu, rhs, lower):
+        return torch.linalg.solve_triangular(lu, rhs.unsqueeze(2),
+                                             upper=not lower,
+                                             unitriangular=lower)
 
     max_abs = 0.0
     tot = {dt: [0.0, 0.0, 0.0] for dt in (torch.float32, torch.float64)}
@@ -392,13 +484,19 @@ def check_substitutions(calls):
     for ci, (lu32, seg32, lower) in enumerate(calls):
         li = ci if lower else 2 * n_lev - 1 - ci
         nn, m = seg32.shape
+        sweep = "lower" if lower else "upper"
+        for dt in (torch.float32, torch.float64):
+            plan = kernel_plan(nn, m, dt)
+            if plan[:4] != _plan(nn, m, dt) or plan[4] < 1:
+                raise RuntimeError(f"batched_trsv ({nn},{m}) {dt}: kernel plan "
+                                   f"{plan} != wrapper plan {_plan(nn, m, dt)}")
+        plan = kernel_plan(nn, m, torch.float32)
         rnd = torch.as_tensor(np.random.default_rng(ci).standard_normal(
             (nn, m)), device=lu32.device)
         lu64 = lu32.double()
         errs = []
         for kind, rhs in (("real", seg32.double()), ("random", rnd)):
-            name = (f"trsv level {li} (nn={nn}, m={m}) "
-                    f"{'lower' if lower else 'upper'} {kind}")
+            name = f"trsv {label} level {li} (nn={nn}, m={m}) {sweep} {kind}"
             got, ref, a32, r32 = check_trsv(lu32, rhs.float(), lower, name)
             _, exact, a64, r64 = check_trsv(lu64, rhs, lower, name + " float64")
             sc = exact.abs().max().item()
@@ -415,34 +513,73 @@ def check_substitutions(calls):
         ms = []
         for dt, lu, rhs in ((torch.float32, lu32, seg32),
                             (torch.float64, lu64, seg32.double())):
-            b3 = rhs.unsqueeze(2)
             t = (median_ms(lambda: batched_trsv(lu, rhs, lower), 20),
                  median_ms(lambda: batched_trsv_reference(lu, rhs, lower), 3),
-                 median_ms(lambda: torch.linalg.solve_triangular(
-                     lu, b3, upper=not lower, unitriangular=lower), 20))
+                 median_ms(lambda: lib(lu, rhs, lower), 20))
             tot[dt] = [a + b for a, b in zip(tot[dt], t)]
             ms.append(t)
-        log(f"trsv level {li} (nn={nn:3d}, m={m:3d}) "
-            f"{'lower' if lower else 'upper'}: {'; '.join(errs)}; ms f32 "
-            f"kernel/twin/solve_triangular {ms[0][0]:.3f}/{ms[0][1]:.3f}/"
-            f"{ms[0][2]:.3f}, f64 {ms[1][0]:.3f}/{ms[1][1]:.3f}/{ms[1][2]:.3f}")
-    for dt, (k, tw, lib) in tot.items():
-        log(f"trsv: one solve's substitutions ({len(calls)} calls), "
+        k_dev = device_ms(lambda: batched_trsv(lu32, seg32, lower), 5, 1)[0]
+        l_dev, l_kern = device_ms(lambda: lib(lu32, seg32, lower), 5)
+        log(f"trsv {label} level {li} (nn={nn:3d}, m={m:3d}) {sweep}: "
+            f"{plan[2]} threads, {plan[3]} B shared, {plan[4]} CTAs an SM; "
+            f"{'; '.join(errs)}; ms f32 kernel/twin/solve_triangular "
+            f"{ms[0][0]:.3f}/{ms[0][1]:.3f}/{ms[0][2]:.3f}, f64 {ms[1][0]:.3f}/"
+            f"{ms[1][1]:.3f}/{ms[1][2]:.3f}; f32 device ms kernel "
+            f"{k_dev:.4f} (1 record a call), solve_triangular {l_dev:.4f} "
+            f"({l_kern} records a call), bound "
+            f"{trsv_bound([(lu32, seg32, lower)])[0]:.5f}")
+        if k_dev > l_dev:
+            raise RuntimeError(f"trsv {label} level {li} {sweep}: the kernel "
+                               f"takes {k_dev:.4f} ms of device time, "
+                               f"solve_triangular {l_dev:.4f}")
+    for dt, (k, tw, lb) in tot.items():
+        log(f"trsv {label}: one solve's substitutions ({len(calls)} calls), "
             f"{str(dt)[6:]}: kernel {k:.3f} ms, twin {tw:.3f} ms, "
-            f"solve_triangular {lib:.3f} ms (CUDA events around each call)")
+            f"solve_triangular {lb:.3f} ms (CUDA events around each call)")
+    # the plain version's thousands of small kernels per solve are left to
+    # the event times above: no profiler window of them is complete
     runs = {
         "kernel": lambda: [batched_trsv(lu, b, lo) for lu, b, lo in calls],
-        "twin": lambda: [batched_trsv_reference(lu, b, lo)
-                         for lu, b, lo in calls],
-        "solve_triangular": lambda: [torch.linalg.solve_triangular(
-            lu, b.unsqueeze(2), upper=not lo, unitriangular=lo)
-            for lu, b, lo in calls],
+        "solve_triangular": lambda: [lib(lu, b, lo) for lu, b, lo in calls],
     }
-    dev = {k: device_ms(fn, 1 if k == "twin" else 5) for k, fn in runs.items()}
-    log("trsv: one solve's substitutions, float32, device time (torch."
-        "profiler): " + ", ".join(f"{k} {ms:.3f} ms in {n:.0f} kernels"
-                                  for k, (ms, n) in dev.items()))
-    return max_abs, tot
+    dev = {k: device_ms(fn, 5, len(calls) if k == "kernel" else None)
+           for k, fn in runs.items()}
+    run_ms = median_ms(runs["kernel"], 20)
+    host_us = 1e3 * (run_ms - dev["kernel"][0]) / len(calls)
+    log(f"trsv {label}: one solve's substitutions, float32, device time "
+        "(torch.profiler, complete windows only): "
+        + ", ".join(f"{k} {ms:.3f} ms in {n} kernels a call"
+                    for k, (ms, n) in dev.items())
+        + f"; CUDA events around the {len(calls)} kernel calls {run_ms:.3f} ms"
+        f", i.e. {host_us:.1f} us of host time per call above the kernel")
+    return {"max_abs": max_abs, "ms": tot,
+            "device_ms": {k: ms for k, (ms, _) in dev.items()},
+            "run_ms": run_ms, "host_us": host_us}
+
+
+def trsv_step_ns():
+    """Device ns per dependent step of the substitution kernel: the slope
+    between single float32 fronts of 224 and 448 rows (7 and 14 blocks, the
+    sizes of the trees' top fronts), lower and upper sweeps averaged. One
+    front's time is its steps times this, plus the kernel's start. The
+    largest front the kernel takes (1024 rows) is timed beside them."""
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+
+    t = {}
+    for m in (224, 448, 1024):
+        rng = np.random.default_rng(m)
+        A = rng.standard_normal((1, m, m)) / m
+        A[:, np.arange(m), np.arange(m)] += 2.0
+        lu = torch.as_tensor(A, dtype=torch.float32, device="cuda")
+        b = torch.as_tensor(rng.standard_normal((1, m)), dtype=torch.float32,
+                            device="cuda")
+        t[m] = sum(device_ms(lambda: batched_trsv(lu, b, lo), 10, 1)[0]
+                   for lo in (True, False)) / 2
+    step = 1e6 * (t[448] - t[224]) / 224
+    log(f"trsv: one dependent step costs {step:.1f} ns of device time "
+        f"(single fronts: m=224 {t[224]:.4f} ms, m=448 {t[448]:.4f} ms; "
+        f"m=1024 {t[1024]:.4f} ms, {1e6 * t[1024] / 1024:.1f} ns a step)")
+    return step
 
 
 def factor_split_ms(nd, vals, label, reps=5):
@@ -677,6 +814,8 @@ def main() -> int:
     from goma_tpu_torch.solvers.batched_lu import batched_lu
     from goma_tpu_torch.solvers.batched_trsv import batched_trsv
     from goma_tpu_torch.solvers.front_gather import front_gather
+    from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
+    from goma_tpu_torch.solvers.twolevel import _saddle_mask
 
     dev = torch.device("cuda", 0)
     card = gpu_line()
@@ -778,7 +917,13 @@ def main() -> int:
     if len(calls) != 2 * len(dlev):
         raise RuntimeError(f"one solve made {len(calls)} substitutions, "
                            f"not 2 x {len(dlev)} levels")
-    trsv_abs, trsv_ms = check_substitutions(calls)
+    trsv = check_substitutions(calls, "cavity")
+    step_ns = trsv_step_ns()
+    chain_floor_ms = 1e-6 * step_ns * sum(rhs.shape[1] for _, rhs, _ in calls)
+    log(f"trsv: chain floor of one cavity solve's {len(calls)} substitutions "
+        f"(sum of m x one step of this kernel as measured above: the "
+        f"design's own chain, not a limit of the card): "
+        f"{chain_floor_ms:.4f} ms; byte bound {trsv_bound(calls)[0]:.4f} ms")
 
     # ---- 9. small cross-check of the tpu_direct path: GPU vs CPU
     cross_check_8x8(direct_opts, "tpu_direct")
@@ -882,8 +1027,8 @@ def main() -> int:
         raise RuntimeError("buoyant tree has a level outside 1 < s <= 1000")
     bparams = bprob.base_params()
     bx0 = torch.zeros(bprob.dofmap.n_dof, dtype=bprob.dtype, device=dev)
-    bvals = bsolver._scaled_vals(bx0, bparams,
-                                 bsolver._prepare_fast(bx0, bparams)[2])
+    bR, _, bscale, _ = bsolver._prepare_fast(bx0, bparams)
+    bvals = bsolver._scaled_vals(bx0, bparams, bscale)
     # the front LU on the buoyant tree's own fronts (m up to 437), at the
     # state its one factorization runs at
     max_abs = max(max_abs, check_real_fronts(bnd, bvals, "buoyant x=0"))
@@ -892,6 +1037,30 @@ def main() -> int:
     max_abs = max(max_abs, b_abs)
     b_lu_bnd = lu_bound(bshapes)
     factor_split_ms(bnd, bvals, "buoyant tree")
+    # the substitution kernel on the buoyant tree (m up to 437, shapes the
+    # cavity never shows): a second NDLU of the same pattern, ordering and
+    # leaf size, built with invert=False as a tpu_direct solver builds its own
+    bo = bsolver.opts
+    bsub = NDLU(bprob.pattern, leaf_max=bo.ndlu_leaf_max, dtype=bnd.dtype,
+                defer_dofs=_saddle_mask(bprob), invert=False,
+                clusters=node_clusters(bprob) if bo.ndlu_cluster else None,
+                device=dev)
+    if [(lev.nn, lev.smax, lev.bmax) for lev in bsub.levels] != blev:
+        raise RuntimeError("the invert=False buoyant NDLU has another tree "
+                           "than the preconditioner's")
+    bfacs_sub = bsub.factor(bvals)
+    if not all(fwd is bwd and fwd.shape == (nn, m, m)
+               for (fwd, bwd, _, _), (nn, m, _) in zip(bfacs_sub, blev)):
+        raise RuntimeError("NDLU(invert=False).factor did not keep the packed "
+                           "LU of every level")
+    bcalls = []
+    bsub.solve(bfacs_sub, bscale * bR, trace=bcalls)
+    if len(bcalls) != 2 * len(blev):
+        raise RuntimeError(f"one buoyant solve made {len(bcalls)} "
+                           f"substitutions, not 2 x {len(blev)} levels")
+    btrsv = check_substitutions(bcalls, "buoyant")
+    btrsv_bnd = trsv_bound(bcalls)
+    del bsub, bfacs_sub, bcalls
     gather_abs = max(gather_abs, check_gathers(bnd, bvals, "buoyant tree"))
     g_times, g_bound = gather_times(bnd, bvals, "buoyant tree")
     bx_init = np.zeros(bprob.dofmap.n_dof)
@@ -977,12 +1146,23 @@ def main() -> int:
         "replaces": "goma_tpu/solvers/pallas_lu.py:67",
         "launches": d_trsv + b_trsv,
         "launches_by_path": {"tpu_direct": d_trsv},
-        "max_abs_err": trsv_abs,
-        "ms": trsv_ms[torch.float32][0],
-        "plain_ms": trsv_ms[torch.float32][1],
+        "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"]),
+        "ms": trsv["ms"][torch.float32][0],
+        "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
         "bound_by": trsv_bnd[1],
-        "library_ms": trsv_ms[torch.float32][2],
+        "library_ms": trsv["ms"][torch.float32][2],
+        "device_ms": trsv["device_ms"]["kernel"],
+        "library_device_ms": trsv["device_ms"]["solve_triangular"],
+        "run_ms": trsv["run_ms"],
+        "host_us_per_call": trsv["host_us"],
+        "step_ns": step_ns,
+        "chain_floor_ms": chain_floor_ms,
+        "buoyant_ms": btrsv["ms"][torch.float32][0],
+        "buoyant_library_ms": btrsv["ms"][torch.float32][2],
+        "buoyant_bound_ms": btrsv_bnd[0],
+        "buoyant_device_ms": btrsv["device_ms"]["kernel"],
+        "buoyant_library_device_ms": btrsv["device_ms"]["solve_triangular"],
     }, {
         "name": "front_gather",
         "route": "cuda",
