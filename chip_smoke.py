@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Three main paths, each read with its
+failure and when CUDA is unavailable. Six main paths, each read with its
 own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
-``tpu_direct`` (phases 8-10), and the buoyant-convection deck's
-``gmres+ndlu`` (phases 12-13). Phases:
+``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
+(phases 12-13), and the viscoelastic channel's ``gmres+ndlu`` (phase 15),
+``tpu_direct`` (phase 16) and transient start-up (phase 17). Phases:
 
 1. build every kernel, one nvcc per source, all started together: the
    front LU ``goma_tpu_torch/csrc/batched_lu.cu``, the front substitution
@@ -82,7 +83,37 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
     convergence to 1e-6 in 6 +- 1 Newton iterations (goma_tpu's record),
     and front-gather and front-LU launches = levels x factorizations; print
     the ND levels, norms, linear iterations, asm/slv and s/iteration, and
-    the gather times of phase 11 on its tree.
+    the gather times of phase 11 on its tree;
+14. the viscoelastic channel (bench.bench_viscoelastic, BASELINE config #4:
+    EVSS-F/DEVSS Oldroyd-B, Wi ~ 1.5, the generic AD assembly with 50 local
+    dofs) at 8x4 on cuda and on cpu, ``gmres+ndlu`` and ``tpu_direct``
+    with bench.py's options: the same Newton count, x within a stated bound;
+15. the viscoelastic ``gmres+ndlu`` main path at 64x32 (33,930 dof): the
+    front-LU kernel against its twin on the real fronts of every level of
+    its tree (s up to 604) at x = 0 and at the converged state, with each
+    level's growth and boosted pivots; random boosted fronts at its 9 level
+    shapes (kernel, twin, ``lu_factor_ex``, bound); the factorization split; the
+    gather exact and timed as in phase 11; one warm-up solve,
+    ``reset_lagged()``, one timed solve; require convergence to 1e-8 in
+    5 +- 1 Newton iterations (goma_tpu's record) and front-gather and
+    front-LU launches = levels x factorizations; print the ND levels, norms,
+    linear iterations, asm/slv, s/iteration and where an iteration's time
+    goes (prep, CSR values, factorization, apply: ms and kernels a call);
+16. the viscoelastic ``tpu_direct`` main path at 64x32: the substitution
+    kernel as in phase 8 on the 18 substitutions of one solve (m up to 604),
+    with the device ns per dependent step at the two top levels; the front
+    LU on that tree's real fronts; one warm-up solve, ``reset_lagged()``,
+    one timed solve; require convergence to 1e-8, substitution launches =
+    2 x levels x solves, front-LU and front-gather launches = levels x
+    factorizations, and x within a stated bound of phase 15's;
+17. the transient start-up through ``TransientSolver``: the deck with
+    ``transient=True`` on Momentum and VEStress, x0 = 0, backward Euler
+    dt 0.05 to t = 0.25 without adaptation, phase 15's Newton options; at
+    8x4 on cuda and on cpu (the same Newton count in every step, x within
+    phase 14's bound), then at 64x32: require 5 accepted steps of dt 0.05,
+    each converged, and front-LU and front-gather launches = levels x
+    factorizations; print every step record, the factorizations and s per
+    Newton iteration.
 
 The last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
@@ -111,7 +142,19 @@ import torch
 # and 10x below that floor. float64: readings <= 3.6e-15 (1e-16 roundoff).
 # Fronts with large growth (random Gaussian fronts without a weighted
 # diagonal reach 1e4-1e6) push any two float32 orderings apart by O(1);
-# they are not what the main path factors, so they are not checked here.
+# random fronts like that are not what the main path factors, so they are
+# not checked here. The viscoelastic tree's real fronts grow further than
+# the other decks': <= 5.5 at x = 0, but 233-662 on levels 1-4 (and 31.6
+# on the m=604 level) at the converged state, where the unpivoted
+# elimination of the stress and velocity-gradient rows meets small pivots
+# (none boosted). There the float32 rounding floor itself (twin vs float64
+# twin on the same block) reaches 1.0e-3 (level 4), and kernel vs twin
+# reads up to 3.1e-4 (level 4; 2.1e-4 on level 2), each within 2x that
+# floor (H100, the same readings in two runs): two float32 factorizations
+# cannot be required closer than their own floors. So a real front's
+# float32 limit is the larger of 2e-5 and ACC_RATIO x the twin's floor on
+# that block, and the kernel must still be within ACC_RATIO x the twin's
+# floor of float64 (check_real_fronts prints growth, floor and limit).
 TOL = {torch.float32: 2e-5, torch.float64: 1e-11}
 # The kernel's float32 LU must be as accurate as the twin's: its distance
 # from the float64 twin at most this multiple of the twin's (readings
@@ -153,6 +196,19 @@ TRSV_TOL = {torch.float32: 2e-6, torch.float64: 2e-14}
 # 6.8e-9, so they differ by the GMRES endpoint's error. H100 reading
 # 1.36e-5; the limit sits ~4x above.
 X_PATHS_TOL = 5e-5
+# viscoelastic channel (bench.bench_viscoelastic): 64x32 QUAD9, goma_tpu's
+# recorded Newton count (BENCH_r05.json: 5 iterations), its tolerance
+N_VE, VE_NEWTON, VE_TOL = 32, 5, 1e-8
+# max |x_cuda - x_cpu| / (1 + |x_cpu|) on the 8x4 viscoelastic deck (both
+# paths, and the transient start-up): both stop at ||R||_2 <= 1e-8 after
+# float32-Jacobian steps whose sums run in another order on the card; on the
+# CPU the port and goma_tpu read 3e-10 (gmres+ndlu) and 1.3e-10
+# (tpu_direct). The limit allows the last inexact GMRES step's error.
+VE_X_TOL = 1e-5
+# max |x_tpu_direct - x_gmres| / (1 + |x_gmres|) over the 64x32 solution:
+# GMRES's last step is inexact (eta >= 1e-3); on the CPU the two paths
+# differ by 2.4e-7 at 8x4 and 1.8e-7 at 16x8 (max|x| = 4)
+VE_PATHS_TOL = 1e-5
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -251,9 +307,9 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
-def check_kernel(A, name):
-    """Kernel vs twin on one batch; returns (kernel LU, twin LU, max abs
-    err, rel err)."""
+def check_kernel(A, name, tol=None):
+    """Kernel vs twin on one batch, within ``tol`` (by default ``TOL``);
+    returns (kernel LU, twin LU, max abs err, rel err)."""
     from goma_tpu_torch.solvers.batched_lu import batched_lu, batched_lu_reference
 
     before = batched_lu.launches
@@ -265,9 +321,10 @@ def check_kernel(A, name):
     abs_err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     rel = abs_err / scale
-    if not np.isfinite(rel) or rel > TOL[A.dtype]:
+    tol = TOL[A.dtype] if tol is None else tol
+    if not np.isfinite(rel) or rel > tol:
         raise RuntimeError(f"{name}: kernel vs twin rel err {rel:.3e} > "
-                           f"{TOL[A.dtype]:.0e}")
+                           f"{tol:.1e}")
     return got, ref, abs_err, rel
 
 
@@ -322,32 +379,52 @@ def check_real_fronts(nd, vals, label):
     complements, exactly as NDLU.factor does, in the factor dtype (float32),
     and the same blocks cast to float64. For float32 it also prints the
     distance of kernel and twin from the float64 twin on the same block:
-    the float32 rounding floor, which the kernel must share with the twin.
-    Returns the max abs error."""
+    the float32 rounding floor, which the kernel must share with the twin;
+    the float32 limit is ``TOL`` or, on a block whose floor is higher,
+    ``ACC_RATIO`` times the twin's floor (see ``TOL``). Returns the max abs
+    error."""
     vals_ext = nd.front_values(vals)
     max_abs = 0.0
     S = None
     for li, lev in enumerate(nd.levels):
         F = nd.front(li, vals_ext, S)
         A = F[:, :lev.smax, :lev.smax].contiguous()
-        got, ref, a_err, rel = check_kernel(A, f"{label} level {li} real fronts")
+        name = f"{label} level {li} real fronts"
+        got, ref, a_err, rel = check_kernel(A, name, tol=float("inf"))
         a64 = A.double()
-        _, exact, a_err64, rel64 = check_kernel(a64, f"{label} level {li} "
-                                                "real fronts float64")
+        _, exact, a_err64, rel64 = check_kernel(a64, name + " float64")
         sc = exact.abs().max().item()
         k64 = (got.double() - exact).abs().max().item() / sc
         t64 = (ref.double() - exact).abs().max().item() / sc
         grow = sc / a64.abs().max().item()
+        lim = max(TOL[torch.float32], ACC_RATIO * t64)
+        if not np.isfinite(rel) or rel > lim:
+            raise RuntimeError(f"{name}: kernel vs twin rel err {rel:.3e} > "
+                               f"{lim:.1e} (growth {grow:.2e}, twin vs float64 "
+                               f"{t64:.2e})")
+        # pivots the GESP boost set to +-tau (tau = 1e-8 max|diag A| a front)
+        tau = 1e-8 * A.diagonal(dim1=1, dim2=2).abs().amax(dim=1, keepdim=True)
+        piv = got.diagonal(dim1=1, dim2=2).abs()
+        boosted = int(((piv - tau).abs() <= 1e-6 * tau).sum())
         if k64 > ACC_RATIO * t64:
             raise RuntimeError(f"{label} level {li}: float32 kernel is {k64:.2e} "
                                f"from float64, the twin {t64:.2e}")
         log(f"real fronts {label} level {li} (nn={lev.nn:3d}, m={lev.smax:3d}): "
-            f"max|LU|/max|A| {grow:.2e}; float32 kernel vs twin {rel:.2e} "
-            f"(kernel vs float64 {k64:.2e}, twin vs float64 {t64:.2e}); "
+            f"max|LU|/max|A| {grow:.2e}, {boosted} boosted pivots; "
+            f"float32 kernel vs twin {rel:.2e} (limit {lim:.1e}; "
+            f"kernel vs float64 {k64:.2e}, twin vs float64 {t64:.2e}); "
             f"float64 kernel vs twin {rel64:.2e}")
         max_abs = max(max_abs, a_err, a_err64)
         _, S = nd.factor_level(li, F)
     return max_abs
+
+
+def mem_line() -> str:
+    """torch's device memory: allocated, reserved (cached) and the peak."""
+    g = 2 ** 30
+    return (f"torch memory {torch.cuda.memory_allocated() / g:.1f} GiB "
+            f"allocated, {torch.cuda.memory_reserved() / g:.1f} reserved, "
+            f"peak {torch.cuda.max_memory_allocated() / g:.1f}")
 
 
 def _guard_kernel():
@@ -375,26 +452,51 @@ def _guard_kernel():
     return _GUARD
 
 
-def device_ms(fn, reps, launches=None):
+def graph_ms(fn, reps=20):
+    """Device time per call of ``fn`` without the host's launch overhead and
+    without the profiler: ``reps`` calls captured in one CUDA graph (after a
+    warm-up call on the capture stream), the median of five replays between
+    two CUDA events, over ``reps``. The replay runs the kernels back to
+    back, so the time includes the ~1 us the card takes between two graph
+    nodes."""
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        fn()
+    torch.cuda.current_stream().wait_stream(s)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        for _ in range(reps):
+            fn()
+    return median_ms(g.replay, 5) / reps
+
+
+def device_ms(fn, reps, launches=None, required=True, graph=False):
     """Device time per call of ``fn`` (sum of its kernels' durations, ms;
     the mean over ``reps`` calls) and kernels launched per call, from
     torch.profiler, after one warm-up call. Unlike CUDA events around a
     call, this leaves out the host's launch overhead and the device's idle
     gaps.
 
-    The profiler at times comes back without the record of the first
-    kernel launched in a window, for many windows in a row (a window of one
-    kernel is then empty, one of five reads 0.8x). So every call gets a
-    window of its own that opens with two guard kernels (``_guard_kernel``)
-    and closes with one; the guards' records are taken off by name. Only
-    complete windows count and nothing is scaled. A window is complete when
-    its first record is a guard's and it holds ``launches`` other records,
-    where the caller knows how many kernels one call launches; otherwise
-    the most other records seen in any window, with at least two windows
-    holding that many (lost records do not repeat the same count at the
-    top). Up to ``reps + 12`` windows are taken until ``reps`` are
-    complete; failing that, or on a window with more than ``launches``
-    records, it raises with the counts seen. Windows left out are
+    The profiler at times comes back without the records of the first
+    kernels launched in a profiling session, and late in a long run (some
+    hundreds of sessions into the process) without most of a session's
+    records (on the viscoelastic tree, whatever the memory in use; a fresh
+    process reads the same tree whole). So one session times all ``reps``
+    calls: it opens with two guard kernels (``_guard_kernel``) and each
+    call is followed by one, and the records are cut at the guards into
+    one segment a call (records before the first guard are dropped). Only
+    complete segments count and nothing is scaled: a segment is complete
+    when it holds ``launches`` records, where the caller knows how many
+    kernels one call launches; otherwise the most records held by at least
+    two segments (a lost guard merges two calls into one segment, lost
+    records shorten one; neither repeats at the top). Up to three sessions
+    are taken until ``reps`` segments are complete. Failing that, where
+    ``fn`` can be captured in a CUDA graph (``graph=True``) it logs the
+    counts and times ``fn`` by ``graph_ms`` instead (kernels a call:
+    ``launches``); where the caller reads the number only as a diagnostic
+    (``required=False``) it logs the counts and returns (nan, None): not
+    measured; else it raises with the counts seen. Segments left out are
     logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -403,39 +505,54 @@ def device_ms(fn, reps, launches=None):
     fn()
     torch.cuda.synchronize()
     need = reps if launches is not None else max(reps, 2)
-    counts, totals, full = [], [], []
-    for _ in range(reps + 12):
+    counts, totals = [], []
+    for _ in range(3):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             guard.bitwise_xor_(1)
             guard.bitwise_xor_(1)
-            fn()
-            guard.bitwise_xor_(1)
+            for _ in range(reps):
+                fn()
+                guard.bitwise_xor_(1)
             torch.cuda.synchronize()
         seen = sorted((e for e in prof.events()
                        if e.device_type == DeviceType.CUDA),
                       key=lambda e: e.time_range.start)
-        inner = [e for e in seen if e.name != guard_name]
-        if not seen or seen[0].name != guard_name:
-            inner = []  # the record lost at the start may be one of fn's
-        counts.append(len(inner))
-        totals.append(sum(e.device_time_total for e in inner) / 1000.0)
-        per_call = launches if launches is not None else max(counts)
-        if counts[-1] > per_call:
-            break
-        if counts[-1] < per_call:
-            time.sleep(0.05)
+        seg = None
+        for e in seen:
+            if e.name != guard_name:
+                if seg is not None:
+                    seg.append(e)
+                continue
+            if seg:
+                counts.append(len(seg))
+                totals.append(sum(x.device_time_total for x in seg) / 1000.0)
+            seg = []
+        if launches is not None:
+            per_call = launches
+        else:
+            per_call = max((c for c in counts if counts.count(c) >= 2), default=0)
         full = [t for c, t in zip(counts, totals) if c == per_call]
         if per_call > 0 and len(full) >= need:
-            if len(full) < len(counts):
-                log(f"device_ms: {len(counts) - len(full)} of {len(counts)} "
-                    f"profiler windows lacked records and were left out "
-                    f"(records per window {counts})")
+            if len(full) < len(counts) or len(counts) < reps:
+                log(f"device_ms: {len(full)} complete segments of {per_call} "
+                    f"records (records per segment {counts})")
             return sum(full) / len(full), per_call
-    raise RuntimeError("torch.profiler gave too few complete windows of "
-                       f"kernel records: wanted {need} with "
-                       f"{launches if launches is not None else 'the same top'}"
-                       f" records each, saw {counts}")
+    free, total = torch.cuda.mem_get_info()
+    msg = ("torch.profiler gave too few complete segments of kernel records: "
+           f"wanted {need} with "
+           f"{launches if launches is not None else 'the same top'} records "
+           f"each, saw {counts} ({mem_line()}, {free / 2**30:.1f} of "
+           f"{total / 2**30:.1f} GiB free on the card)")
+    if graph:
+        ms = graph_ms(fn)
+        log(f"device_ms: {msg}; timed by CUDA-graph replay instead: "
+            f"{ms:.4f} ms a call")
+        return ms, launches
+    if required:
+        raise RuntimeError(msg)
+    log(f"device_ms: not measured ({msg})")
+    return float("nan"), None
 
 
 def check_trsv(lu, rhs, lower, name):
@@ -468,7 +585,8 @@ def check_substitutions(calls, label):
     per-dtype [kernel, twin, solve_triangular] sums of per-call CUDA-event
     medians, "device_ms": {"kernel", "solve_triangular"} for one float32
     solve's calls by the profiler, "run_ms": CUDA events around one solve's kernel calls,
-    "host_us": (run_ms - kernel device ms) per call}."""
+    "host_us": (run_ms - kernel device ms) per call, "levels": per call
+    (level, nn, m, lower, kernel device ms, solve_triangular device ms)}."""
     from goma_tpu_torch.solvers.batched_trsv import (_plan, batched_trsv,
                                                      batched_trsv_reference,
                                                      kernel_plan)
@@ -481,6 +599,7 @@ def check_substitutions(calls, label):
     max_abs = 0.0
     tot = {dt: [0.0, 0.0, 0.0] for dt in (torch.float32, torch.float64)}
     n_lev = len(calls) // 2
+    levels = []
     for ci, (lu32, seg32, lower) in enumerate(calls):
         li = ci if lower else 2 * n_lev - 1 - ci
         nn, m = seg32.shape
@@ -518,8 +637,10 @@ def check_substitutions(calls, label):
                  median_ms(lambda: lib(lu, rhs, lower), 20))
             tot[dt] = [a + b for a, b in zip(tot[dt], t)]
             ms.append(t)
-        k_dev = device_ms(lambda: batched_trsv(lu32, seg32, lower), 5, 1)[0]
-        l_dev, l_kern = device_ms(lambda: lib(lu32, seg32, lower), 5)
+        k_dev = device_ms(lambda: batched_trsv(lu32, seg32, lower), 5, 1,
+                          graph=True)[0]
+        l_dev, l_kern = device_ms(lambda: lib(lu32, seg32, lower), 5,
+                                  graph=True)
         log(f"trsv {label} level {li} (nn={nn:3d}, m={m:3d}) {sweep}: "
             f"{plan[2]} threads, {plan[3]} B shared, {plan[4]} CTAs an SM; "
             f"{'; '.join(errs)}; ms f32 kernel/twin/solve_triangular "
@@ -528,6 +649,7 @@ def check_substitutions(calls, label):
             f"{k_dev:.4f} (1 record a call), solve_triangular {l_dev:.4f} "
             f"({l_kern} records a call), bound "
             f"{trsv_bound([(lu32, seg32, lower)])[0]:.5f}")
+        levels.append((li, nn, m, lower, k_dev, l_dev))
         if k_dev > l_dev:
             raise RuntimeError(f"trsv {label} level {li} {sweep}: the kernel "
                                f"takes {k_dev:.4f} ms of device time, "
@@ -542,19 +664,20 @@ def check_substitutions(calls, label):
         "kernel": lambda: [batched_trsv(lu, b, lo) for lu, b, lo in calls],
         "solve_triangular": lambda: [lib(lu, b, lo) for lu, b, lo in calls],
     }
-    dev = {k: device_ms(fn, 5, len(calls) if k == "kernel" else None)
+    dev = {k: device_ms(fn, 5, len(calls) if k == "kernel" else None,
+                        graph=True)
            for k, fn in runs.items()}
     run_ms = median_ms(runs["kernel"], 20)
     host_us = 1e3 * (run_ms - dev["kernel"][0]) / len(calls)
     log(f"trsv {label}: one solve's substitutions, float32, device time "
-        "(torch.profiler, complete windows only): "
+        "(torch.profiler, complete windows only, or graph replay as logged): "
         + ", ".join(f"{k} {ms:.3f} ms in {n} kernels a call"
                     for k, (ms, n) in dev.items())
         + f"; CUDA events around the {len(calls)} kernel calls {run_ms:.3f} ms"
         f", i.e. {host_us:.1f} us of host time per call above the kernel")
     return {"max_abs": max_abs, "ms": tot,
             "device_ms": {k: ms for k, (ms, _) in dev.items()},
-            "run_ms": run_ms, "host_us": host_us}
+            "run_ms": run_ms, "host_us": host_us, "levels": levels}
 
 
 def trsv_step_ns():
@@ -715,7 +838,8 @@ def gather_times(nd, vals, label):
         "index_select": lambda: [torch.index_select(v, 0, g) for g in maps],
         "scatter_set": scatter_set,
     }
-    out = {k: (median_ms(fn, 10), device_ms(fn, 5)[0]) for k, fn in runs.items()}
+    out = {k: (median_ms(fn, 10), device_ms(fn, 5, required=False)[0])
+           for k, fn in runs.items()}
     slots = sum(g.numel() for g in maps)
     es = v.element_size()
     nbytes = (4 + es) * slots + es * v.numel()
@@ -805,15 +929,351 @@ def cross_check_8x8(opts_fn, label):
                            f"by {dx:.2e}")
 
 
+def ve_problem(n, device, transient=False):
+    """bench.bench_viscoelastic's deck restated (bench.py imports jax): the
+    EVSS-F/DEVSS Oldroyd-B channel on a (2n)x(n) QUAD9 mesh of [0, 2] x
+    [0, 1], lam = 1, mu_p = 1, mu_s = 0.5, pressure gradient G = 2 (Wi ~
+    1.5), u, v on Q2 and p, 3 stress and 4 velocity-gradient components on
+    Q1, the Newtonian profile at inflow and outflow. ``transient`` switches
+    the time derivative on in Momentum and VEStress (their defaults)."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import (Continuity, Momentum,
+                                        VelocityGradientProjection, VEStress)
+
+    lam, mu_p, mu_s, G, H = 1.0, 1.0, 0.5, 2.0, 1.0
+    mesh = rectangle_mesh(2 * n, n, elem="QUAD9", xlim=(0, 2.0), ylim=(0, H))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(
+        mesh,
+        [Momentum(dim=2, transient=transient, convection=False,
+                  ve_stress_modes=1, devss_mu=mu_p),
+         Continuity(),
+         VEStress(0, dim=2, lam=lam, mu_p=mu_p, model="oldroyd_b",
+                  interp="Q1", transient=transient),
+         VelocityGradientProjection(dim=2, interp="Q1")],
+        {"rho": 0.0, "mu": mu_s, "body_force": np.array([G, 0.0])},
+        device=device)
+    uex = lambda c: G / (2 * (mu_p + mu_s)) * c[:, 1] * (H - c[:, 1])  # noqa: E731
+    for ns in ("top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "velocity", 0, uex)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    prob.jacobian_dtype = torch.float32
+    return prob
+
+
+def ve_opts():
+    """bench.bench_viscoelastic("gmres_ndlu")'s options restated."""
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    return NewtonOptions(max_iter=25, tol_residual=VE_TOL, linear_tol=1e-4,
+                         precond="ndlu", linear_solver="gmres",
+                         gmres_restart=60, linear_maxiter=240,
+                         ndlu_leaf_max=192, ew_eta_floor=1e-3,
+                         ew_endgame="standard")
+
+
+def ve_direct_opts():
+    """bench.bench_viscoelastic("tpu_direct")'s options restated."""
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    return NewtonOptions(max_iter=25, tol_residual=VE_TOL,
+                         linear_solver="tpu_direct", ndlu_leaf_max=192)
+
+
+def ve_time_opts():
+    """Phase 17's time stepping: backward Euler, dt 0.05 to t = 0.25, no
+    adaptation (on this DAE deck goma_tpu's adaptive controller collapses
+    dt on the algebraic pressure and gradient rows)."""
+    from goma_tpu_torch.solvers.transient import TimeOptions
+
+    return TimeOptions(dt0=0.05, t_end=0.25, theta=0.0, adapt=False)
+
+
+def rel_dx(a, b):
+    """max |a - b| / (1 + |b|)."""
+    return float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
+
+
+def warm_then_timed(solver, x_init, params, label):
+    """The main-path protocol: one warm-up solve, ``reset_lagged()``, every
+    factorization, solve and launch count set to 0, one timed solve.
+    Returns (result, seconds, {"lu", "trsv", "gather": launches})."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+
+    t0 = time.perf_counter()
+    res_w = solver.solve(x_init, params)
+    torch.cuda.synchronize()
+    log(f"{label} warm-up: {time.perf_counter() - t0:.2f} s, "
+        f"iters={res_w.iters}, lin={res_w.linear_iters}, "
+        f"converged={res_w.converged}")
+    solver.reset_lagged()
+    solver.n_factor = solver._ndlu_nfactor = 0
+    solver.direct_log = []
+    if solver._ndlu is not None:
+        solver._ndlu.n_solve = 0
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve(x_init, params)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+                "gather": front_gather.launches}
+    iters = max(res.iters, 1)
+    log(res.summary())
+    for i, (sweeps, rel, fresh) in enumerate(solver.direct_log):
+        log(f"{label} it {i}: {sweeps} refinement sweeps, rel residual "
+            f"{rel:.3e}, {'fresh' if fresh else 'lagged'} factor")
+    solves = (f" NDLU solves={solver._ndlu.n_solve}"
+              if solver._ndlu is not None else "")
+    log(f"{label}: iters={res.iters} converged={res.converged} "
+        f"lin={res.linear_iters} factorizations="
+        f"{solver.n_factor + solver._ndlu_nfactor}{solves} front-LU launches="
+        f"{launches['lu']} front-gather launches={launches['gather']} "
+        f"substitution launches={launches['trsv']}")
+    log(f"{label}: asm {res.assembly_time / iters * 1000:.1f} ms + slv "
+        f"{res.solve_time / iters * 1000:.1f} ms per iteration, "
+        f"{sec / iters:.4f} s/iter (total {sec:.3f} s)")
+    return res, sec, launches
+
+
+def where_time_goes(prob, nd, vals, x0, params, label):
+    """Median CUDA-event ms and profiler device ms (kernels a call) of each
+    piece of an iteration's work: the vals-free prep, the CSR values, one
+    factorization of ``nd`` and one apply (``NDLU.solve``)."""
+    facs = nd.factor(vals)
+    rb = torch.ones(prob.dofmap.n_dof, dtype=nd.dtype, device=vals.device)
+    pieces = {
+        "prep (_assemble_fast)": lambda: prob._assemble_fast(x0, params),
+        "CSR values (_assemble_with_elem)":
+            lambda: prob._assemble_with_elem(x0, params),
+        "factorization (NDLU.factor)": lambda: nd.factor(vals),
+        "apply (NDLU.solve)": lambda: nd.solve(facs, rb),
+    }
+    for name, fn in pieces.items():
+        ev_ms = median_ms(fn, 5)
+        dv_ms, n_k = device_ms(fn, 3, required=False)
+        log(f"{label}: {name} {ev_ms:.3f} ms (CUDA events), {dv_ms:.3f} ms "
+            f"device time in {n_k} kernels")
+
+
+def nd_levels(nd):
+    """(nn, s, b) of every level of ``nd``, checked against the front
+    kernels' gate 1 < s <= 1000."""
+    levels = [(lev.nn, lev.smax, lev.bmax) for lev in nd.levels]
+    if not all(1 < m <= 1000 for _, m, _ in levels):
+        raise RuntimeError(f"ND tree has a level outside 1 < s <= 1000: {levels}")
+    return levels
+
+
+def cross_check_ve(devices=("cuda", "cpu")):
+    """Phases 14 and 17 (first part): the 8x4 viscoelastic deck on each of
+    ``devices``, ``gmres+ndlu`` and ``tpu_direct`` steady and the transient
+    start-up; the same Newton counts (every step's), x within VE_X_TOL."""
+    from goma_tpu_torch.solvers import NewtonSolver
+    from goma_tpu_torch.solvers.transient import TransientSolver
+
+    runs = {"gmres+ndlu": ve_opts, "tpu_direct": ve_direct_opts,
+            "transient": ve_opts}
+    for label, opts_fn in runs.items():
+        its, xs = {}, {}
+        for d in devices:
+            p = ve_problem(4, torch.device(d), transient=label == "transient")
+            x0 = np.zeros(p.dofmap.n_dof)
+            if label == "transient":
+                r = TransientSolver(p, opts_fn(), ve_time_opts()).run(
+                    x0, p.base_params())
+                if len(r.steps) != 5 or not all(s.converged for s in r.steps):
+                    raise RuntimeError(f"8x4 VE start-up on {d}: {r.steps}")
+                its[d] = [s.newton_iters for s in r.steps]
+            else:
+                r = NewtonSolver(p, opts_fn()).solve(x0, p.base_params())
+                if not r.converged:
+                    raise RuntimeError(f"8x4 VE deck {label} did not converge "
+                                       f"on {d}:\n{r.summary()}")
+                its[d] = r.iters
+                log(f"8x4 VE {label} on {d}: Newton {r.iters}, linear "
+                    f"{r.linear_iters}, ||R||_2 {r.res_norms[-1][1]:.3e}")
+            xs[d] = r.x
+        a, b = devices
+        dx = rel_dx(xs[a], xs[b])
+        log(f"cross-check 8x4 viscoelastic {label}: Newton {a} {its[a]} {b} "
+            f"{its[b]}, max |x_{a} - x_{b}| / (1 + |x_{b}|) = {dx:.2e}")
+        if its[a] != its[b] or dx > VE_X_TOL:
+            raise RuntimeError(f"8x4 viscoelastic {label}: {a} and {b} differ "
+                               f"(Newton {its}, x {dx:.2e} > {VE_X_TOL:.0e})")
+
+
+def ve_gmres_phase(dev):
+    """Phase 15: the viscoelastic gmres+ndlu main path at 64x32 and the
+    kernels on its tree. Returns the numbers the kernel summary reads."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    t0 = time.perf_counter()
+    prob = ve_problem(N_VE, dev)
+    solver = NewtonSolver(prob, ve_opts())
+    nd = solver.precond
+    levels = nd_levels(nd)
+    slots = sum(nn * (m + b) ** 2 for nn, m, b in levels)
+    log(f"viscoelastic setup: {2 * N_VE}x{N_VE}, {prob.dofmap.n_dof} dof, "
+        f"{prob.pattern.nnz} nnz, {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}, {slots} front slots, {time.perf_counter() - t0:.1f} s")
+    params = prob.base_params()
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+
+    def scaled(x):
+        """The CSR values the main path factors at ``x``."""
+        return solver._scaled_vals(x, params, solver._prepare_fast(x, params)[2])
+
+    vals = scaled(x0)
+    max_abs = check_real_fronts(nd, vals, "viscoelastic x=0")
+    shapes = [(nn, m) for nn, m, _ in levels]
+    lu_abs, lu_ms = lu_shapes(shapes, "viscoelastic", time_twin=True)
+    factor_split_ms(nd, vals, "viscoelastic tree")
+    gather_abs = check_gathers(nd, vals, "viscoelastic tree")
+    g_times, g_bound = gather_times(nd, vals, "viscoelastic tree")
+
+    res, _, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof), params,
+                                 "viscoelastic gmres+ndlu")
+    if not res.converged or res.res_norms[-1][1] > VE_TOL:
+        raise RuntimeError(f"viscoelastic main path did not converge to {VE_TOL}")
+    if abs(res.iters - VE_NEWTON) > 1:
+        raise RuntimeError(f"viscoelastic main path took {res.iters} Newton "
+                           f"iterations, not {VE_NEWTON} +- 1")
+    nf = solver.n_factor
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"viscoelastic front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != "
+                           f"{len(levels)} levels x {nf} factorizations")
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError("viscoelastic solution has the wrong shape or "
+                           "non-finite values")
+    xc = torch.as_tensor(x, dtype=prob.dtype, device=dev)
+    max_abs = max(max_abs, lu_abs,
+                  check_real_fronts(nd, scaled(xc), "viscoelastic converged"))
+    where_time_goes(prob, nd, vals, x0, params, "viscoelastic")
+    return {"prob": prob, "x": x, "launches": ln, "max_abs": max_abs,
+            "lu_ms": lu_ms, "lu_bound": lu_bound(shapes),
+            "gather_abs": gather_abs, "g_times": g_times, "g_bound": g_bound}
+
+
+def ve_direct_phase(dev, prob, x_gmres):
+    """Phase 16: the viscoelastic tpu_direct main path at 64x32 and the
+    substitution kernel on its tree. Returns the numbers the kernel summary
+    reads."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    t0 = time.perf_counter()
+    solver = NewtonSolver(prob, ve_direct_opts())
+    params = prob.base_params()
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+    R, vals, _, scale = solver._prepare_direct(x0, params)
+    nd = solver._direct_ndlu(vals)
+    levels = nd_levels(nd)
+    log(f"viscoelastic tpu_direct setup: {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}, {time.perf_counter() - t0:.1f} s")
+    max_abs = check_real_fronts(nd, vals, "viscoelastic tpu_direct x=0")
+    calls = []
+    nd.solve(nd.factor(vals), scale * R, trace=calls)
+    if len(calls) != 2 * len(levels):
+        raise RuntimeError(f"one viscoelastic solve made {len(calls)} "
+                           f"substitutions, not 2 x {len(levels)} levels")
+    trsv = check_substitutions(calls, "viscoelastic")
+    # device ns per dependent step of the two top levels, lower and upper
+    # sweeps averaged: each front's m steps run one after another
+    step_ns = {}
+    for li in (len(levels) - 2, len(levels) - 1):
+        t = [1e6 * k / m for lv, nn, m, _, k, _ in trsv["levels"] if lv == li]
+        nn, m, _ = levels[li]
+        step_ns[f"({nn}, {m})"] = sum(t) / len(t)
+    log(f"trsv viscoelastic: device ns per dependent step (level device time "
+        f"/ m, both sweeps averaged): " + ", ".join(
+            f"level {k} {v:.1f} ns" for k, v in step_ns.items()))
+
+    res, _, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof), params,
+                                 "viscoelastic tpu_direct")
+    if not res.converged or res.res_norms[-1][1] > VE_TOL:
+        raise RuntimeError(f"viscoelastic tpu_direct did not converge to {VE_TOL}")
+    solves, nf = nd.n_solve, solver._ndlu_nfactor
+    if solves < 1 or ln["trsv"] != 2 * len(levels) * solves:
+        raise RuntimeError(f"viscoelastic substitution launches {ln['trsv']} "
+                           f"!= 2 x {len(levels)} levels x {solves} solves")
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"viscoelastic tpu_direct front-LU launches "
+                           f"{ln['lu']} / front-gather launches {ln['gather']} "
+                           f"!= {len(levels)} levels x {nf} factorizations")
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError("viscoelastic tpu_direct solution has the wrong "
+                           "shape or non-finite values")
+    dx = rel_dx(x, x_gmres)
+    log(f"viscoelastic tpu_direct vs gmres+ndlu: max |x_direct - x_gmres| / "
+        f"(1 + |x_gmres|) = {dx:.3e}")
+    if dx > VE_PATHS_TOL:
+        raise RuntimeError(f"viscoelastic tpu_direct and gmres+ndlu solutions "
+                           f"differ by {dx:.3e} > {VE_PATHS_TOL:.0e}")
+    factor_split_ms(nd, vals, "viscoelastic tpu_direct tree")
+    return {"launches": ln, "max_abs": max_abs, "trsv": trsv,
+            "bound": trsv_bound(calls), "step_ns": step_ns}
+
+
+def ve_transient_phase(dev):
+    """Phase 17 (second part): the start-up of the 64x32 deck through
+    ``TransientSolver``. Returns the launch counts."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+    from goma_tpu_torch.solvers.transient import TransientSolver
+
+    t0 = time.perf_counter()
+    prob = ve_problem(N_VE, dev, transient=True)
+    ts = TransientSolver(prob, ve_opts(), ve_time_opts())
+    n_lev = len(nd_levels(ts.newton.precond))
+    log(f"viscoelastic transient setup: {time.perf_counter() - t0:.1f} s")
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ts.run(np.zeros(prob.dofmap.n_dof), prob.base_params())
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+          "gather": front_gather.launches}
+    for s in r.steps:
+        log(f"viscoelastic transient step: {s}")
+    nf = ts.newton.n_factor
+    its = sum(s.newton_iters for s in r.steps)
+    log(f"viscoelastic transient: {len(r.steps)} steps to t = {r.t:.4f}, "
+        f"{its} Newton iterations, {nf} factorizations, front-LU launches "
+        f"{ln['lu']}, front-gather launches {ln['gather']}; {sec:.3f} s, "
+        f"{sec / max(its, 1):.4f} s per Newton iteration")
+    if (len(r.steps) != 5 or r.n_failures or abs(r.t - 0.25) > 1e-12
+            or not all(s.converged and abs(s.dt - 0.05) < 1e-12 for s in r.steps)):
+        raise RuntimeError(f"viscoelastic start-up did not take 5 converged "
+                           f"steps of dt 0.05: {r.steps}")
+    if nf < 1 or ln["lu"] != n_lev * nf or ln["gather"] != n_lev * nf:
+        raise RuntimeError(f"viscoelastic transient front-LU launches "
+                           f"{ln['lu']} / front-gather launches {ln['gather']} "
+                           f"!= {n_lev} levels x {nf} factorizations")
+    if not np.all(np.isfinite(r.x)):
+        raise RuntimeError("viscoelastic start-up state is not finite")
+    return ln
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
                          "runs the port on a GPU only)")
     from goma_tpu_torch import cuda_build
     from goma_tpu_torch.solvers import NewtonSolver
-    from goma_tpu_torch.solvers.batched_lu import batched_lu
-    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
-    from goma_tpu_torch.solvers.front_gather import front_gather
     from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
     from goma_tpu_torch.solvers.twolevel import _saddle_mask
 
@@ -860,29 +1320,8 @@ def main() -> int:
 
     # ---- 5. main path
     x_init = np.zeros(prob.dofmap.n_dof)
-    t0 = time.perf_counter()
-    res_w = solver.solve(x_init, params)
-    torch.cuda.synchronize()
-    tw = time.perf_counter() - t0
-    log(f"main path warm-up: {tw:.2f} s, iters={res_w.iters}, "
-        f"lin={res_w.linear_iters}, converged={res_w.converged}")
-    solver.reset_lagged()
-    batched_lu.launches = front_gather.launches = batched_trsv.launches = 0
-    solver.n_factor = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = solver.solve(x_init, params)
-    torch.cuda.synchronize()
-    t_total = time.perf_counter() - t0
-    launches, g_launches = batched_lu.launches, front_gather.launches
-    iters = max(res.iters, 1)
-    log(res.summary())
-    log(f"main path: iters={res.iters} converged={res.converged} "
-        f"lin={res.linear_iters} factorizations={solver.n_factor} "
-        f"front-LU launches={launches} front-gather launches={g_launches}")
-    log(f"main path: asm {res.assembly_time / iters * 1000:.1f} ms + slv "
-        f"{res.solve_time / iters * 1000:.1f} ms per iteration, "
-        f"{t_total / iters:.4f} s/iter (total {t_total:.3f} s)")
+    res, _, ln = warm_then_timed(solver, x_init, params, "main path")
+    launches, g_launches = ln["lu"], ln["gather"]
     if not res.converged or res.res_norms[-1][1] > 1e-6:
         raise RuntimeError("main path did not converge to 1e-6")
     if solver.n_factor < 1 or launches != len(levels) * solver.n_factor:
@@ -929,36 +1368,9 @@ def main() -> int:
     cross_check_8x8(direct_opts, "tpu_direct")
 
     # ---- 10. the tpu_direct main path
-    t0 = time.perf_counter()
-    res_w = dsolver.solve(x_init, params)
-    torch.cuda.synchronize()
-    log(f"tpu_direct warm-up: {time.perf_counter() - t0:.2f} s, "
-        f"iters={res_w.iters}, converged={res_w.converged}")
-    dsolver.reset_lagged()
-    dsolver.direct_log = []
-    dsolver._ndlu_nfactor = 0
-    nd.n_solve = 0
-    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    dres = dsolver.solve(x_init, params)
-    torch.cuda.synchronize()
-    dt_total = time.perf_counter() - t0
-    d_trsv, d_lu = batched_trsv.launches, batched_lu.launches
-    d_gather = front_gather.launches
+    dres, _, ln = warm_then_timed(dsolver, x_init, params, "tpu_direct")
+    d_trsv, d_lu, d_gather = ln["trsv"], ln["lu"], ln["gather"]
     d_solves, d_fac = nd.n_solve, dsolver._ndlu_nfactor
-    diters = max(dres.iters, 1)
-    log(dres.summary())
-    for i, (sweeps, rel, fresh) in enumerate(dsolver.direct_log):
-        log(f"tpu_direct it {i}: {sweeps} refinement sweeps, rel residual "
-            f"{rel:.3e}, {'fresh' if fresh else 'lagged'} factor")
-    log(f"tpu_direct: iters={dres.iters} converged={dres.converged} "
-        f"factorizations={d_fac} NDLU solves={d_solves} front-LU launches="
-        f"{d_lu} front-gather launches={d_gather} substitution launches="
-        f"{d_trsv}")
-    log(f"tpu_direct: asm {dres.assembly_time / diters * 1000:.1f} ms + slv "
-        f"{dres.solve_time / diters * 1000:.1f} ms per iteration, "
-        f"{dt_total / diters:.4f} s/iter (total {dt_total:.3f} s)")
     if not dres.converged or dres.res_norms[-1][1] > 1e-6:
         raise RuntimeError("tpu_direct main path did not converge to 1e-6")
     if d_solves < 1 or d_trsv != 2 * len(dlev) * d_solves:
@@ -1063,32 +1475,9 @@ def main() -> int:
     del bsub, bfacs_sub, bcalls
     gather_abs = max(gather_abs, check_gathers(bnd, bvals, "buoyant tree"))
     g_times, g_bound = gather_times(bnd, bvals, "buoyant tree")
-    bx_init = np.zeros(bprob.dofmap.n_dof)
-    t0 = time.perf_counter()
-    res_w = bsolver.solve(bx_init, bparams)
-    torch.cuda.synchronize()
-    log(f"buoyant warm-up: {time.perf_counter() - t0:.2f} s, "
-        f"iters={res_w.iters}, lin={res_w.linear_iters}, "
-        f"converged={res_w.converged}")
-    bsolver.reset_lagged()
-    bsolver.n_factor = 0
-    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    bres = bsolver.solve(bx_init, bparams)
-    torch.cuda.synchronize()
-    bt_total = time.perf_counter() - t0
-    b_lu, b_gather, b_trsv = (batched_lu.launches, front_gather.launches,
-                              batched_trsv.launches)
-    biters = max(bres.iters, 1)
-    log(bres.summary())
-    log(f"buoyant: iters={bres.iters} converged={bres.converged} "
-        f"lin={bres.linear_iters} factorizations={bsolver.n_factor} "
-        f"front-LU launches={b_lu} front-gather launches={b_gather} "
-        f"substitution launches={b_trsv}")
-    log(f"buoyant: asm {bres.assembly_time / biters * 1000:.1f} ms + slv "
-        f"{bres.solve_time / biters * 1000:.1f} ms per iteration, "
-        f"{bt_total / biters:.4f} s/iter (total {bt_total:.3f} s)")
+    bres, _, ln = warm_then_timed(bsolver, np.zeros(bprob.dofmap.n_dof),
+                                  bparams, "buoyant")
+    b_lu, b_gather, b_trsv = ln["lu"], ln["gather"], ln["trsv"]
     if not bres.converged or bres.res_norms[-1][1] > 1e-6:
         raise RuntimeError("buoyant main path did not converge to 1e-6")
     if abs(bres.iters - BUOY_NEWTON) > 1:
@@ -1103,34 +1492,38 @@ def main() -> int:
     if bx.shape != (bprob.dofmap.n_dof,) or not np.all(np.isfinite(bx)):
         raise RuntimeError("buoyant solution has the wrong shape or "
                            "non-finite values")
-    # where a buoyant iteration's time goes: median CUDA-event ms and
-    # profiler device ms (kernels per call) of each piece of work
-    bfacs = bnd.factor(bvals)
-    rb = torch.ones(bprob.dofmap.n_dof, dtype=bnd.dtype, device=dev)
-    pieces = {
-        "prep (_assemble_fast)": lambda: bprob._assemble_fast(bx0, bparams),
-        "CSR values (_assemble_with_elem)":
-            lambda: bprob._assemble_with_elem(bx0, bparams),
-        "factorization (NDLU.factor)": lambda: bnd.factor(bvals),
-        "preconditioner apply (NDLU.solve)": lambda: bnd.solve(bfacs, rb),
-    }
-    for name, fn in pieces.items():
-        ev_ms = median_ms(fn, 5)
-        dv_ms, n_k = device_ms(fn, 3)
-        log(f"buoyant: {name} {ev_ms:.3f} ms (CUDA events), {dv_ms:.3f} ms "
-            f"device time in {n_k:.0f} kernels")
+    where_time_goes(bprob, bnd, bvals, bx0, bparams, "buoyant")
+    del bprob, bsolver, bnd, bvals
 
-    # ---- 14. kernel summary
+    # ---- 14. small cross-check of the viscoelastic deck: GPU vs CPU
+    log(f"before the viscoelastic phases: {mem_line()}")
+    cross_check_ve()
+
+    # ---- 15.-16. the viscoelastic main paths (64x32)
+    ve = ve_gmres_phase(dev)
+    vd = ve_direct_phase(dev, ve.pop("prob"), ve["x"])
+
+    # ---- 17. the transient start-up (the 8x4 cross-check ran in phase 14)
+    vt = ve_transient_phase(dev)
+    log(f"after the viscoelastic phases: {mem_line()}")
+
+    # ---- 18. kernel summary
     trsv_bnd = trsv_bound(calls)
+    ve_paths = {"viscoelastic gmres+ndlu": ve["launches"],
+                "viscoelastic tpu_direct": vd["launches"],
+                "viscoelastic transient": vt}
+
+    def ve_launches(kind):
+        return {k: ln[kind] for k, ln in ve_paths.items()}
     print(json.dumps({"kernels": [{
         "name": "batched_lu",
         "route": "cuda",
         "source": "goma_tpu_torch/csrc/batched_lu.cu",
         "replaces": "goma_tpu/solvers/pallas_lu.py:39",
-        "launches": launches + d_lu + b_lu,
+        "launches": launches + d_lu + b_lu + sum(ve_launches("lu").values()),
         "launches_by_path": {"gmres+ndlu": launches, "tpu_direct": d_lu,
-                             "buoyant gmres+ndlu": b_lu},
-        "max_abs_err": max_abs,
+                             "buoyant gmres+ndlu": b_lu, **ve_launches("lu")},
+        "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -1139,14 +1532,19 @@ def main() -> int:
         "buoyant_ms": b_lu_ms[torch.float32][0],
         "buoyant_library_ms": b_lu_ms[torch.float32][2],
         "buoyant_bound_ms": b_lu_bnd[0],
+        "viscoelastic_ms": ve["lu_ms"][torch.float32][0],
+        "viscoelastic_plain_ms": ve["lu_ms"][torch.float32][1],
+        "viscoelastic_library_ms": ve["lu_ms"][torch.float32][2],
+        "viscoelastic_bound_ms": ve["lu_bound"][0],
     }, {
         "name": "batched_trsv",
         "route": "cuda",
         "source": "goma_tpu_torch/csrc/batched_trsv.cu",
         "replaces": "goma_tpu/solvers/pallas_lu.py:67",
-        "launches": d_trsv + b_trsv,
-        "launches_by_path": {"tpu_direct": d_trsv},
-        "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"]),
+        "launches": d_trsv + b_trsv + sum(ve_launches("trsv").values()),
+        "launches_by_path": {"tpu_direct": d_trsv, **ve_launches("trsv")},
+        "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
+                           vd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -1163,20 +1561,34 @@ def main() -> int:
         "buoyant_bound_ms": btrsv_bnd[0],
         "buoyant_device_ms": btrsv["device_ms"]["kernel"],
         "buoyant_library_device_ms": btrsv["device_ms"]["solve_triangular"],
+        "viscoelastic_ms": vd["trsv"]["ms"][torch.float32][0],
+        "viscoelastic_plain_ms": vd["trsv"]["ms"][torch.float32][1],
+        "viscoelastic_library_ms": vd["trsv"]["ms"][torch.float32][2],
+        "viscoelastic_bound_ms": vd["bound"][0],
+        "viscoelastic_device_ms": vd["trsv"]["device_ms"]["kernel"],
+        "viscoelastic_library_device_ms":
+            vd["trsv"]["device_ms"]["solve_triangular"],
+        "viscoelastic_step_ns": vd["step_ns"],
     }, {
         "name": "front_gather",
         "route": "cuda",
         "source": "goma_tpu_torch/csrc/front_gather.cu",
         "replaces": "scripts/attic/exp_front_gather.py:130",
-        "launches": g_launches + d_gather + b_gather,
+        "launches": (g_launches + d_gather + b_gather
+                     + sum(ve_launches("gather").values())),
         "launches_by_path": {"gmres+ndlu": g_launches, "tpu_direct": d_gather,
-                             "buoyant gmres+ndlu": b_gather},
-        "max_abs_err": gather_abs,
+                             "buoyant gmres+ndlu": b_gather,
+                             **ve_launches("gather")},
+        "max_abs_err": max(gather_abs, ve["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
         "bound_by": g_bound[1],
         "library_ms": g_times["index_select"][0],
+        "viscoelastic_ms": ve["g_times"]["kernel"][0],
+        "viscoelastic_plain_ms": ve["g_times"]["plain"][0],
+        "viscoelastic_library_ms": ve["g_times"]["index_select"][0],
+        "viscoelastic_bound_ms": ve["g_bound"][0],
     }]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

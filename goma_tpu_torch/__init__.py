@@ -2,10 +2,10 @@
 
 It mirrors goma_tpu's module layout and names, so each module's counterpart
 is found under the same path; ``goma_tpu/`` stays the reference it is held
-against. The package imports torch, numpy and scipy, never jax. Its one
-hand-written device kernel (``csrc/batched_lu.cu``, the nested-dissection
-front LU) targets Hopper (sm_90a); every kernel has a plain PyTorch twin
-that runs for CPU tensors.
+against. The package imports torch, numpy and scipy, never jax. Its
+hand-written device kernels (``csrc/``: the nested-dissection front LU,
+front substitution and front gather) target Hopper (sm_90a); every kernel
+has a plain PyTorch twin that runs for CPU tensors.
 
 Numerics: every factor, Schur update and element product must run in full
 float32/float64. goma_tpu pins them to exact f32 because bf16-rounded dots

@@ -46,6 +46,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace cg = cooperative_groups;
@@ -360,15 +361,25 @@ Plan make_plan(int64_t nn, int m) {
 
 template <typename T, int THREADS>
 cudaError_t prepare(const void** fn) {
+  // the shared-memory and cluster-size opt-ins are attributes of the
+  // function on one device: they are set once for each device that launches
+  // this instantiation (a process that drives two cards sets them twice)
+  constexpr int kFlags = 64;
+  static std::atomic<bool> ready[kFlags];
   auto kern = blocked_lu_kernel<T, THREADS>;
-  static cudaError_t err = [&] {
-    cudaError_t e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  }();
   *fn = reinterpret_cast<const void*>(kern);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < kFlags && ready[dev].load(std::memory_order_acquire))
+    return cudaSuccess;
+  err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess && dev < kFlags)
+    ready[dev].store(true, std::memory_order_release);
   return err;
 }
 

@@ -8,15 +8,20 @@ formulas of ``src/mm_fill_stabilization.c`` (Shakib tau). Weak forms:
 
   momentum:   R_ai = int phi_i rho (udot_a + u.grad u_a - f_a)
                    + grad(phi_i) : sigma_a   dOmega,
-              sigma = -p I + mu (grad u + grad u^T)
+              sigma = -p I + mu (grad u + grad u^T) + sigma_ve (polymer)
   continuity: R_i = int psi_i (div u - s) dOmega  (+ PSPG)
 
+The polymer stress sigma_ve sums the EVSS-F stress modes ``stress{m}``,
+the log- and square-root-conformation modes (``physics/viscoelastic.py``)
+and the DEVSS stabilization 2 mu_d (D(u) - sym G) with G the projected
+velocity gradient.
+
 The Q2/Q1 Galerkin block with constant rho/mu is assembled by the fused
-kernel in ``fem/fastns.py``; every other block runs ``residual`` through the
-generic AD path. Cut to this slice: cartesian coordinates with the
-transient, convection, body-force and mass-source terms and PSPG/SUPG. The
-viscoelastic (stress modes, log/sqrt conformation), DEVSS and swirl terms
-raise at ``Problem.finalize`` (later slices, see ROADMAP).
+kernel in ``fem/fastns.py``; every other block (any polymer term included)
+runs ``residual`` through the generic AD path. Cut to this slice: cartesian
+coordinates; the swirl and axisymmetric hoop terms need
+``coord="cylindrical"``/``"swirling"``, which ``Problem.finalize`` refuses
+(later slices, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -25,9 +30,6 @@ import torch
 
 from goma_tpu_torch.fem.equations import Equation
 from goma_tpu_torch.physics.materials import prop
-
-_LATER = "later slice of the port, see ROADMAP"
-
 
 def _as_nq(a, nq, like):
     """A property value as an (nq,) tensor at ``like``'s dtype and device:
@@ -52,7 +54,10 @@ class Momentum(Equation):
     """Navier-Stokes momentum. ``transient`` includes rho*udot;
     ``convection`` the advective term; the material key ``body_force`` an
     (nq, dim) acceleration (callable) or constant vector; ``supg`` the
-    streamline stabilization of the generic path."""
+    streamline stabilization of the generic path. ``ve_stress_modes`` adds
+    the polymer stress modes weakly (EVSS-F coupling), ``logconf_modes`` and
+    ``sqrtconf_modes`` ((mode, lam, mu_p), ...) the conformation modes'
+    stress, ``devss_mu`` the DEVSS stabilization."""
 
     def __init__(
         self,
@@ -75,12 +80,6 @@ class Momentum(Equation):
         self.sqrtconf_modes = tuple(sqrtconf_modes)
         self.supg = supg
         self.devss_mu = devss_mu
-
-    def check_slice(self):
-        if (self.ve_stress_modes or self.logconf_modes or self.sqrtconf_modes
-                or self.devss_mu > 0.0):
-            raise NotImplementedError(
-                f"viscoelastic / DEVSS momentum terms: {_LATER}")
 
     def residual(self, fv, mat, params):
         x = fv.x
@@ -108,6 +107,21 @@ class Momentum(Equation):
         eye = torch.eye(dim, dtype=x.dtype, device=x.device)
         sigma = (mu[:, None, None] * (gu + gu.transpose(1, 2))
                  - p[:, None, None] * eye[None])
+        for m in range(self.ve_stress_modes):
+            sigma = sigma + _sym_expand(fv.val[f"stress{m}"], dim)
+        if self.logconf_modes or self.sqrtconf_modes:
+            from goma_tpu_torch.physics.viscoelastic import (
+                logconf_stress_tensor, sqrtconf_stress_tensor)
+
+            for m, lam_m, mup_m in self.logconf_modes:
+                sigma = sigma + logconf_stress_tensor(fv, m, lam_m, mup_m)
+            for m, lam_m, mup_m in self.sqrtconf_modes:
+                sigma = sigma + sqrtconf_stress_tensor(fv, m, lam_m, mup_m)
+        if self.devss_mu > 0.0 and "velocity_gradient" in fv.val:
+            G = fv.val["velocity_gradient"].reshape(-1, dim, dim)
+            Dg = 0.5 * (G + G.transpose(1, 2))
+            Du = 0.5 * (gu + gu.transpose(1, 2))
+            sigma = sigma + 2.0 * self.devss_mu * (Du - Dg)
         contrib = contrib + torch.einsum("qak,qik->qai", sigma, gphi)
 
         if self.supg > 0.0:
@@ -122,6 +136,19 @@ class Momentum(Equation):
             wsup = torch.einsum("qk,qik->qi", u_adv, gphi)
             contrib = contrib + torch.einsum("q,qa,qi->qai", tau, rm, wsup)
         return contrib
+
+
+def _sym_expand(s, dim):
+    """(nq, ncomp symmetric) -> (nq, dim, dim)."""
+    if dim == 2:
+        s11, s12, s22 = s[:, 0], s[:, 1], s[:, 2]
+        return torch.stack([torch.stack([s11, s12], dim=1),
+                            torch.stack([s12, s22], dim=1)], dim=1)
+    s11, s12, s22, s13, s23, s33 = [s[:, i] for i in range(6)]
+    r0 = torch.stack([s11, s12, s13], dim=1)
+    r1 = torch.stack([s12, s22, s23], dim=1)
+    r2 = torch.stack([s13, s23, s33], dim=1)
+    return torch.stack([r0, r1, r2], dim=1)
 
 
 class Continuity(Equation):

@@ -1,0 +1,121 @@
+#!/usr/bin/env python3
+"""CPU rehearsal of ``chip_smoke.py``: runs its control flow end to end on a
+machine without CUDA, at small sizes, to find wrong paths, arguments and
+shapes before a run on the card.
+
+    python3 scripts/chip_smoke_rehearsal.py [--only-viscoelastic]
+
+What it fakes: ``torch.cuda`` reports a device, its events time the host
+clock and ``synchronize`` does nothing; the script's CUDA tensors are made
+on the CPU; each kernel wrapper runs its plain version and counts that as a
+launch; the kernels' launch plans are the wrappers' own; ``device_ms``
+returns 0 ms; nvcc is not run. The decks are cut to 8x8 (cavity, buoyant)
+and 8x4 (viscoelastic), and the checks that need the full size (Ghia, the
+buoyant Newton count, the paths' agreement) are widened. Every time it
+prints is a CPU time, not a device number.
+"""
+
+import argparse
+import sys
+import time
+import types
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+
+class _Event:
+    def __init__(self, enable_timing=True):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, other):
+        return 1e3 * (other.t - self.t)
+
+
+def _fake_cuda():
+    torch.cuda.Event = _Event
+    torch.cuda.synchronize = lambda *a, **k: None
+    torch.cuda.is_available = lambda: True
+    torch.cuda.get_device_name = lambda i=0: "CPU rehearsal"
+    torch.cuda.device_count = lambda: 1
+    torch.cuda.empty_cache = lambda: None
+    torch.cuda.mem_get_info = lambda *a: (0, 1)
+    torch.cuda.memory_allocated = torch.cuda.memory_reserved = \
+        torch.cuda.max_memory_allocated = lambda *a: 0
+    lu_factor_ex = torch.linalg.lu_factor_ex
+    # the CPU has no unpivoted LU; the pivoted one stands in for its time
+    torch.linalg.lu_factor_ex = lambda A, pivot=True: lu_factor_ex(A)
+
+    from goma_tpu_torch import cuda_build
+    from goma_tpu_torch.solvers import batched_lu, batched_trsv, front_gather
+
+    cuda_build.load = lambda name: None
+    for mod, name in ((batched_lu, "batched_lu"), (batched_trsv, "batched_trsv"),
+                      (front_gather, "front_gather")):
+        setattr(mod, name, _counted(getattr(mod, name)))
+    for mod in (batched_lu, batched_trsv):
+        mod.kernel_plan = lambda nn, m, dt, _mod=mod: _mod._plan(nn, m, dt) + (1,)
+
+
+def _counted(plain):
+    """``plain`` with a launch counter, as the kernel wrappers carry."""
+    def counted(*a, **k):
+        counted.launches += 1
+        return plain(*a, **k)
+
+    counted.launches = 0
+    return counted
+
+
+def load_smoke():
+    """chip_smoke as a module whose CUDA devices are the CPU."""
+    src = (REPO / "chip_smoke.py").read_text()
+    for a, b in (('device="cuda"', 'device="cpu"'),
+                 ('torch.device("cuda", 0)', 'torch.device("cpu")'),
+                 ("torch.device(d)", 'torch.device("cpu")')):
+        src = src.replace(a, b)
+    cs = types.ModuleType("chip_smoke")
+    cs.__file__ = str(REPO / "chip_smoke.py")
+    exec(compile(src, "chip_smoke.py", "exec"), cs.__dict__)
+    cs.device_ms = lambda fn, reps, launches=None, required=True, graph=False: (
+        fn(), (0.0, launches or 1))[1]
+    cs.gpu_line = lambda: "CPU rehearsal, 0 W"
+    cs.timed_build = lambda name: (0.0, "")
+    cs.N_MAIN = cs.N_BUOY = 8
+    cs.N_VE = 4
+    cs.GHIA_TOL = cs.X_PATHS_TOL = 1.0
+    cs.BUOY_NEWTON = 5
+    return cs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--only-viscoelastic", action="store_true",
+                    help="run phases 14-17 only")
+    args = ap.parse_args()
+    _fake_cuda()
+    cs = load_smoke()
+    t0 = time.perf_counter()
+    if args.only_viscoelastic:
+        dev = torch.device("cpu")
+        cs.cross_check_ve()
+        ve = cs.ve_gmres_phase(dev)
+        cs.ve_direct_phase(dev, ve.pop("prob"), ve["x"])
+        cs.ve_transient_phase(dev)
+    else:
+        cs.main()
+    print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -118,10 +118,13 @@ CAVITY_LEVELS = [(218, 154), (128, 190), (64, 74), (32, 84), (16, 169),
                  (8, 103), (4, 236), (2, 220), (1, 323)]
 BUOYANT_LEVELS = [(58, 165), (128, 256), (64, 92), (32, 116), (16, 170),
                   (8, 171), (4, 345), (2, 216), (1, 437)]
+# the 64x32 viscoelastic channel's tree (bench.bench_viscoelastic)
+VE_LEVELS = [(80, 142), (126, 192), (64, 178), (32, 150), (16, 214),
+             (8, 326), (4, 352), (2, 604), (1, 512)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nn,m", CAVITY_LEVELS + BUOYANT_LEVELS
+@pytest.mark.parametrize("nn,m", CAVITY_LEVELS + BUOYANT_LEVELS + VE_LEVELS
                          + [(1, 2), (1, 1000)])
 def test_launch_plan_fits_the_card(nn, m, dtype):
     """The cluster fills at most the 132 SMs, the panel rows fit the block
@@ -181,7 +184,8 @@ def test_cuda_plan_matches_the_library():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     for dtype in (torch.float32, torch.float64):
-        for nn, m in CAVITY_LEVELS + BUOYANT_LEVELS + [(1, 2), (1, 1000)]:
+        for nn, m in (CAVITY_LEVELS + BUOYANT_LEVELS + VE_LEVELS
+                      + [(1, 2), (1, 1000)]):
             got = kernel_plan(nn, m, dtype)
             assert got[:4] == _plan(nn, m, dtype)
             assert got[4] >= 1

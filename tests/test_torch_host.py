@@ -122,6 +122,39 @@ def buoyant(pkg, n, Ra=1e4, Pr=0.71, transient=False, extra_mat=None):
     return prob
 
 
+def viscoelastic(pkg, n, transient=False):
+    """bench.bench_viscoelastic's deck (BASELINE config #4: the EVSS-F/DEVSS
+    Oldroyd-B channel, Wi ~ 1.5) on a (2n)x(n) QUAD9 mesh of [0, 2] x [0, 1]:
+    u, v on Q2; p, the 3 stress and 4 velocity-gradient components on Q1;
+    the Newtonian profile imposed at inflow and outflow. ``transient``
+    switches the time derivative on in Momentum and VEStress (their
+    defaults), for the start-up run. Built from either package, finalized."""
+    mesh_m, fem, phys = pkg
+    lam, mu_p, mu_s, G, H = 1.0, 1.0, 0.5, 2.0, 1.0
+    mesh = mesh_m.rectangle_mesh(2 * n, n, elem="QUAD9", xlim=(0, 2.0),
+                                 ylim=(0, H))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = fem.Problem(
+        mesh,
+        [phys.Momentum(dim=2, transient=transient, convection=False,
+                       ve_stress_modes=1, devss_mu=mu_p),
+         phys.Continuity(),
+         phys.VEStress(0, dim=2, lam=lam, mu_p=mu_p, model="oldroyd_b",
+                       interp="Q1", transient=transient),
+         phys.VelocityGradientProjection(dim=2, interp="Q1")],
+        {"rho": 0.0, "mu": mu_s, "body_force": np.array([G, 0.0])}, **cpu(pkg))
+    uex = lambda c: G / (2 * (mu_p + mu_s)) * c[:, 1] * (H - c[:, 1])  # noqa: E731
+    for ns in ("top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "velocity", 0, uex)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    return prob
+
+
 @pytest.fixture(autouse=True, scope="module")
 def one_nd_bisection():
     """goma_tpu's nested-dissection bisection runs through the port's native
@@ -190,7 +223,8 @@ def test_nd_levels_equal(pair, leaf_max):
 def test_port_imports_and_builds_without_jax():
     """goma_tpu_torch never imports jax: with jax blocked in sys.modules the
     package imports and builds (and assembles) the cavity Problem (fused
-    kernel) and a buoyant Problem (generic AD path)."""
+    kernel), a buoyant Problem and a viscoelastic Problem (generic AD path),
+    and a TransientSolver."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -226,6 +260,22 @@ def test_port_imports_and_builds_without_jax():
             torch.zeros(bprob.dofmap.n_dof, dtype=torch.float64),
             bprob.base_params())
         assert bool(torch.isfinite(vals).all()) and vals.shape[0] == bprob.pattern.nnz
+        # the viscoelastic deck and the transient driver
+        from goma_tpu_torch.physics import VEStress, VelocityGradientProjection
+        from goma_tpu_torch.solvers.transient import TimeOptions, TransientSolver
+        vprob = Problem(mesh, [Momentum(dim=2, convection=False,
+                                        ve_stress_modes=1, devss_mu=1.0),
+                               Continuity(), VEStress(0, dim=2, lam=1.0, mu_p=1.0),
+                               VelocityGradientProjection(dim=2)],
+                        {"rho": 0.0, "mu": 0.5}, device="cpu")
+        vprob.add_dirichlet("top", "velocity", 0, 1.0)
+        vprob.finalize()
+        R, vals = vprob._assemble(
+            torch.zeros(vprob.dofmap.n_dof, dtype=torch.float64),
+            vprob.base_params())
+        assert bool(torch.isfinite(vals).all()) and vals.shape[0] == vprob.pattern.nnz
+        TransientSolver(vprob, NewtonOptions(precond="ndlu"),
+                        TimeOptions(dt0=0.1, t_end=0.1))
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -267,12 +317,11 @@ def test_newton_options_outside_slice_raise(kw):
         NewtonOptions(**kw)
 
 
-@pytest.mark.parametrize("feature", ["face", "periodic", "coord", "ve"])
+@pytest.mark.parametrize("feature", ["face", "periodic", "coord", "interface"])
 def test_problem_outside_slice_raises(feature):
     mesh_m, fem, phys = TORCH_PKG
     mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
-    eqs = [phys.Momentum(dim=2, ve_stress_modes=1 if feature == "ve" else 0),
-           phys.Continuity()]
+    eqs = [phys.Momentum(dim=2), phys.Continuity()]
     prob = fem.Problem(mesh, eqs, {"rho": 1.0, "mu": 1.0},
                        coord="cylindrical" if feature == "coord" else "cartesian",
                        device="cpu")
@@ -280,8 +329,24 @@ def test_problem_outside_slice_raises(feature):
         prob.add_face_kernel("top", object())
     if feature == "periodic":
         prob.add_periodic("left", "right")
+    if feature == "interface":
+        prob.add_interface_kernel(np.zeros((1, 2), dtype=np.int64), object())
     with pytest.raises(NotImplementedError):
         prob.finalize()
+
+
+@pytest.mark.parametrize("name,args", [
+    ("DGStressUpwind", (0, 1.0)),
+    ("DGStressInflow", (0, 1.0, [0.0, 0.0, 0.0])),
+    ("AxisymHoopStress", (0, 1.0, 1.0)),
+])
+def test_viscoelastic_pieces_outside_slice_raise(name, args):
+    """The discontinuous-stress face/interface kernels and the axisymmetric
+    hoop stress exist under goma_tpu's names and refuse construction."""
+    cls = getattr(goma_tpu_torch.physics, name)
+    assert getattr(goma_tpu.physics, name).__name__ == name
+    with pytest.raises(NotImplementedError, match="later slice"):
+        cls(*args)
 
 
 def test_dirichlet_first_spec_wins_with_warning():

@@ -60,11 +60,14 @@ def packed_lu(nn, m, seed, dtype):
 
 
 # (nn, m) of every nested-dissection level of the 64x64 cavity tree and of
-# the 48x48 buoyant tree
+# the 48x48 buoyant tree,
 CAVITY_LEVELS = [(218, 154), (128, 190), (64, 74), (32, 84), (16, 169),
                  (8, 103), (4, 236), (2, 220), (1, 323)]
 BUOYANT_LEVELS = [(58, 165), (128, 256), (64, 92), (32, 116), (16, 170),
                   (8, 171), (4, 345), (2, 216), (1, 437)]
+# and of the 64x32 viscoelastic channel's tree (bench.bench_viscoelastic)
+VE_LEVELS = [(80, 142), (126, 192), (64, 178), (32, 150), (16, 214),
+             (8, 326), (4, 352), (2, 604), (1, 512)]
 PLAN_EDGES = [(1, 1), (218, 1), (1, 32), (218, 32), (1, 33), (1, 1024),
               (218, 1024)]
 SMS = 132
@@ -151,7 +154,7 @@ def test_blocked_reference_float32_is_as_accurate_as_the_twin(nn, m, lower):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("nn,m", CAVITY_LEVELS + BUOYANT_LEVELS + PLAN_EDGES)
+@pytest.mark.parametrize("nn,m", CAVITY_LEVELS + BUOYANT_LEVELS + VE_LEVELS + PLAN_EDGES)
 def test_plan_fits_the_card(nn, m, dtype):
     cluster, nb, threads, smem = _plan(nn, m, dtype)
     assert nb == 32
@@ -206,6 +209,20 @@ def test_wrapper_checks_and_launch_counter():
     assert torch.equal(x, batched_trsv_reference(lu, b, lower=True))
 
 
+def test_stream_getter_resolves_or_falls_back(monkeypatch):
+    """The wrapper's stream getter is torch's private raw-stream function
+    where this torch has it, else the public ``current_stream`` route; the
+    choice touches no device (neither getter is called here)."""
+    from goma_tpu_torch.solvers import batched_trsv as mod
+
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        assert mod._stream_getter() is raw
+        monkeypatch.delattr(torch._C, "_cuda_getCurrentRawStream")
+    assert not hasattr(torch._C, "_cuda_getCurrentRawStream")
+    assert mod._stream_getter() is mod._current_stream
+
+
 GPU_SHAPES = [(1, 437), (218, 154), (128, 256), (4, 345), (1, 323), (3, 1),
               (3, 2), (5, 33), (2, 1000)]
 
@@ -246,7 +263,7 @@ def test_cuda_kernel_plan_is_the_wrappers(dtype):
     and edge, and the card can hold at least one such CTA on an SM."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the plan is read from the library")
-    for nn, m in CAVITY_LEVELS + BUOYANT_LEVELS + PLAN_EDGES:
+    for nn, m in CAVITY_LEVELS + BUOYANT_LEVELS + VE_LEVELS + PLAN_EDGES:
         plan = kernel_plan(nn, m, dtype)
         assert plan[:4] == _plan(nn, m, dtype), (nn, m)
         assert plan[4] >= (2 if nn > SMS and m <= 256 else 1), (nn, m)
