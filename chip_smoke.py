@@ -4,11 +4,17 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Six main paths, each read with its
+failure and when CUDA is unavailable. Ten main paths, each read with its
 own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
-(phases 12-13), and the viscoelastic channel's ``gmres+ndlu`` (phase 15),
-``tpu_direct`` (phase 16) and transient start-up (phase 17). Phases:
+(phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
+``tpu_direct`` (phase 16) and transient start-up (phase 17), the
+level-set static bubble's ``gmres_ndlu`` (phase 19) and ``tpu_direct``
+(phase 20) rungs on the transient driver, and the cavity's pipelined and
+sequential Newton loops (phase 21). Every ``gmres`` deck with
+``tol_update == 0`` runs the pipelined Newton loop, as in goma_tpu; the
+buoyant, viscoelastic and cavity phases hold goma_tpu's linear iteration
+counts under it. Phases:
 
 1. build every kernel, one nvcc per source, all started together: the
    front LU ``goma_tpu_torch/csrc/batched_lu.cu``, the front substitution
@@ -45,7 +51,8 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
    level's plan, errors, the median CUDA-event ms of the kernel, its loop
    twin and ``torch.linalg.solve_triangular``, and the profiler's device ms
    of kernel and library beside the bound (on no level may the kernel take
-   more device time than the library); in total also the host time per
+   more device time than the library, both timed by CUDA-graph replay for
+   this gate); in total also the host time per
    call; then the device time of one dependent step (the slope between two
    single fronts) and the chain floor it gives one solve;
 9. solve the 8x8 cavity with ``tpu_direct`` on the GPU and on the CPU and
@@ -113,7 +120,33 @@ own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
     phase 14's bound), then at 64x32: require 5 accepted steps of dt 0.05,
     each converged, and front-LU and front-gather launches = levels x
     factorizations; print every step record, the factorizations and s per
-    Newton iteration.
+    Newton iteration;
+18. the level-set static bubble (bench.bench_two_phase, BASELINE config
+    #5: transient Momentum, Continuity, CSF surface tension, the level-set
+    advection; the generic AD assembly) at 8x8 on cuda and on cpu, both
+    rungs, two backward-Euler steps of dt 0.02: the same Newton count in
+    every step, x within a stated bound;
+19. its ``gmres_ndlu`` rung at 48x48 (30,628 dof), bench.py's options and
+    timing (``bench._transient_sec_per_iter``: a warm leg over [0, 0.04],
+    then ``reset_lagged()`` and the timed leg to 0.08 from the warm leg's
+    x, t and xdot): the front LU on its real fronts at the initial state
+    and at the end state (growth, floor, limit), random boosted fronts at
+    its 8 level shapes (kernel, twin, ``lu_factor_ex``, bound), the gather
+    exact and timed; require 2 converged timed steps, front-LU and
+    front-gather launches = levels x factorizations and the Laplace jump
+    within 8% of sigma / r0 = 2; print steps, Newton and linear
+    iterations per step, factorizations, s/iteration, asm/slv and dp;
+20. its ``tpu_direct`` rung on the same problem: the substitution kernel
+    as in phase 8 on the 16 substitutions of one solve; the two legs;
+    require substitution launches = 2 x levels x solves, front-LU and
+    front-gather launches = levels x factorizations, and the end state
+    within a stated bound of phase 19's;
+21. the 64x64 cavity's ``gmres+ndlu`` deck through the pipelined loop
+    (``solve``) and through ``_solve_sequential``, in turns: linear
+    iterations [1, 12, 12, 10] in each, norm sequences within a stated
+    relative bound; print s/iteration, host syncs per Newton iteration
+    (``torch.cuda.set_sync_debug_mode("warn")``) and discarded speculative
+    solves of each.
 
 The last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
@@ -209,6 +242,31 @@ VE_X_TOL = 1e-5
 # GMRES's last step is inexact (eta >= 1e-3); on the CPU the two paths
 # differ by 2.4e-7 at 8x4 and 1.8e-7 at 16x8 (max|x| = 4)
 VE_PATHS_TOL = 1e-5
+# goma_tpu's linear iterations per Newton iteration on the main paths
+# (BENCH_r05.json and the H100 runs in PERF.md): they must not move when
+# gmres takes the pipelined loop
+CAVITY_LINEAR = [1, 12, 12, 10]
+BUOY_LINEAR = [1, 7, 5, 6, 11, 5]
+VE_LINEAR = [1, 40, 61, 3, 2]
+VE_STARTUP_NEWTON = [3, 3, 3, 2, 2]
+# static bubble (bench.bench_two_phase, BASELINE config #5): 48x48 QUAD9 on
+# [-1, 1]^2, sigma = 1, r0 = 0.5, eps = 0.2; the Laplace jump
+# dp = median p(r < 0.3) - median p(r > 0.8) within 8% of sigma / r0 = 2
+# (goma_tpu's own check, tests/test_examples.py)
+N_BUBBLE, BUBBLE_DP, BUBBLE_DP_RTOL = 48, 2.0, 0.08
+# max |x_cuda - x_cpu| / (1 + |x_cpu|) on the 8x8 static bubble (both
+# rungs, two backward-Euler steps): both stop at ||R||_2 <= 1e-8 after
+# float32-Jacobian steps whose sums run in another order on the card; on the
+# CPU the port and goma_tpu read <= 1.9e-10 on both rungs
+BUBBLE_X_TOL = 1e-6
+# max |x_tpu_direct - x_gmres| / (1 + |x_gmres|) at the end of the 48x48
+# bubble's timed leg: GMRES's last step in each time step is inexact (eta
+# >= 1e-6) and tpu_direct's refined to its guard, both below ||R||_2 1e-8
+BUBBLE_PATHS_TOL = 1e-5
+# pipelined against sequential loop on the 64x64 cavity, the same card and
+# run: the same operations in the same order, so the norm sequences agree
+# up to the card's run-to-run rounding (equal on the CPU)
+PIPE_NORM_RTOL = 1e-6
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -581,7 +639,11 @@ def check_substitutions(calls, label):
     side and a seeded random one; the float32 kernel must be as accurate as
     the float32 twin against the float64 twin; the kernel's launch plan
     must be the wrapper's; on no level may the kernel take more device time
-    than ``torch.linalg.solve_triangular``. Returns {"max_abs", "ms":
+    than ``torch.linalg.solve_triangular``, both timed for this gate by
+    CUDA-graph replay (``graph_ms``): late in a long run the profiler once
+    read the library far under the time it takes in a fresh process
+    (0.0189 ms at (1, 512); ``scripts/torch_trsv_library_probe.py`` reads
+    it there). Returns {"max_abs", "ms":
     per-dtype [kernel, twin, solve_triangular] sums of per-call CUDA-event
     medians, "device_ms": {"kernel", "solve_triangular"} for one float32
     solve's calls by the profiler, "run_ms": CUDA events around one solve's kernel calls,
@@ -641,19 +703,22 @@ def check_substitutions(calls, label):
                           graph=True)[0]
         l_dev, l_kern = device_ms(lambda: lib(lu32, seg32, lower), 5,
                                   graph=True)
+        k_gr = graph_ms(lambda: batched_trsv(lu32, seg32, lower))
+        l_gr = graph_ms(lambda: lib(lu32, seg32, lower))
         log(f"trsv {label} level {li} (nn={nn:3d}, m={m:3d}) {sweep}: "
             f"{plan[2]} threads, {plan[3]} B shared, {plan[4]} CTAs an SM; "
             f"{'; '.join(errs)}; ms f32 kernel/twin/solve_triangular "
             f"{ms[0][0]:.3f}/{ms[0][1]:.3f}/{ms[0][2]:.3f}, f64 {ms[1][0]:.3f}/"
             f"{ms[1][1]:.3f}/{ms[1][2]:.3f}; f32 device ms kernel "
             f"{k_dev:.4f} (1 record a call), solve_triangular {l_dev:.4f} "
-            f"({l_kern} records a call), bound "
-            f"{trsv_bound([(lu32, seg32, lower)])[0]:.5f}")
+            f"({l_kern} records a call), by graph replay {k_gr:.4f} / "
+            f"{l_gr:.4f}, bound {trsv_bound([(lu32, seg32, lower)])[0]:.5f}")
         levels.append((li, nn, m, lower, k_dev, l_dev))
-        if k_dev > l_dev:
+        if k_gr > l_gr:
             raise RuntimeError(f"trsv {label} level {li} {sweep}: the kernel "
-                               f"takes {k_dev:.4f} ms of device time, "
-                               f"solve_triangular {l_dev:.4f}")
+                               f"takes {k_gr:.4f} ms of device time, "
+                               f"solve_triangular {l_gr:.4f} (CUDA-graph "
+                               f"replay; profiler {k_dev:.4f} / {l_dev:.4f})")
     for dt, (k, tw, lb) in tot.items():
         log(f"trsv {label}: one solve's substitutions ({len(calls)} calls), "
             f"{str(dt)[6:]}: kernel {k:.3f} ms, twin {tw:.3f} ms, "
@@ -1015,7 +1080,7 @@ def warm_then_timed(solver, x_init, params, label):
         f"iters={res_w.iters}, lin={res_w.linear_iters}, "
         f"converged={res_w.converged}")
     solver.reset_lagged()
-    solver.n_factor = solver._ndlu_nfactor = 0
+    solver.n_factor = solver._ndlu_nfactor = solver.n_discarded = 0
     solver.direct_log = []
     if solver._ndlu is not None:
         solver._ndlu.n_solve = 0
@@ -1036,7 +1101,8 @@ def warm_then_timed(solver, x_init, params, label):
               if solver._ndlu is not None else "")
     log(f"{label}: iters={res.iters} converged={res.converged} "
         f"lin={res.linear_iters} factorizations="
-        f"{solver.n_factor + solver._ndlu_nfactor}{solves} front-LU launches="
+        f"{solver.n_factor + solver._ndlu_nfactor}{solves} discarded "
+        f"speculative solves={solver.n_discarded} front-LU launches="
         f"{launches['lu']} front-gather launches={launches['gather']} "
         f"substitution launches={launches['trsv']}")
     log(f"{label}: asm {res.assembly_time / iters * 1000:.1f} ms + slv "
@@ -1148,6 +1214,9 @@ def ve_gmres_phase(dev):
     if abs(res.iters - VE_NEWTON) > 1:
         raise RuntimeError(f"viscoelastic main path took {res.iters} Newton "
                            f"iterations, not {VE_NEWTON} +- 1")
+    if res.linear_iters != VE_LINEAR:
+        raise RuntimeError(f"viscoelastic main path: linear iterations "
+                           f"{res.linear_iters} != {VE_LINEAR}")
     nf = solver.n_factor
     if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
         raise RuntimeError(f"viscoelastic front-LU launches {ln['lu']} / "
@@ -1259,6 +1328,10 @@ def ve_transient_phase(dev):
             or not all(s.converged and abs(s.dt - 0.05) < 1e-12 for s in r.steps)):
         raise RuntimeError(f"viscoelastic start-up did not take 5 converged "
                            f"steps of dt 0.05: {r.steps}")
+    if [s.newton_iters for s in r.steps] != VE_STARTUP_NEWTON:
+        raise RuntimeError(f"viscoelastic start-up: Newton per step "
+                           f"{[s.newton_iters for s in r.steps]} != "
+                           f"{VE_STARTUP_NEWTON}")
     if nf < 1 or ln["lu"] != n_lev * nf or ln["gather"] != n_lev * nf:
         raise RuntimeError(f"viscoelastic transient front-LU launches "
                            f"{ln['lu']} / front-gather launches {ln['gather']} "
@@ -1266,6 +1339,322 @@ def ve_transient_phase(dev):
     if not np.all(np.isfinite(r.x)):
         raise RuntimeError("viscoelastic start-up state is not finite")
     return ln
+
+
+def bubble_problem(n, device):
+    """bench.bench_two_phase's static bubble restated (bench.py imports
+    jax): QUAD9 n x n on [-1, 1]^2, transient Momentum, Continuity, the CSF
+    surface tension (sigma = 1) and the level-set advection (Q2, no SUPG),
+    rho = mu = 1, no-slip walls, pressure pinned at node 0, float32
+    Jacobian. Returns (problem, x0 with F0 = |x| - r0, params with
+    ls_eps = 0.2)."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import (Continuity, CSFSurfaceTension,
+                                        FillEquation, Momentum)
+
+    mesh = rectangle_mesh(n, n, elem="QUAD9", xlim=(-1, 1), ylim=(-1, 1))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(mesh, [Momentum(dim=2, transient=True), Continuity(),
+                          CSFSurfaceTension(dim=2, sigma=1.0),
+                          FillEquation(interp="Q2", supg=0.0, transient=True)],
+                   {"rho": 1.0, "mu": 1.0}, device=device)
+    for ns in ("left", "right", "top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    prob.jacobian_dtype = torch.float32
+    F0 = np.linalg.norm(mesh.coords, axis=1) - 0.5
+    x0 = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "fill", 0, F0)
+    params = prob.base_params(ls_eps=torch.tensor(0.2, dtype=prob.dtype,
+                                                  device=prob.device))
+    return prob, x0, params
+
+
+def bubble_opts(rung):
+    """bench.bench_two_phase's Newton options for ``rung``."""
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    if rung == "gmres_ndlu":
+        return NewtonOptions(max_iter=10, tol_residual=1e-8,
+                             linear_solver="gmres", precond="ndlu",
+                             linear_tol=1e-6, gmres_restart=60,
+                             linear_maxiter=240, ndlu_leaf_max=256)
+    return NewtonOptions(max_iter=10, tol_residual=1e-8,
+                         linear_solver="tpu_direct")
+
+
+def bubble_solver(prob, rung):
+    """bench.bench_two_phase's TransientSolver: backward Euler, dt 0.02,
+    no adaptation, the warm leg to t = 0.04."""
+    from goma_tpu_torch.solvers.transient import TimeOptions, TransientSolver
+
+    return TransientSolver(prob, bubble_opts(rung),
+                           TimeOptions(dt0=0.02, t_end=0.04, adapt=False))
+
+
+def laplace_jump(prob, x):
+    """dp = median p(r < 0.3) - median p(r > 0.8), bench.py's reading."""
+    p = prob.get_nodal_field(x, "pressure")
+    rr = np.linalg.norm(prob.mesh.coords, axis=1)
+    return float(np.nanmedian(p[rr < 0.3]) - np.nanmedian(p[rr > 0.8]))
+
+
+def step_params(params, x, dt):
+    """The params of a backward-Euler step of ``dt`` from ``x``: the
+    Jacobian the step factors is ct M + K(x) with ct = 1/dt."""
+    p = dict(params)
+    ct = 1.0 / dt
+    p["ct"] = torch.tensor(ct, dtype=params["hist"].dtype,
+                           device=params["hist"].device)
+    p["hist"] = torch.as_tensor(-ct * x, dtype=params["hist"].dtype,
+                                device=params["hist"].device)
+    return p
+
+
+def cross_check_bubble(devices=("cuda", "cpu")):
+    """Phase 18: the 8x8 static bubble on each of ``devices``, both rungs,
+    bench.py's two backward-Euler steps: the same Newton count in every
+    step, x within BUBBLE_X_TOL."""
+    for rung in ("gmres_ndlu", "tpu_direct"):
+        its, xs = {}, {}
+        for d in devices:
+            prob, x0, params = bubble_problem(8, torch.device(d))
+            r = bubble_solver(prob, rung).run(x0, params)
+            if len(r.steps) != 2 or not all(s.converged for s in r.steps):
+                raise RuntimeError(f"8x8 bubble {rung} on {d}: {r.steps}")
+            its[d], xs[d] = [s.newton_iters for s in r.steps], r.x
+        a, b = devices
+        dx = rel_dx(xs[a], xs[b])
+        log(f"cross-check 8x8 static bubble {rung}: Newton per step {a} "
+            f"{its[a]} {b} {its[b]}, max |x_{a} - x_{b}| / (1 + |x_{b}|) = "
+            f"{dx:.2e}")
+        if its[a] != its[b] or dx > BUBBLE_X_TOL:
+            raise RuntimeError(f"8x8 static bubble {rung}: {a} and {b} differ "
+                               f"(Newton {its}, x {dx:.2e} > {BUBBLE_X_TOL:.0e})")
+
+
+def transient_legs(ts, x0, params, label):
+    """bench._transient_sec_per_iter's protocol: a warm leg over [0, 0.04],
+    then ``reset_lagged()``, every factorization, solve and launch count
+    set to 0, and the timed leg to t = 0.08 from the warm leg's x, t and
+    xdot. (bench.py carries the lagged factor into the timed leg; the reset
+    makes the timed leg factor, so its kernels launch in the run that is
+    read.) Returns (timed-leg result, seconds, launches, per-step Newton
+    results)."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+
+    sv = ts.newton
+    t0 = time.perf_counter()
+    r1 = ts.run(x0, params)
+    torch.cuda.synchronize()
+    log(f"{label} warm leg: {time.perf_counter() - t0:.2f} s, "
+        f"{len(r1.steps)} steps, Newton {[s.newton_iters for s in r1.steps]}")
+    sv.reset_lagged()
+    sv.n_factor = sv._ndlu_nfactor = sv.n_discarded = 0
+    sv.direct_log = []
+    if sv._ndlu is not None:
+        sv._ndlu.n_solve = 0
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    per_step = []
+    ts.topts.t_end = 0.08
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r2 = ts.run(r1.x, params, t0=r1.t, xdot0=r1.xdot,
+                callback=lambda t, x, xdot, res: per_step.append(res))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+          "gather": front_gather.launches}
+    nit = sum(s.newton_iters for s in r2.steps if s.converged)
+    asm = sum(r.assembly_time for r in per_step)
+    slv = sum(r.solve_time for r in per_step)
+    for s, r in zip(r2.steps, per_step):
+        log(f"{label} timed step t={s.t:.4f} dt={s.dt:.3g}: Newton "
+            f"{s.newton_iters}, linear {r.linear_iters}, ||R||_2 "
+            f"{[f'{n[1]:.3e}' for n in r.res_norms]}")
+    solves = (f", NDLU solves {sv._ndlu.n_solve}" if sv._ndlu is not None
+              else "")
+    log(f"{label} timed leg: {len(r2.steps)} steps to t = {r2.t:.4f}, {nit} "
+        f"Newton iterations, factorizations {sv.n_factor + sv._ndlu_nfactor}"
+        f"{solves}, discarded speculative solves {sv.n_discarded}, launches "
+        f"front-LU {ln['lu']} front-gather {ln['gather']} substitution "
+        f"{ln['trsv']}; asm {asm / max(nit, 1) * 1e3:.1f} ms + slv "
+        f"{slv / max(nit, 1) * 1e3:.1f} ms per iteration, "
+        f"{sec / max(nit, 1):.4f} s/iter (total {sec:.3f} s)")
+    if (len(r2.steps) != 2 or r2.n_failures or abs(r2.t - 0.08) > 1e-12
+            or not all(s.converged for s in r2.steps)):
+        raise RuntimeError(f"{label}: the timed leg did not take 2 converged "
+                           f"steps to t = 0.08: {r2.steps}")
+    if not np.all(np.isfinite(r2.x)) or r2.x.shape != x0.shape:
+        raise RuntimeError(f"{label}: end state has the wrong shape or "
+                           "non-finite values")
+    return r2, sec, ln, per_step
+
+
+def bubble_gmres_phase(dev):
+    """Phase 19: the static bubble's gmres_ndlu rung at 48x48 and the
+    kernels on its tree. Returns the numbers the kernel summary reads."""
+    t0 = time.perf_counter()
+    prob, x0, params = bubble_problem(N_BUBBLE, dev)
+    ts = bubble_solver(prob, "gmres_ndlu")
+    solver = ts.newton
+    nd = solver.precond
+    levels = nd_levels(nd)
+    slots = sum(nn * (m + b) ** 2 for nn, m, b in levels)
+    log(f"two-phase setup: {N_BUBBLE}x{N_BUBBLE}, {prob.dofmap.n_dof} dof, "
+        f"{prob.pattern.nnz} nnz, {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}, {slots} front slots, {time.perf_counter() - t0:.1f} s")
+
+    def scaled(x):
+        """The CSR values the main path factors in a step from ``x``."""
+        xt = torch.as_tensor(x, dtype=prob.dtype, device=dev)
+        p = step_params(params, x, 0.02)
+        return solver._scaled_vals(xt, p, solver._prepare_fast(xt, p)[2])
+
+    vals = scaled(x0)
+    max_abs = check_real_fronts(nd, vals, "two-phase x0")
+    shapes = [(nn, m) for nn, m, _ in levels]
+    lu_abs, lu_ms = lu_shapes(shapes, "two-phase", time_twin=True)
+    gather_abs = check_gathers(nd, vals, "two-phase tree")
+    g_times, g_bound = gather_times(nd, vals, "two-phase tree")
+
+    res, _, ln, _ = transient_legs(ts, x0, params, "two-phase gmres_ndlu")
+    nf = solver.n_factor
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"two-phase front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != "
+                           f"{len(levels)} levels x {nf} factorizations")
+    dp = laplace_jump(prob, res.x)
+    log(f"two-phase gmres_ndlu: Laplace jump dp = {dp:.5f} (sigma / r0 = "
+        f"{BUBBLE_DP}, rel err {abs(dp - BUBBLE_DP) / BUBBLE_DP:.4f})")
+    if not abs(dp - BUBBLE_DP) <= BUBBLE_DP_RTOL * BUBBLE_DP:
+        raise RuntimeError(f"two-phase Laplace jump {dp:.4f} not within "
+                           f"{BUBBLE_DP_RTOL:.0%} of {BUBBLE_DP}")
+    max_abs = max(max_abs, lu_abs,
+                  check_real_fronts(nd, scaled(res.x), "two-phase end state"))
+    return {"prob": prob, "params": params, "x": res.x, "launches": ln,
+            "max_abs": max_abs, "lu_ms": lu_ms, "lu_bound": lu_bound(shapes),
+            "gather_abs": gather_abs, "g_times": g_times, "g_bound": g_bound}
+
+
+def bubble_direct_phase(dev, prob, params, x_gmres):
+    """Phase 20: the static bubble's tpu_direct rung at 48x48 and the
+    substitution kernel on its tree. Returns the numbers the kernel summary
+    reads."""
+    t0 = time.perf_counter()
+    x0 = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "fill", 0,
+                              np.linalg.norm(prob.mesh.coords, axis=1) - 0.5)
+    ts = bubble_solver(prob, "tpu_direct")
+    solver = ts.newton
+    xt = torch.as_tensor(x0, dtype=prob.dtype, device=dev)
+    p = step_params(params, x0, 0.02)
+    R, vals, _, scale = solver._prepare_direct(xt, p)
+    nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
+    levels = nd_levels(nd)
+    log(f"two-phase tpu_direct setup: {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}, {time.perf_counter() - t0:.1f} s")
+    calls = []
+    nd.solve(nd.factor(vals), scale * R, trace=calls)
+    if len(calls) != 2 * len(levels):
+        raise RuntimeError(f"one two-phase solve made {len(calls)} "
+                           f"substitutions, not 2 x {len(levels)} levels")
+    trsv = check_substitutions(calls, "two-phase")
+
+    res, _, ln, _ = transient_legs(ts, x0, params, "two-phase tpu_direct")
+    solves, nf = nd.n_solve, solver._ndlu_nfactor
+    if solves < 1 or ln["trsv"] != 2 * len(levels) * solves:
+        raise RuntimeError(f"two-phase substitution launches {ln['trsv']} != "
+                           f"2 x {len(levels)} levels x {solves} solves")
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"two-phase tpu_direct front-LU launches "
+                           f"{ln['lu']} / front-gather launches {ln['gather']} "
+                           f"!= {len(levels)} levels x {nf} factorizations")
+    for i, (sweeps, rel, fresh) in enumerate(solver.direct_log):
+        log(f"two-phase tpu_direct solve {i}: {sweeps} refinement sweeps, rel "
+            f"residual {rel:.3e}, {'fresh' if fresh else 'lagged'} factor")
+    dp = laplace_jump(prob, res.x)
+    dx = rel_dx(res.x, x_gmres)
+    log(f"two-phase tpu_direct: dp = {dp:.5f}; vs gmres_ndlu: max |x_direct "
+        f"- x_gmres| / (1 + |x_gmres|) = {dx:.3e}")
+    if dx > BUBBLE_PATHS_TOL:
+        raise RuntimeError(f"two-phase tpu_direct and gmres_ndlu end states "
+                           f"differ by {dx:.3e} > {BUBBLE_PATHS_TOL:.0e}")
+    return {"launches": ln, "trsv": trsv, "bound": trsv_bound(calls)}
+
+
+def count_syncs(fn):
+    """(fn(), host syncs): the synchronizing CUDA operations torch reports
+    under ``set_sync_debug_mode("warn")`` while ``fn`` runs."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message).lower() for w in caught)
+
+
+def pipelined_phase(solver, x_init, params):
+    """Phase 21: the 64x64 cavity's gmres+ndlu deck (phase 5's solver),
+    which ``solve`` routes to the pipelined loop, against
+    ``_solve_sequential`` on the same deck, in turns (pipelined,
+    sequential, sequential, pipelined), each from ``reset_lagged()``: the
+    same Newton and linear iterations (CAVITY_LINEAR), norms within
+    PIPE_NORM_RTOL; s/iteration, host syncs per Newton iteration and
+    discarded speculative solves of each. Returns the launches of each
+    loop's last run."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.front_gather import front_gather
+
+    loops = {"pipelined": solver.solve, "sequential": solver._solve_sequential}
+    runs = {k: [] for k in loops}
+    for name in ("pipelined", "sequential", "sequential", "pipelined"):
+        solver.reset_lagged()
+        solver.n_factor = solver.n_discarded = 0
+        batched_lu.launches = front_gather.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res, syncs = count_syncs(lambda: loops[name](x_init, params))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        its = max(res.iters, 1)
+        ln = {"lu": batched_lu.launches, "gather": front_gather.launches,
+              "trsv": 0}
+        runs[name].append((res, ln))
+        log(f"pipelined vs sequential, {name}: iters={res.iters} converged="
+            f"{res.converged} lin={res.linear_iters} ||R||_2="
+            f"{[f'{n[1]:.6e}' for n in res.res_norms]}; {sec / its:.4f} s/iter "
+            f"(asm {res.assembly_time / its * 1e3:.1f} ms + slv "
+            f"{res.solve_time / its * 1e3:.1f} ms); {syncs} host syncs, "
+            f"{syncs / its:.1f} per Newton iteration; discarded speculative "
+            f"solves {solver.n_discarded}; factorizations {solver.n_factor}, "
+            f"front-LU launches {ln['lu']}")
+        if not res.converged or res.linear_iters != CAVITY_LINEAR:
+            raise RuntimeError(f"cavity {name} loop: linear iterations "
+                               f"{res.linear_iters} != {CAVITY_LINEAR}")
+        nf = solver.n_factor
+        if nf < 1 or ln["lu"] != len(solver.precond.levels) * nf:
+            raise RuntimeError(f"cavity {name} loop: front-LU launches "
+                               f"{ln['lu']} != levels x {nf} factorizations")
+    ref = runs["sequential"][0][0].res_norms
+    worst = 0.0
+    for res, _ in runs["pipelined"] + runs["sequential"]:
+        for a, b in zip(res.res_norms, ref):
+            worst = max(worst, max(abs(u - v) / max(abs(v), 1e-300)
+                                   for u, v in zip(a, b)))
+    log(f"pipelined vs sequential: norm sequences within rel {worst:.2e} "
+        f"(limit {PIPE_NORM_RTOL:.0e})")
+    if worst > PIPE_NORM_RTOL:
+        raise RuntimeError(f"pipelined and sequential norm sequences differ by "
+                           f"rel {worst:.2e} > {PIPE_NORM_RTOL:.0e}")
+    return {k: v[-1][1] for k, v in runs.items()}
 
 
 def main() -> int:
@@ -1483,6 +1872,9 @@ def main() -> int:
     if abs(bres.iters - BUOY_NEWTON) > 1:
         raise RuntimeError(f"buoyant main path took {bres.iters} Newton "
                            f"iterations, not {BUOY_NEWTON} +- 1")
+    if bres.linear_iters != BUOY_LINEAR:
+        raise RuntimeError(f"buoyant main path: linear iterations "
+                           f"{bres.linear_iters} != {BUOY_LINEAR}")
     nf = bsolver.n_factor
     if nf < 1 or b_lu != len(blev) * nf or b_gather != len(blev) * nf:
         raise RuntimeError(f"buoyant front-LU launches {b_lu} / front-gather "
@@ -1507,23 +1899,40 @@ def main() -> int:
     vt = ve_transient_phase(dev)
     log(f"after the viscoelastic phases: {mem_line()}")
 
-    # ---- 18. kernel summary
-    trsv_bnd = trsv_bound(calls)
-    ve_paths = {"viscoelastic gmres+ndlu": ve["launches"],
-                "viscoelastic tpu_direct": vd["launches"],
-                "viscoelastic transient": vt}
+    # ---- 18. small cross-check of the static bubble: GPU vs CPU
+    cross_check_bubble()
 
-    def ve_launches(kind):
-        return {k: ln[kind] for k, ln in ve_paths.items()}
+    # ---- 19.-20. the static bubble's two rungs (48x48)
+    tp = bubble_gmres_phase(dev)
+    td = bubble_direct_phase(dev, tp.pop("prob"), tp.pop("params"), tp["x"])
+    log(f"after the two-phase phases: {mem_line()}")
+
+    # ---- 21. the pipelined Newton loop against the sequential one (64x64
+    # cavity, phase 5's solver)
+    pipe = pipelined_phase(solver, x_init, params)
+
+    # ---- kernel summary
+    trsv_bnd = trsv_bound(calls)
+    more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
+                "viscoelastic tpu_direct": vd["launches"],
+                "viscoelastic transient": vt,
+                "two-phase gmres_ndlu": tp["launches"],
+                "two-phase tpu_direct": td["launches"],
+                "cavity pipelined": pipe["pipelined"],
+                "cavity sequential": pipe["sequential"]}
+
+    def path_launches(kind):
+        return {k: ln[kind] for k, ln in more_paths.items()}
     print(json.dumps({"kernels": [{
         "name": "batched_lu",
         "route": "cuda",
         "source": "goma_tpu_torch/csrc/batched_lu.cu",
         "replaces": "goma_tpu/solvers/pallas_lu.py:39",
-        "launches": launches + d_lu + b_lu + sum(ve_launches("lu").values()),
+        "launches": launches + d_lu + b_lu + sum(path_launches("lu").values()),
         "launches_by_path": {"gmres+ndlu": launches, "tpu_direct": d_lu,
-                             "buoyant gmres+ndlu": b_lu, **ve_launches("lu")},
-        "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"]),
+                             "buoyant gmres+ndlu": b_lu, **path_launches("lu")},
+        "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"],
+                           tp["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -1536,15 +1945,19 @@ def main() -> int:
         "viscoelastic_plain_ms": ve["lu_ms"][torch.float32][1],
         "viscoelastic_library_ms": ve["lu_ms"][torch.float32][2],
         "viscoelastic_bound_ms": ve["lu_bound"][0],
+        "two_phase_ms": tp["lu_ms"][torch.float32][0],
+        "two_phase_plain_ms": tp["lu_ms"][torch.float32][1],
+        "two_phase_library_ms": tp["lu_ms"][torch.float32][2],
+        "two_phase_bound_ms": tp["lu_bound"][0],
     }, {
         "name": "batched_trsv",
         "route": "cuda",
         "source": "goma_tpu_torch/csrc/batched_trsv.cu",
         "replaces": "goma_tpu/solvers/pallas_lu.py:67",
-        "launches": d_trsv + b_trsv + sum(ve_launches("trsv").values()),
-        "launches_by_path": {"tpu_direct": d_trsv, **ve_launches("trsv")},
+        "launches": d_trsv + b_trsv + sum(path_launches("trsv").values()),
+        "launches_by_path": {"tpu_direct": d_trsv, **path_launches("trsv")},
         "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
-                           vd["trsv"]["max_abs"]),
+                           vd["trsv"]["max_abs"], td["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -1569,17 +1982,24 @@ def main() -> int:
         "viscoelastic_library_device_ms":
             vd["trsv"]["device_ms"]["solve_triangular"],
         "viscoelastic_step_ns": vd["step_ns"],
+        "two_phase_ms": td["trsv"]["ms"][torch.float32][0],
+        "two_phase_plain_ms": td["trsv"]["ms"][torch.float32][1],
+        "two_phase_library_ms": td["trsv"]["ms"][torch.float32][2],
+        "two_phase_bound_ms": td["bound"][0],
+        "two_phase_device_ms": td["trsv"]["device_ms"]["kernel"],
+        "two_phase_library_device_ms":
+            td["trsv"]["device_ms"]["solve_triangular"],
     }, {
         "name": "front_gather",
         "route": "cuda",
         "source": "goma_tpu_torch/csrc/front_gather.cu",
         "replaces": "scripts/attic/exp_front_gather.py:130",
         "launches": (g_launches + d_gather + b_gather
-                     + sum(ve_launches("gather").values())),
+                     + sum(path_launches("gather").values())),
         "launches_by_path": {"gmres+ndlu": g_launches, "tpu_direct": d_gather,
                              "buoyant gmres+ndlu": b_gather,
-                             **ve_launches("gather")},
-        "max_abs_err": max(gather_abs, ve["gather_abs"]),
+                             **path_launches("gather")},
+        "max_abs_err": max(gather_abs, ve["gather_abs"], tp["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -1589,6 +2009,10 @@ def main() -> int:
         "viscoelastic_plain_ms": ve["g_times"]["plain"][0],
         "viscoelastic_library_ms": ve["g_times"]["index_select"][0],
         "viscoelastic_bound_ms": ve["g_bound"][0],
+        "two_phase_ms": tp["g_times"]["kernel"][0],
+        "two_phase_plain_ms": tp["g_times"]["plain"][0],
+        "two_phase_library_ms": tp["g_times"]["index_select"][0],
+        "two_phase_bound_ms": tp["g_bound"][0],
     }]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -297,6 +297,28 @@ class Problem:
         p.update(extra)
         return p
 
+    def set_nodal_field(self, x, var: str, comp: int, values) -> np.ndarray:
+        """Write per-node values (array over all mesh nodes, or callable of
+        coords) into the solution vector for (var, comp). Host numpy in and
+        out, as in goma_tpu; returns a copy."""
+        x = np.array(x, copy=True)
+        dofs = self.dofmap.dof_of_node_svar[:, self.dofmap.svar(var, comp)]
+        ok = dofs >= 0
+        v = values(self.mesh.coords) if callable(values) else np.asarray(values)
+        if np.ndim(v) == 0:
+            v = np.full(self.mesh.coords.shape[0], float(v))
+        x[dofs[ok]] = v[ok]
+        return x
+
+    def get_nodal_field(self, x, var: str, comp: int = 0, fill=np.nan) -> np.ndarray:
+        """Per-node values of (var, comp) of a host vector; inactive nodes
+        get ``fill``."""
+        dofs = self.dofmap.dof_of_node_svar[:, self.dofmap.svar(var, comp)]
+        out = np.full(self.mesh.coords.shape[0], fill)
+        ok = dofs >= 0
+        out[ok] = np.asarray(x)[dofs[ok]]
+        return out
+
     # ------------------------------------------------------------- assembly
     def _apply_dirichlet(self, x, R, vals, params):
         T = self._tables

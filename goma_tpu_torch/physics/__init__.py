@@ -7,3 +7,26 @@ from goma_tpu_torch.physics.viscoelastic import (AxisymHoopStress,
                                                  SqrtConformationStress,
                                                  VelocityGradientProjection,
                                                  VEStress)
+from goma_tpu_torch.physics.level_set import (
+    CSFSurfaceTension,
+    ExtensionVelocity,
+    FillEquation,
+    FillExtV,
+    LevelSetProperty,
+    LSExtVKinematic,
+    LSExtVLatent,
+    SolvedNormal,
+    LSEmbeddedDirichlet,
+    LSEmbeddedFlux,
+    LSFlowPressure,
+    LSRecoilPressure,
+    delta,
+    heaviside,
+    kanouff_recoil,
+    qrad_flux,
+    renormalize,
+    renormalize_mass,
+    XFEMPressureContinuity,
+    XFEMPressureMomentum,
+    sharp_heaviside,
+)

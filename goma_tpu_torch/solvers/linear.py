@@ -12,11 +12,17 @@ goma_tpu runs the cycle as one device program (``lax.fori_loop`` with a
 ``lax.cond`` skip). Here the loop is on the host and reads the estimate
 back after every step: one device sync per Arnoldi step, a later
 optimization target (a CUDA graph or a batched-check variant).
+
+The first read of a call is one sync for ``||b||``, the first residual
+norm, the tolerance when it is a device tensor, and any ``extra`` tensors
+the caller lets ride on it (the pipelined Newton loop's residual norms,
+as goma_tpu's ``_linsolve_gmres`` folds its ``extra_fetch`` into the first
+cycle's fetch).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -29,16 +35,29 @@ class LinearResult:
     iters: int
     resnorm: float
     converged: bool
+    # from the call's first read: ||b||, the tolerance as used, and the
+    # values of the ``extra`` tensors (flattened, float64)
+    bnorm: float = 0.0
+    tol: float = 0.0
+    extra: list = field(default_factory=list)
 
 
 def identity_precond(r):
     return r
 
 
+def read_scalars(tensors) -> list:
+    """One host read of the values of ``tensors`` (any shapes, flattened in
+    order) as Python floats; float32 values widen to float64 exactly."""
+    return torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).tolist()
+
+
 def gmres(matvec, b, precond=None, x0=None, tol=1e-8, atol=0.0, restart=40,
-          maxiter=200):
+          maxiter=200, extra=()):
     """Right-preconditioned restarted GMRES. ``matvec``/``precond`` are
-    callables on vectors of b's dtype and device. Returns LinearResult."""
+    callables on vectors of b's dtype and device; ``tol`` a float or a 0-d
+    tensor; ``extra`` tensors read back with ``||b||`` in the first sync
+    (``LinearResult.extra``). Returns LinearResult."""
     n = b.shape[0]
     dtype, dev = b.dtype, b.device
     if precond is None:
@@ -47,13 +66,18 @@ def gmres(matvec, b, precond=None, x0=None, tol=1e-8, atol=0.0, restart=40,
         x0 = torch.zeros_like(b)
     m = restart
 
-    bnorm = float(torch.linalg.norm(b))
+    r = b - matvec(x0)
+    beta_t = torch.linalg.norm(r)
+    tol_dev = torch.is_tensor(tol)
+    got = read_scalars([torch.linalg.norm(b), beta_t]
+                       + ([tol] if tol_dev else []) + list(extra))
+    bnorm, rn = got[0], got[1]
+    if tol_dev:
+        tol = got[2]
+    extra_vals = got[3 if tol_dev else 2:]
     target = max(tol * bnorm, atol)
 
-    def arnoldi_cycle(x):
-        r = b - matvec(x)
-        beta_t = torch.linalg.norm(r)
-        beta = float(beta_t)
+    def arnoldi_cycle(x, r, beta_t, beta):
         V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
         H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
         V[0] = r / (beta_t if beta > 0 else 1.0)
@@ -96,11 +120,13 @@ def gmres(matvec, b, precond=None, x0=None, tol=1e-8, atol=0.0, restart=40,
 
     x = x0
     it = 0
-    rn = float(torch.linalg.norm(b - matvec(x0)))
     while rn > target and it < maxiter:
-        x, cnt = arnoldi_cycle(x)
-        rn = float(torch.linalg.norm(b - matvec(x)))
+        x, cnt = arnoldi_cycle(x, r, beta_t, rn)
+        r = b - matvec(x)
+        beta_t = torch.linalg.norm(r)
+        rn = float(beta_t)
         it += cnt
         if cnt == 0:  # the cycle found the target met: nothing can improve
             break
-    return LinearResult(x=x, iters=it, resnorm=rn, converged=rn <= target)
+    return LinearResult(x=x, iters=it, resnorm=rn, converged=rn <= target,
+                        bnorm=bnorm, tol=tol, extra=extra_vals)

@@ -18,9 +18,15 @@ substitution through the ``batched_trsv`` kernel plus iterative refinement
 against the fresh operator, refactoring once when the lagged factor misses
 the residual guard.
 
-goma_tpu routes this configuration to ``_solve_pipelined``, which hides
-remote-TPU round trips and yields the same norm sequence; the port runs
-the sequential loop, and the pipelined one is a later slice.
+``solve`` routes as goma_tpu routes: ``gmres`` with ``tol_update == 0`` on
+a problem with the fast prep runs the pipelined loop (``_solve_pipelined``),
+everything else (``tpu_direct``, ``tol_update > 0``) the sequential loop
+(``_solve_sequential``). The pipelined loop dispatches the prep, the
+Eisenstat-Walker tolerance (computed on the device, ``_eta_device``) and
+the first GMRES cycle with no host read between them, and reads the prep's
+norms in the first cycle's one sync; it yields the same norm sequence and
+the same linear iterations as the sequential loop. On a converged
+iteration its speculative solve is thrown away (``n_discarded``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,7 @@ import numpy as np
 import torch
 
 from goma_tpu_torch.fem.sparsity import EllOperator, row_sums_ell
-from goma_tpu_torch.solvers.linear import LinearResult, gmres
+from goma_tpu_torch.solvers.linear import LinearResult, gmres, read_scalars
 
 _LATER = "later slice of the port, see ROADMAP"
 
@@ -195,6 +201,9 @@ class NewtonSolver:
         #: evaluations each with a substitution, the relative residual of
         #: the step, whether its factor was fresh)
         self.direct_log = []
+        #: speculative GMRES solves the pipelined loop threw away (on a
+        #: converged iteration, or before the prep32 endgame re-prep)
+        self.n_discarded = 0
 
     def reset_lagged(self):
         """Drop the lagged factors (preconditioner and tpu_direct NDLU)."""
@@ -257,15 +266,14 @@ class NewtonSolver:
     def _apply_precond_mv(self, fac_num, r):
         return self.precond.solve(fac_num[0], r).to(r.dtype)
 
-    def _gmres_cycle(self, scale, aux, fac_num, x, b, tol):
+    def _gmres_cycle(self, scale, aux, fac_num, x, b, tol, extra=()):
         """One restarted-GMRES call of ``gmres_restart`` steps (the restart
         loop lives in _linsolve_gmres)."""
         prob = self.problem
         mv = lambda v: prob.element_matvec(None, aux, scale, scale * v)  # noqa: E731
         M = lambda r: self._apply_precond_mv(fac_num, r)  # noqa: E731
-        lr = gmres(mv, b, precond=M, tol=tol, restart=self.opts.gmres_restart,
-                   maxiter=self.opts.gmres_restart, x0=x)
-        return lr.x, lr.resnorm, lr.iters
+        return gmres(mv, b, precond=M, tol=tol, restart=self.opts.gmres_restart,
+                     maxiter=self.opts.gmres_restart, x0=x, extra=extra)
 
     def _stale_its(self) -> int:
         """Krylov-iteration growth over the post-factor baseline that marks
@@ -274,7 +282,12 @@ class NewtonSolver:
             return int(self.opts.precond_stale_its)
         return 45
 
-    def _linsolve_gmres(self, R, scale, aux, tol=None):
+    def _linsolve_gmres(self, R, scale, aux, tol=None, extra=None):
+        """Solve (DAD) z = D R by restarted GMRES; dx = D z. ``tol`` is a
+        float or a 0-d device tensor (``_eta_device``). ``||b||``, the
+        tolerance and the ``extra`` tensors are read in the first cycle's
+        first sync (the first cycle always runs); with ``extra`` given the
+        return is ``(LinearResult, extra values)``."""
         opts = self.opts
         lagged = opts.precond_lag and self._fac_cache is not None
         if lagged:
@@ -289,18 +302,14 @@ class NewtonSolver:
         z = torch.zeros_like(b)
         if tol is None:
             tol = opts.linear_tol
-        bnorm = float(torch.linalg.norm(b))
-        if bnorm == 0.0:
-            # zero right-hand side: z = 0 is the exact solution
-            return LinearResult(x=scale * z, iters=0, resnorm=0.0,
-                                converged=True)
-        target = max(tol * bnorm, 1e-300)
+        target = None
+        extra_vals = None
         it = 0
         rn = np.inf
         stale = self._stale_its()
         base = self._fac_base_its if lagged else None
         it_refac = 0
-        while rn > target and it < opts.linear_maxiter:
+        while (target is None or rn > target) and it < opts.linear_maxiter:
             if lagged and it >= (base or 0) + stale:
                 # the lagged factor can't carry THIS solve's tolerance:
                 # refactor mid-solve and continue from the current iterate
@@ -311,12 +320,27 @@ class NewtonSolver:
                 lagged = False
                 it_refac = it
             prev = rn
-            z, rn, cnt = self._gmres_cycle(scale, aux, fac, z, b, tol)
+            lr = self._gmres_cycle(scale, aux, fac, z, b, tol,
+                                   (extra or ()) if target is None else ())
+            z, rn, cnt = lr.x, lr.resnorm, lr.iters
+            if target is None:
+                tol, extra_vals = lr.tol, lr.extra
+                target = max(tol * lr.bnorm, 1e-300)
+                if lr.bnorm == 0.0:
+                    # zero right-hand side: z = 0 is the exact solution
+                    out = LinearResult(x=scale * torch.zeros_like(b), iters=0,
+                                       resnorm=0.0, converged=True)
+                    return (out, extra_vals) if extra is not None else out
             it += max(cnt, 1)
             if not np.isfinite(rn):
                 break
             if rn >= 0.999 * prev:
                 break  # stagnation
+        if target is None:  # the loop never ran (linear_maxiter <= 0)
+            got = read_scalars([torch.linalg.norm(b), torch.as_tensor(
+                tol, dtype=torch.float64, device=b.device)] + list(extra or ()))
+            extra_vals = got[2:]
+            target = max(got[1] * got[0], 1e-300)
         if opts.precond_lag:
             # staleness policy: drop the cached factor once the iteration
             # count degrades past the threshold over its baseline. After a
@@ -326,8 +350,9 @@ class NewtonSolver:
             elif (it >= self._fac_base_its + self._stale_its()
                   or not np.isfinite(rn)):
                 self._fac_cache = None
-        return LinearResult(x=scale * z, iters=it, resnorm=rn,
-                            converged=rn <= target)
+        out = LinearResult(x=scale * z, iters=it, resnorm=rn,
+                           converged=rn <= target)
+        return (out, extra_vals) if extra is not None else out
 
     def _direct_ndlu(self, vals):
         """The tpu_direct multifrontal LU, built on first use from the first
@@ -446,16 +471,170 @@ class NewtonSolver:
                 eta = max(opts.linear_tol, min(eta, max(need, opts.linear_tol)))
         return eta
 
+    def _eta_device(self, l2, prev_l2):
+        """The forcing of ``_eta`` on 0-d device tensors, in float64, so the
+        pipelined loop can chain prep -> eta -> first GMRES cycle without a
+        host read; ``prev_l2 < 0`` is the first-iteration sentinel. Equal to
+        ``_eta(l2, prev_l2)`` for every input, ``prev_l2 == 0`` included
+        (``linear_tol`` before the floor and endgame clamps; goma_tpu's
+        ``_eta_device`` clamps ``prev_l2`` to 1e-300 there and returns 0.1),
+        and ``l2 == 0``, where the endgame clamps do not apply."""
+        o = self.opts
+        lt = o.linear_tol
+        l2 = l2.to(torch.float64)
+        prev_l2 = prev_l2.to(torch.float64)
+        eta = torch.full_like(l2, lt)
+        if o.forcing != "ew":
+            return eta
+        one = torch.ones_like(l2)
+        ratio = l2 / torch.where(prev_l2 > 0, prev_l2, one)
+        ew = torch.clamp(torch.clamp(0.5 * ratio ** 1.5, min=lt), max=0.1)
+        eta = torch.where(prev_l2 < 0, torch.full_like(l2, max(lt, 1e-2)),
+                          torch.where(prev_l2 > 0, ew, eta))
+        if o.ew_eta_floor > 0:
+            eta = torch.clamp(eta, min=o.ew_eta_floor)
+        if o.tol_residual > 0:
+            # tensor / tensor: a Python scalar over a tensor is computed as
+            # scalar * (1 / tensor), an ulp off the host's division
+            need = (torch.full_like(l2, 0.5 * o.tol_residual)
+                    / torch.where(l2 > 0, l2, one))
+            if o.ew_endgame == "standard":
+                end = torch.clamp(torch.maximum(eta, torch.clamp(need, max=0.1)),
+                                  max=0.1)
+                end = torch.clamp(end, min=lt)
+            else:
+                end = torch.clamp(torch.minimum(eta, torch.clamp(need, min=lt)),
+                                  min=lt)
+            eta = torch.where(l2 > 0, end, eta)
+        return eta
+
     # ------------------------------------------------------------ solve
     def solve(self, x0, params) -> NewtonResult:
         """Newton from ``x0`` (array or tensor) with ``params`` from
-        ``problem.base_params()``. ``assembly_time`` covers the preps and
+        ``problem.base_params()``, routed as goma_tpu routes: ``gmres`` with
+        ``tol_update == 0`` on the fast prep runs ``_solve_pipelined``,
+        everything else ``_solve_sequential``. (The port's ``gmres`` always
+        has goma_tpu's fast prep: ``check_slice`` refuses
+        ``row_scaling=False``.)"""
+        opts = self.opts
+        if opts.linear_solver == "gmres" and opts.tol_update == 0:
+            return self._solve_pipelined(x0, params)
+        return self._solve_sequential(x0, params)
+
+    def _state(self, x0):
+        prob = self.problem
+        return torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0) else x0,
+                               dtype=prob.dtype, device=self.device)
+
+    def _solve_pipelined(self, x0, params) -> NewtonResult:
+        """goma_tpu's ``_solve_pipelined``, line for line: the prep, the
+        device-side forcing tolerance and the first GMRES cycle are
+        dispatched with no host read between them, and the prep's norms
+        ride on the first cycle's one read. A quadratic-convergence
+        predictor (expected ||R||_2 ~ 10 ||R_prev||_2^2) decides per
+        iteration whether to SPECULATE (dispatch the solve before the norms
+        are known) and, under prep32, whether to prep at full precision
+        directly. Convergence and the prep32 endgame still follow the
+        norms as read, so a wrong guess costs time only: a wrong
+        "sequential" one extra read, a wrong "speculate" a whole solve that
+        is thrown away (counted in ``n_discarded``). The prep32 endgame
+        re-prep falls back to the sequential order for that one iteration.
+        Same norm sequence, forcing and linear iterations as
+        ``_solve_sequential``.
+
+        Buckets: ``assembly_time`` counts the preps' host dispatch only;
+        every read of the prep's norms is charged to ``solve_time``, in
+        both branches, since on a speculating iteration it is the first
+        GMRES cycle's own read and cannot be told apart from it."""
+        opts = self.opts
+        prob = self.problem
+        x = self._state(x0)
+        res_norms, upd_norms, lin_iters = [], [], []
+        converged = False
+        t_asm = t_slv = 0.0
+        it = 0
+        prev_l2_dev = None
+        sentinel = torch.full((), -1.0, dtype=torch.float64, device=self.device)
+        tol = opts.tol_residual
+        prep32 = opts.prep32_tol > 0 and self._jdt != prob.dtype
+        boundary = max(opts.prep32_tol, 2.0 * tol)
+        for it in range(opts.max_iter):
+            self._cur_x = x
+            self._cur_params = params
+            exp_l2 = np.inf if not res_norms else 10.0 * res_norms[-1][1] ** 2
+            cur32 = prep32 and exp_l2 >= boundary
+            speculate = exp_l2 >= tol and (not prep32 or exp_l2 >= boundary)
+            t0 = time.perf_counter()
+            if cur32:
+                R, norms, scale, aux = self._prepare_fast32(x, params)
+            else:
+                R, norms, scale, aux = self._prepare_fast(x, params)
+            t_asm += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prev = sentinel if prev_l2_dev is None else prev_l2_dev
+            eta = self._eta_device(norms[1], prev)
+            if speculate:
+                lr, (l1, l2, li) = self._linsolve_gmres(R, scale, aux, tol=eta,
+                                                         extra=[norms])
+            else:
+                lr = None
+                l1, l2, li = read_scalars([norms])
+            if not cur32 and prep32 and (l2 < boundary or li < tol):
+                # endgame confirmed and this prep is already full precision
+                prep32 = False
+            if cur32 and (l2 < boundary or li < tol):
+                # endgame: re-prep THIS iteration at full precision and run
+                # the rest of the iteration in sequential order
+                self.n_discarded += lr is not None
+                t_slv += time.perf_counter() - t0
+                prep32 = False
+                t0 = time.perf_counter()
+                R, norms, scale, aux = self._prepare_fast(x, params)
+                t_asm += time.perf_counter() - t0
+                t0 = time.perf_counter()
+                l1, l2, li = read_scalars([norms])
+                res_norms.append((l1, l2, li))
+                if l2 < tol and li < tol:
+                    converged = True
+                    t_slv += time.perf_counter() - t0
+                    break
+                eta = self._eta_device(norms[1], prev)
+                lr = self._linsolve_gmres(R, scale, aux, tol=eta)
+            else:
+                res_norms.append((l1, l2, li))
+                if l2 < tol and li < tol:
+                    converged = True
+                    self.n_discarded += lr is not None
+                    t_slv += time.perf_counter() - t0
+                    break
+                if lr is None:  # the predictor said stop, Newton goes on
+                    lr = self._linsolve_gmres(R, scale, aux, tol=eta)
+            prev_l2_dev = norms[1]
+            lin_iters.append(lr.iters)
+            t_slv += time.perf_counter() - t0
+            x = x - self._select_damp(li) * lr.x.to(x.dtype)
+            if opts.full_history:
+                # kept on the device; read once after the loop
+                upd_norms.append(torch.linalg.norm(lr.x))
+        return NewtonResult(
+            x=x.cpu().numpy(),
+            converged=converged,
+            iters=it,
+            res_norms=res_norms,
+            update_norms=torch.stack(upd_norms).tolist() if upd_norms else [],
+            linear_iters=lin_iters,
+            assembly_time=t_asm,
+            solve_time=t_slv,
+        )
+
+    def _solve_sequential(self, x0, params) -> NewtonResult:
+        """The sequential Newton loop: prep, read the norms, test
+        convergence, then solve. ``assembly_time`` covers the preps and
         their norm reads; ``solve_time`` the linear solves (factorizations
         included) and updates."""
         opts = self.opts
         prob = self.problem
-        x = torch.as_tensor(np.asarray(x0) if not torch.is_tensor(x0) else x0,
-                            dtype=prob.dtype, device=self.device)
+        x = self._state(x0)
         res_norms, upd_norms, lin_iters = [], [], []
         converged = False
         t_asm = t_slv = 0.0

@@ -4,15 +4,19 @@ machine without CUDA, at small sizes, to find wrong paths, arguments and
 shapes before a run on the card.
 
     python3 scripts/chip_smoke_rehearsal.py [--only-viscoelastic]
+                                            [--only-two-phase]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
 on the CPU; each kernel wrapper runs its plain version and counts that as a
-launch; the kernels' launch plans are the wrappers' own; ``device_ms``
-returns 0 ms; nvcc is not run. The decks are cut to 8x8 (cavity, buoyant)
-and 8x4 (viscoelastic), and the checks that need the full size (Ghia, the
-buoyant Newton count, the paths' agreement) are widened. Every time it
-prints is a CPU time, not a device number.
+launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
+``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
+syncs).
+The decks are cut to 8x8 (cavity, buoyant, static bubble) and 8x4
+(viscoelastic), the checks that need the full size (Ghia, the buoyant Newton
+count, the paths' agreement, the Laplace jump) are widened, and the linear
+iteration counts the script requires are those of the cut decks. Every time
+it prints is a CPU time, not a device number.
 """
 
 import argparse
@@ -21,6 +25,7 @@ import time
 import types
 from pathlib import Path
 
+import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parents[1]
@@ -48,6 +53,7 @@ def _fake_cuda():
     torch.cuda.get_device_name = lambda i=0: "CPU rehearsal"
     torch.cuda.device_count = lambda: 1
     torch.cuda.empty_cache = lambda: None
+    torch.cuda.set_sync_debug_mode = lambda mode: None
     torch.cuda.mem_get_info = lambda *a: (0, 1)
     torch.cuda.memory_allocated = torch.cuda.memory_reserved = \
         torch.cuda.max_memory_allocated = lambda *a: 0
@@ -64,6 +70,10 @@ def _fake_cuda():
         setattr(mod, name, _counted(getattr(mod, name)))
     for mod in (batched_lu, batched_trsv):
         mod.kernel_plan = lambda nn, m, dt, _mod=mod: _mod._plan(nn, m, dt) + (1,)
+
+
+BUOY_LINEAR_8 = [1, 4, 7, 6, 10, 6]
+VE_LINEAR_4 = [1, 4, 11, 13]
 
 
 def _counted(plain):
@@ -88,12 +98,17 @@ def load_smoke():
     exec(compile(src, "chip_smoke.py", "exec"), cs.__dict__)
     cs.device_ms = lambda fn, reps, launches=None, required=True, graph=False: (
         fn(), (0.0, launches or 1))[1]
+    cs.graph_ms = lambda fn, reps=20: (fn(), 0.0)[1]
     cs.gpu_line = lambda: "CPU rehearsal, 0 W"
     cs.timed_build = lambda name: (0.0, "")
-    cs.N_MAIN = cs.N_BUOY = 8
+    cs.N_MAIN = cs.N_BUOY = cs.N_BUBBLE = 8
     cs.N_VE = 4
-    cs.GHIA_TOL = cs.X_PATHS_TOL = 1.0
+    cs.GHIA_TOL = cs.X_PATHS_TOL = cs.BUBBLE_DP_RTOL = 1.0
     cs.BUOY_NEWTON = 5
+    # the cut decks' linear iterations (CPU)
+    cs.CAVITY_LINEAR = [1, 13, 13, 10]
+    cs.BUOY_LINEAR = BUOY_LINEAR_8
+    cs.VE_LINEAR = VE_LINEAR_4
     return cs
 
 
@@ -101,6 +116,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--only-viscoelastic", action="store_true",
                     help="run phases 14-17 only")
+    ap.add_argument("--only-two-phase", action="store_true",
+                    help="run phases 18-21 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -111,6 +128,16 @@ def main() -> int:
         ve = cs.ve_gmres_phase(dev)
         cs.ve_direct_phase(dev, ve.pop("prob"), ve["x"])
         cs.ve_transient_phase(dev)
+    elif args.only_two_phase:
+        from goma_tpu_torch.solvers import NewtonSolver
+
+        dev = torch.device("cpu")
+        cs.cross_check_bubble()
+        tp = cs.bubble_gmres_phase(dev)
+        cs.bubble_direct_phase(dev, tp.pop("prob"), tp.pop("params"), tp["x"])
+        prob = cs.cavity_problem(cs.N_MAIN, dev)
+        cs.pipelined_phase(NewtonSolver(prob, cs.cavity_opts()),
+                           np.zeros(prob.dofmap.n_dof), prob.base_params())
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

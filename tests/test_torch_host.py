@@ -223,8 +223,9 @@ def test_nd_levels_equal(pair, leaf_max):
 def test_port_imports_and_builds_without_jax():
     """goma_tpu_torch never imports jax: with jax blocked in sys.modules the
     package imports and builds (and assembles) the cavity Problem (fused
-    kernel), a buoyant Problem and a viscoelastic Problem (generic AD path),
-    and a TransientSolver."""
+    kernel), a buoyant, a viscoelastic and a two-phase level-set Problem
+    (generic AD path), a TransientSolver, and runs the pipelined loop's
+    ``_eta_device``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -276,6 +277,24 @@ def test_port_imports_and_builds_without_jax():
         assert bool(torch.isfinite(vals).all()) and vals.shape[0] == vprob.pattern.nnz
         TransientSolver(vprob, NewtonOptions(precond="ndlu"),
                         TimeOptions(dt0=0.1, t_end=0.1))
+        # the two-phase level-set deck, and the pipelined loop's device eta
+        import numpy as np
+        from goma_tpu_torch.physics import CSFSurfaceTension, FillEquation
+        lprob = Problem(mesh, [Momentum(dim=2), Continuity(),
+                               CSFSurfaceTension(dim=2, sigma=1.0),
+                               FillEquation(interp="Q2", supg=0.0)],
+                        {"rho": 1.0, "mu": 1.0}, device="cpu")
+        lprob.add_dirichlet("top", "velocity", 0, 0.0)
+        lprob.finalize()
+        x = lprob.set_nodal_field(np.zeros(lprob.dofmap.n_dof), "fill", 0,
+                                  np.linalg.norm(mesh.coords, axis=1) - 0.5)
+        lp = lprob.base_params(ls_eps=torch.tensor(0.2, dtype=torch.float64))
+        R, vals = lprob._assemble(torch.as_tensor(x), lp)
+        assert bool(torch.isfinite(vals).all()) and vals.shape[0] == lprob.pattern.nnz
+        ls = NewtonSolver(lprob, NewtonOptions(precond="ndlu"))
+        eta = ls._eta_device(torch.tensor(1e-3, dtype=torch.float64),
+                             torch.tensor(-1.0))
+        assert float(eta) == ls._eta(1e-3, None)
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -347,6 +366,21 @@ def test_viscoelastic_pieces_outside_slice_raise(name, args):
     assert getattr(goma_tpu.physics, name).__name__ == name
     with pytest.raises(NotImplementedError, match="later slice"):
         cls(*args)
+
+
+@pytest.mark.parametrize("name", [
+    "XFEMPressureContinuity", "XFEMPressureMomentum", "LSEmbeddedFlux",
+    "LSEmbeddedDirichlet", "LSRecoilPressure", "SolvedNormal",
+    "ExtensionVelocity", "LSExtVKinematic", "LSExtVLatent", "FillExtV",
+    "LSFlowPressure", "kanouff_recoil", "qrad_flux",
+])
+def test_level_set_pieces_outside_slice_raise(name):
+    """goma_tpu's level-set exports outside this slice exist in the port
+    under the same names and refuse construction (or a call)."""
+    obj = getattr(goma_tpu_torch.physics, name)
+    assert getattr(goma_tpu.physics, name).__name__ == obj.__name__ == name
+    with pytest.raises(NotImplementedError, match="later slice"):
+        obj(2, 1.0)
 
 
 def test_dirichlet_first_spec_wins_with_warning():

@@ -1,6 +1,7 @@
 """Newton on the 8x8 Re=100 lid-driven cavity: the PyTorch port's
-sequential loop against goma_tpu's default ``NewtonSolver.solve`` (its
-pipelined path, which yields the same norm sequence), with goma_tpu's NDLU
+``NewtonSolver.solve`` against goma_tpu's, both routed to their pipelined
+loops (tests/test_torch_pipelined.py holds the port's pipelined loop
+against its sequential one), with goma_tpu's NDLU
 front LU switched to its Pallas kernel (interpret mode on the CPU) so both
 packages factor with the same unpivoted algorithm.
 
