@@ -4,14 +4,17 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Ten main paths, each read with its
-own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
+failure and when CUDA is unavailable. Thirteen main paths, each read with
+its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
 ``tpu_direct`` (phase 16) and transient start-up (phase 17), the
 level-set static bubble's ``gmres_ndlu`` (phase 19) and ``tpu_direct``
-(phase 20) rungs on the transient driver, and the cavity's pipelined and
-sequential Newton loops (phase 21). Every ``gmres`` deck with
+(phase 20) rungs on the transient driver, the cavity's pipelined and
+sequential Newton loops (phase 21), the ALE slot coater's ``gmres_ndlu``
+(phase 23) and ``tpu_direct`` (phase 24) rungs on the quality-guarded
+adaptive driver, and the buoyant deck's ``tpu_direct`` rung (phase 25).
+Every ``gmres`` deck with
 ``tol_update == 0`` runs the pipelined Newton loop, as in goma_tpu; the
 buoyant, viscoelastic and cavity phases hold goma_tpu's linear iteration
 counts under it. Phases:
@@ -146,7 +149,40 @@ counts under it. Phases:
     iterations [1, 12, 12, 10] in each, norm sequences within a stated
     relative bound; print s/iteration, host syncs per Newton iteration
     (``torch.cuda.set_sync_debug_mode("warn")``) and discarded speculative
-    solves of each.
+    solves of each;
+22. the ALE slot coater (examples/slot_coater.py::build and
+    bench.bench_slot_coater, BASELINE config #3: transient Momentum,
+    Continuity and elliptic mesh motion, capillary and kinematic face
+    kernels on the free surface, the quality-guarded adaptive driver) at
+    16x4 on cuda and on cpu: the golden deck of
+    tests/golden/newton_trace_slot_coater.json on ``tpu_direct`` (accepted
+    steps Newton [8, 8, 8, 6, 5], the second attempt failed and halved) and
+    bench.py's ``gmres_ndlu`` rung over the warm leg: the same attempts on
+    both devices, x within a stated bound;
+23. its ``gmres_ndlu`` rung at 96x24 (40,253 dof, 40 local dofs, 60
+    free-surface faces), bench.py's options: the front LU on its real
+    fronts at the first and the last factorization (growth, boosted
+    pivots, floor, limit), random boosted fronts at its 9 level shapes
+    (kernel, twin, ``lu_factor_ex``, bound), the gather exact and timed,
+    one factorization split; bench.py's warm leg [0, 0.04], then
+    ``reset_lagged()`` and the timed leg to 0.08: every attempt printed
+    (t, dt, accepted / rejected by error / failed Newton / rejected by
+    quality, Newton and linear iterations, min detJ), the factorizations,
+    discarded speculative solves, asm/slv and bench's s/iteration; require
+    goma_tpu's accepted steps in each leg (Newton +-1 each, every one
+    converged), min detJ > 0 at the end, the free-surface heights at ten x
+    positions within a stated bound of goma_tpu's, and front-LU and
+    front-gather launches = levels x factorizations;
+24. its ``tpu_direct`` rung (the deck's own options, leaf 96: its own
+    10-level tree, 20 substitutions a solve): the substitution kernel as in
+    phase 8 on the 20 substitutions of one solve, with the device ns per
+    dependent step at the levels above m = 500; the front LU on its real
+    fronts at the first and the last factorization; the gather exact and
+    timed; the factorization split; the same legs, prints and checks as
+    phase 23, and substitution launches = 2 x levels x solves;
+25. the 48x48 buoyant deck on bench.py's ``tpu_direct`` rung (leaf 256):
+    6 +- 1 Newton iterations, the launch counts of phase 10, x within a
+    stated bound of phase 13's ``gmres+ndlu`` solution.
 
 The last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
@@ -267,6 +303,47 @@ BUBBLE_PATHS_TOL = 1e-5
 # run: the same operations in the same order, so the norm sequences agree
 # up to the card's run-to-run rounding (equal on the CPU)
 PIPE_NORM_RTOL = 1e-6
+# ALE slot coater (bench.bench_slot_coater, BASELINE config #3): 96x24
+# QUAD9, the warm leg [0, 0.04], then ``reset_lagged()`` and the timed leg
+# to 0.08 (bench.py's timed leg is 0.08 long and ends at 0.12; this script
+# stops at 0.08)
+SC_NX, SC_NY, SC_WARM_T, SC_END_T = 96, 24, 0.04, 0.08
+# goma_tpu's bench_slot_coater make() at 96x24 on a CPU (float64 state,
+# the rung's own Jacobian dtype; PERF.md): Newton iterations of each
+# accepted step, per rung and leg. The port must take as many accepted
+# steps in each leg, each within +-1 Newton iteration.
+SC_REF_NEWTON = {
+    "gmres_ndlu": {"warm": [9, 6, 5, 4, 5, 5, 5, 5, 5, 6, 6, 7, 5, 7, 6, 5, 7],
+                   "timed": [7, 5, 7, 7]},
+    "tpu_direct": {"warm": [9, 6, 5, 4, 3, 4, 4, 4, 4, 4, 5, 5, 5, 5, 5, 5, 5],
+                   "timed": [6, 5, 5, 6]}}
+# ... and the free-surface height h = H + dy at ten x positions at t = 0.08
+# (the two rungs agree to 1e-8 there)
+SC_REF_HEIGHTS = [(1.5, 1.0), (1.7708333333333333, 0.8664828698028335),
+                  (2.0625, 0.7213600993805077), (2.333333333333333, 0.6017343229752568),
+                  (2.6041666666666665, 0.5265602076588211),
+                  (2.895833333333333, 0.49385794647024905),
+                  (3.1666666666666665, 0.48605483324683363),
+                  (3.4375, 0.4847341399442603), (3.7291666666666665, 0.4864633414111058),
+                  (4.0, 0.4951784456734436)]
+# |h_port - h_goma_tpu| at those points: each step stops at a row-scaled
+# ||R||_2 <= 3e-8 after inexact float32-Jacobian steps (gmres_ndlu) or
+# refined float32 factors (tpu_direct). H100 readings 6.5e-11 (gmres_ndlu)
+# and 1.1e-8 (tpu_direct, whose steps stop elsewhere below the tolerance)
+SC_H_TOL = 1e-6
+# the golden trace tests/golden/newton_trace_slot_coater.json (16x4, dt
+# 0.02 without adaptation, forcing "fixed"): Newton per accepted step
+SC_GOLDEN_NEWTON = [8, 8, 8, 6, 5]
+# max |x_cuda - x_cpu| / (1 + |x_cpu|) at the end of the 16x4 runs (golden
+# deck on tpu_direct, warm leg on gmres_ndlu with the float32 Jacobian):
+# the same steps on both devices, each stopped at a row-scaled ||R||_2 <=
+# 3e-8. H100 readings 6.7e-15 (tpu_direct) and 8.4e-10 (gmres_ndlu)
+SC_X_TOL = 1e-7
+# max |x_tpu_direct - x_gmres| / (1 + |x_gmres|) on the 48x48 buoyant deck:
+# both stop at ||R||_2 <= 1e-6 (gmres's last step inexact, eta >= 1e-3);
+# the pressure carries the hydrostatic head (Ra Pr = 7100). H100 reading
+# 1.2e-5
+BUOY_PATHS_TOL = 1e-4
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -1657,6 +1734,471 @@ def pipelined_phase(solver, x_init, params):
     return {k: v[-1][1] for k, v in runs.items()}
 
 
+def slot_coater_problem(nx, ny, rung, device, t_end=SC_WARM_T,
+                        newton_overrides=None):
+    """examples/slot_coater.py::build restated (it imports goma_tpu), with
+    bench.bench_slot_coater's options for ``rung``: ``gmres_ndlu`` (float32
+    Jacobian, ``precond="ndlu"``, leaf 256, linear_tol 1e-5, the loose-eta
+    endgame, prep32_tol 3e-6) or ``tpu_direct`` (the deck's own options:
+    float64 Jacobian, linear_tol 1e-9, damp 0.9, leaf 96). Transient
+    Momentum + Continuity + EllipticMesh, capillary and kinematic face
+    kernels on the free surface, the quality-guarded adaptive driver.
+    ``finalize`` keeps the first Dirichlet spec at a duplicated dof (the
+    values agree there). Returns (problem, TransientSolver, x0)."""
+    from goma_tpu_torch.bc import CapillaryBC, KinematicBC
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.mesh.mesh import SideSet
+    from goma_tpu_torch.physics import Continuity, EllipticMesh, Momentum
+    from goma_tpu_torch.solvers import NewtonOptions
+    from goma_tpu_torch.solvers.transient import TimeOptions, TransientSolver
+
+    U, mu, rho, sigma, x_die, L, H = 1.0, 0.1, 0.05, 1.0, 1.5, 4.0, 1.0
+    mesh = rectangle_mesh(nx, ny, elem="QUAD9", xlim=(0, L), ylim=(0, H))
+    # split the top side set at the die lip, snapped to an element boundary
+    ss = mesh.sidesets["top"]
+    xc, xr = [], []
+    for e, f in zip(ss.elems, ss.faces):
+        bi, le = mesh.global_elem_block(int(e))
+        xs_f = mesh.coords[mesh.blocks[bi].conn[le], 0]
+        xc.append(xs_f.mean())
+        xr.append(xs_f.max())
+    xc, xr = np.asarray(xc), np.asarray(xr)
+    die = xc < x_die
+    x_lip = xr[die].max()
+    mesh.sidesets["die"] = SideSet(ss.elems[die], ss.faces[die])
+    mesh.sidesets["free"] = SideSet(ss.elems[~die], ss.faces[~die])
+    top = mesh.nodesets["top"]
+    xt = mesh.coords[top, 0]
+    mesh.nodesets["die_nodes"] = top[xt <= x_lip + 1e-12]
+    mesh.nodesets["free_nodes"] = top[xt >= x_lip - 1e-12]
+    prob = Problem(mesh, [Momentum(dim=2, transient=True), Continuity(),
+                          EllipticMesh(2)],
+                   {"rho": rho, "mu": mu, "sigma": sigma}, device=device)
+    couette = lambda c: U * (1 - c[:, 1] / H)  # noqa: E731
+    for ns, var, comp, val in (
+            ("bottom", "velocity", 0, U), ("bottom", "velocity", 1, 0.0),
+            ("bottom", "mesh_displacement", 0, 0.0),
+            ("bottom", "mesh_displacement", 1, 0.0),
+            ("left", "velocity", 0, couette), ("left", "velocity", 1, 0.0),
+            ("left", "mesh_displacement", 0, 0.0),
+            ("left", "mesh_displacement", 1, 0.0),
+            ("free_nodes", "mesh_displacement", 0, 0.0)):
+        prob.add_dirichlet(ns, var, comp, val)
+    prob.add_face_kernel("free", CapillaryBC(dim=2, p_ext=0.0))
+    prob.add_face_kernel("free", KinematicBC(dim=2, penalty=1e3))
+    for ns, var, comp, val in (
+            ("right", "velocity", 0, U), ("right", "velocity", 1, 0.0),
+            ("right", "mesh_displacement", 0, 0.0),
+            ("die_nodes", "velocity", 0, 0.0), ("die_nodes", "velocity", 1, 0.0),
+            ("die_nodes", "mesh_displacement", 0, 0.0),
+            ("die_nodes", "mesh_displacement", 1, 0.0)):
+        prob.add_dirichlet(ns, var, comp, val)
+    prob.finalize()
+    x0 = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "velocity", 0,
+                              couette)
+
+    def dy0(c):
+        s = np.clip((c[:, 0] - x_lip) / 1.0, 0.0, 1.0)
+        h_t = H + (0.5 * H - H) * s * s * (3 - 2 * s)
+        return (h_t - H) * (c[:, 1] / H)
+
+    x0 = prob.set_nodal_field(x0, "mesh_displacement", 1, dy0)
+    for ns in ("bottom", "left", "die_nodes"):
+        d = prob.dofmap.dof_of_node_svar[mesh.nodesets[ns],
+                                         prob.dofmap.svar("mesh_displacement", 1)]
+        x0[d[d >= 0]] = 0.0
+    nopts = dict(max_iter=20, tol_residual=3e-8, linear_solver="tpu_direct",
+                 linear_tol=1e-9, precond="twolevel", gmres_restart=40,
+                 linear_maxiter=1200, damp=0.9)
+    if rung == "gmres_ndlu":
+        prob.jacobian_dtype = torch.float32
+        nopts.update(linear_solver="gmres", precond="ndlu", gmres_restart=60,
+                     linear_maxiter=240, ndlu_leaf_max=256, linear_tol=1e-5,
+                     ew_eta_floor=1e-3, ew_endgame="standard", prep32_tol=3e-6)
+    nopts.update(newton_overrides or {})
+    ts = TransientSolver(prob, NewtonOptions(**nopts), TimeOptions(
+        dt0=0.01, t_end=t_end, theta=0.0, adapt=True, eps_time=1e3,
+        rel_tol=1.0, growth_cap=2.0, max_dt=0.5, quality_guard=True,
+        max_failures=25))
+    return prob, ts, x0
+
+
+def record_attempts(ts):
+    """Log every attempt of ``ts``'s driver: a list of dicts (t, dt,
+    Newton and linear iterations, converged, min detJ, outcome), filled by
+    wrapping the Newton solve and the quality reduction; ``classify``
+    names each outcome after a run."""
+    from goma_tpu_torch.post.quality import make_quality_fn
+
+    log_ = []
+    solve, quality = ts.newton.solve, make_quality_fn(ts.problem)
+
+    def rec_solve(x, p):
+        r = solve(x, p)
+        log_.append({"t": float(p["time"]), "dt": 1.0 / float(p["ct"]),
+                     "newton": r.iters, "linear": sum(r.linear_iters),
+                     "converged": bool(r.converged), "min_detJ": None,
+                     "res": r})
+        return r
+
+    def rec_quality(x):
+        out = quality(x)
+        log_[-1]["min_detJ"] = out[0]  # read by classify, after the run
+        return out
+
+    ts.newton.solve, ts._quality_fn = rec_solve, rec_quality
+    return log_
+
+
+def classify(attempts, steps):
+    """Name each attempt's outcome: accepted (its end time is the next
+    accepted step's), failed Newton, rejected by quality (min detJ <= 0)
+    or rejected by the error test."""
+    k = 0
+    for a in attempts:
+        if a["min_detJ"] is not None:
+            a["min_detJ"] = float(a["min_detJ"])
+        if not a["converged"]:
+            a["outcome"] = "failed Newton"
+        elif a["min_detJ"] is not None and a["min_detJ"] <= 0.0:
+            a["outcome"] = "rejected by quality"
+        elif k < len(steps) and abs(steps[k].t - a["t"]) < 1e-12:
+            a["outcome"] = "accepted"
+            k += 1
+        else:
+            a["outcome"] = "rejected by error"
+    if k != len(steps):
+        raise RuntimeError("the attempt log does not hold every accepted step")
+
+
+def record_factor_vals(nd):
+    """Keep the CSR values of the first and the last factorization of
+    ``nd`` (``NDLU.factor`` wrapped): {"first", "last", "n"}."""
+    seen = {"n": 0}
+    factor = nd.factor
+
+    def rec(vals, *a, **k):
+        seen.setdefault("first", vals)
+        seen["last"], seen["n"] = vals, seen["n"] + 1
+        return factor(vals, *a, **k)
+
+    nd.factor = rec
+    return seen
+
+
+def free_surface_heights(prob, x):
+    """h = H + dy at ten free-surface nodes (the ends included), sorted by
+    x: [(x, h)]."""
+    dy = prob.get_nodal_field(x, "mesh_displacement", 1)
+    free = prob.mesh.nodesets["free_nodes"]
+    xs = prob.mesh.coords[free, 0]
+    order = np.argsort(xs)
+    xs, h = xs[order], 1.0 + dy[free][order]
+    idx = np.linspace(0, len(xs) - 1, 10).round().astype(int)
+    return [(float(xs[i]), float(h[i])) for i in idx]
+
+
+def slot_legs(ts, x0, params, label):
+    """bench._transient_sec_per_iter's protocol on the slot coater: the
+    warm leg [0, SC_WARM_T], then ``reset_lagged()``, every factorization,
+    solve and launch count set to 0, and the timed leg to SC_END_T from the
+    warm leg's x, t and xdot. Prints every attempt of both legs and the
+    timed leg's factorizations, discarded speculative solves, asm/slv and
+    bench's s/iter (converged steps' Newton iterations over the leg's wall
+    time). Returns (warm result, timed result, seconds, launches, timed
+    attempts)."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+
+    sv = ts.newton
+    attempts = record_attempts(ts)
+    legs = []
+    for leg in ("warm", "timed"):
+        if leg == "timed":
+            sv.reset_lagged()
+            sv.n_factor = sv._ndlu_nfactor = sv.n_discarded = 0
+            sv.direct_log = []
+            if sv._ndlu is not None:
+                sv._ndlu.n_solve = 0
+            batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+            ts.topts.t_end = SC_END_T
+            attempts.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = (ts.run(x0, params) if leg == "warm" else
+             ts.run(legs[0].x, params, t0=legs[0].t, xdot0=legs[0].xdot))
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        classify(attempts, r.steps)
+        for a in attempts:
+            mn = "-" if a["min_detJ"] is None else f"{a['min_detJ']:.4e}"
+            log(f"{label} {leg} attempt t={a['t']:.6f} dt={a['dt']:.6g}: "
+                f"{a['outcome']}, Newton {a['newton']}, linear {a['linear']}, "
+                f"min detJ {mn}")
+        nit = sum(s.newton_iters for s in r.steps if s.converged)
+        asm = sum(a["res"].assembly_time for a in attempts)
+        slv = sum(a["res"].solve_time for a in attempts)
+        log(f"{label} {leg} leg: {len(attempts)} attempts, {len(r.steps)} "
+            f"accepted to t = {r.t:.4f}, Newton per accepted step "
+            f"{[s.newton_iters for s in r.steps]}; {sec:.3f} s, "
+            f"{sec / max(nit, 1):.4f} s/iter (bench's: converged steps' "
+            f"{nit} Newton iterations); asm {asm:.3f} s + slv {slv:.3f} s")
+        legs.append(r)
+    ln = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+          "gather": front_gather.launches}
+    solves = (f", NDLU solves {sv._ndlu.n_solve}" if sv._ndlu is not None
+              else "")
+    log(f"{label} timed leg: factorizations {sv.n_factor + sv._ndlu_nfactor}"
+        f"{solves}, discarded speculative solves {sv.n_discarded}, launches "
+        f"front-LU {ln['lu']} front-gather {ln['gather']} substitution "
+        f"{ln['trsv']}")
+    return legs[0], legs[1], sec, ln, list(attempts)
+
+
+def check_slot_result(prob, rung, warm, timed, label):
+    """The slot coater's end state against goma_tpu's 96x24 record: every
+    accepted step converged, the same number of accepted steps in each leg
+    with Newton +-1 per step, min detJ > 0 at the end, the free-surface
+    heights within SC_H_TOL. Returns (min detJ, heights)."""
+    from goma_tpu_torch.post.quality import element_quality
+
+    ref = SC_REF_NEWTON[rung]
+    for leg, r in (("warm", warm), ("timed", timed)):
+        its = [s.newton_iters for s in r.steps]
+        if not all(s.converged for s in r.steps):
+            raise RuntimeError(f"{label} {leg} leg: an accepted step did not "
+                               f"converge: {r.steps}")
+        if len(its) != len(ref[leg]) or any(abs(a - b) > 1 for a, b in
+                                            zip(its, ref[leg])):
+            raise RuntimeError(f"{label} {leg} leg: Newton per accepted step "
+                               f"{its}, goma_tpu {ref[leg]} (same count of "
+                               "steps, +-1 each required)")
+    if abs(timed.t - SC_END_T) > 1e-12:
+        raise RuntimeError(f"{label}: the timed leg ended at t = {timed.t}")
+    x = timed.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: end state has the wrong shape or "
+                           "non-finite values")
+    q = element_quality(prob, x)
+    h = free_surface_heights(prob, x)
+    dh = max(abs(a[1] - b[1]) for a, b in zip(h, SC_REF_HEIGHTS))
+    dxs = max(abs(a[0] - b[0]) for a, b in zip(h, SC_REF_HEIGHTS))
+    log(f"{label}: end min detJ {q.min_detJ:.6e}, max detJ {q.max_detJ:.6e}, "
+        f"jacobian quality {q.jac_quality:.4f}; free surface (x, h) at t = "
+        f"{timed.t:.4f}: " + ", ".join(f"({a:.4f}, {b:.6f})" for a, b in h)
+        + f"; max |h - h_goma_tpu| = {dh:.3e} (limit {SC_H_TOL:.0e})")
+    if not q.min_detJ > 0.0:
+        raise RuntimeError(f"{label}: tangled mesh at the end (min detJ "
+                           f"{q.min_detJ:.3e})")
+    if dxs > 1e-12 or dh > SC_H_TOL:
+        raise RuntimeError(f"{label}: free-surface heights differ from "
+                           f"goma_tpu's by {dh:.3e} > {SC_H_TOL:.0e}")
+    return q.min_detJ, h
+
+
+def cross_check_slot_coater(devices=("cuda", "cpu")):
+    """Phase 22: the 16x4 slot coater on each of ``devices``: the golden
+    deck (dt 0.02 without adaptation, forcing "fixed") on ``tpu_direct``,
+    accepted steps' Newton SC_GOLDEN_NEWTON with the second attempt failed
+    and halved; bench.py's ``gmres_ndlu`` rung over the warm leg: the same
+    attempts (t, dt, Newton iterations, outcome) on both devices. x within
+    SC_X_TOL for both."""
+    for case in ("golden tpu_direct", "gmres_ndlu warm leg"):
+        runs = {}
+        for d in devices:
+            dev = torch.device(d)
+            if case.startswith("golden"):
+                prob, ts, x0 = slot_coater_problem(
+                    16, 4, "tpu_direct", dev, t_end=0.06,
+                    newton_overrides=dict(forcing="fixed"))
+                ts.topts.adapt, ts.topts.dt0 = False, 0.02
+            else:
+                prob, ts, x0 = slot_coater_problem(16, 4, "gmres_ndlu", dev)
+            att = record_attempts(ts)
+            r = ts.run(x0, prob.base_params())
+            classify(att, r.steps)
+            runs[d] = ([(round(a["t"], 12), round(a["dt"], 12), a["newton"],
+                         a["outcome"]) for a in att], r)
+        a, b = devices
+        (la, ra), (lb, rb) = runs[a], runs[b]
+        dx = rel_dx(ra.x, rb.x)
+        its = [s.newton_iters for s in ra.steps]
+        log(f"cross-check 16x4 slot coater {case}: {len(la)} attempts, "
+            f"accepted Newton {its}; attempts {a} == {b}: {la == lb}; max "
+            f"|x_{a} - x_{b}| / (1 + |x_{b}|) = {dx:.2e}")
+        for t, dt, n, out in la:
+            log(f"  attempt t={t:.6f} dt={dt:.6g}: Newton {n}, {out}")
+        if la != lb or dx > SC_X_TOL:
+            raise RuntimeError(f"16x4 slot coater {case}: {a} and {b} differ "
+                               f"(attempts {la} / {lb}, x {dx:.2e} > "
+                               f"{SC_X_TOL:.0e})")
+        if case.startswith("golden") and (
+                its != SC_GOLDEN_NEWTON or la[1][3] != "failed Newton"
+                or la[2][1] != 0.01):
+            raise RuntimeError(f"16x4 golden slot coater: Newton {its} != "
+                               f"{SC_GOLDEN_NEWTON} or the second attempt was "
+                               f"not failed and halved: {la[:3]}")
+
+
+def slot_step_params(params, x, dt, t):
+    """The params of a backward-Euler step of ``dt`` from ``x`` ending at
+    ``t``."""
+    p = step_params(params, x, dt)
+    p["time"] = torch.tensor(t, dtype=p["hist"].dtype, device=p["hist"].device)
+    return p
+
+
+def slot_gmres_phase(dev):
+    """Phase 23: the slot coater's gmres_ndlu rung at 96x24 and the kernels
+    on its tree. Returns the numbers the kernel summary reads."""
+    t0 = time.perf_counter()
+    prob, ts, x0 = slot_coater_problem(SC_NX, SC_NY, "gmres_ndlu", dev)
+    params = prob.base_params()
+    solver = ts.newton
+    nd = solver.precond
+    levels = nd_levels(nd)
+    slots = sum(nn * (m + b) ** 2 for nn, m, b in levels)
+    log(f"slot coater setup: {SC_NX}x{SC_NY}, {prob.dofmap.n_dof} dof, "
+        f"{prob.pattern.nnz} nnz, {prob.dofmap.blocks[0].n_ldof} local dofs, "
+        f"{sum(f.face_elems.size for f in prob.face_sets)} free-surface faces, "
+        f"{len(prob.bc_dup_log)} duplicated Dirichlet rows; gmres_ndlu tree "
+        f"{len(levels)} ND levels (nn, s, b) = {levels}, {slots} front slots, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    def scaled(x, dt, t):
+        """The CSR values the main path factors in a step of ``dt`` from
+        ``x``."""
+        xt = torch.as_tensor(x, dtype=prob.dtype, device=dev)
+        p = slot_step_params(params, x, dt, t)
+        return solver._scaled_vals(xt, p, solver._prepare_fast(xt, p)[2])
+
+    vals = scaled(x0, 0.01, 0.01)  # the first step's state
+    shapes = [(nn, m) for nn, m, _ in levels]
+    lu_abs, lu_ms = lu_shapes(shapes, "slot coater", time_twin=True)
+    gather_abs = check_gathers(nd, vals, "slot coater gmres_ndlu tree")
+    g_times, g_bound = gather_times(nd, vals, "slot coater gmres_ndlu tree")
+    factor_split_ms(nd, vals, "slot coater gmres_ndlu tree")
+
+    fvals = record_factor_vals(nd)
+    warm, timed, _, ln, _ = slot_legs(ts, x0, params, "slot coater gmres_ndlu")
+    nf = solver.n_factor
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"slot coater front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != "
+                           f"{len(levels)} levels x {nf} factorizations")
+    check_slot_result(prob, "gmres_ndlu", warm, timed, "slot coater gmres_ndlu")
+    # the front LU on the real fronts of the run's first and last
+    # factorization (the kinematic penalty 1e3 sits in the mesh rows)
+    max_abs = max(lu_abs, *(check_real_fronts(
+        nd, fvals[k], f"slot coater gmres_ndlu {k} of {fvals['n']} "
+        "factorizations") for k in ("first", "last")))
+    return {"prob": prob, "x": timed.x, "launches": ln, "max_abs": max_abs,
+            "lu_ms": lu_ms, "lu_bound": lu_bound(shapes),
+            "gather_abs": gather_abs, "g_times": g_times, "g_bound": g_bound}
+
+
+def slot_direct_phase(dev, x_gmres):
+    """Phase 24: the slot coater's tpu_direct rung at 96x24 (its own leaf-96
+    tree) and the kernels on that tree. Returns the numbers the kernel
+    summary reads."""
+    t0 = time.perf_counter()
+    prob, ts, x0 = slot_coater_problem(SC_NX, SC_NY, "tpu_direct", dev)
+    params = prob.base_params()
+    solver = ts.newton
+    xt = torch.as_tensor(x0, dtype=prob.dtype, device=dev)
+    R, vals, _, scale = solver._prepare_direct(
+        xt, slot_step_params(params, x0, 0.01, 0.01))
+    nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
+    levels = nd_levels(nd)
+    slots = sum(nn * (m + b) ** 2 for nn, m, b in levels)
+    log(f"slot coater tpu_direct setup: {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}, {slots} front slots, {time.perf_counter() - t0:.1f} s")
+    calls = []
+    nd.solve(nd.factor(vals), scale * R, trace=calls)
+    if len(calls) != 2 * len(levels):
+        raise RuntimeError(f"one slot coater solve made {len(calls)} "
+                           f"substitutions, not 2 x {len(levels)} levels")
+    trsv = check_substitutions(calls, "slot coater")
+    step_ns = {}
+    for li, (nn, m, _) in enumerate(levels):
+        if m > 500:
+            t = [1e6 * k / m for lv, _, _, _, k, _ in trsv["levels"] if lv == li]
+            step_ns[f"({nn}, {m})"] = sum(t) / len(t)
+    log("trsv slot coater: device ns per dependent step (level device time / "
+        "m, both sweeps averaged) at the levels above m = 500: " + ", ".join(
+            f"{k} {v:.1f} ns" for k, v in step_ns.items()))
+    gather_abs = check_gathers(nd, vals, "slot coater tpu_direct tree")
+    gather_times(nd, vals, "slot coater tpu_direct tree")
+    factor_split_ms(nd, vals, "slot coater tpu_direct tree")
+
+    fvals = record_factor_vals(nd)
+    warm, timed, _, ln, _ = slot_legs(ts, x0, params, "slot coater tpu_direct")
+    solves, nf = nd.n_solve, solver._ndlu_nfactor
+    if solves < 1 or ln["trsv"] != 2 * len(levels) * solves:
+        raise RuntimeError(f"slot coater substitution launches {ln['trsv']} "
+                           f"!= 2 x {len(levels)} levels x {solves} solves")
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"slot coater tpu_direct front-LU launches "
+                           f"{ln['lu']} / front-gather launches {ln['gather']} "
+                           f"!= {len(levels)} levels x {nf} factorizations")
+    check_slot_result(prob, "tpu_direct", warm, timed, "slot coater tpu_direct")
+    log(f"slot coater tpu_direct vs gmres_ndlu at t = {SC_END_T}: max "
+        f"|x_direct - x_gmres| / (1 + |x_gmres|) = "
+        f"{rel_dx(timed.x, x_gmres):.3e}")
+    max_abs = max(check_real_fronts(
+        nd, fvals[k], f"slot coater tpu_direct {k} of {fvals['n']} "
+        "factorizations") for k in ("first", "last"))
+    return {"launches": ln, "max_abs": max_abs, "trsv": trsv,
+            "bound": trsv_bound(calls), "step_ns": step_ns,
+            "gather_abs": gather_abs}
+
+
+def buoyant_direct_opts():
+    """bench.bench_buoyant("tpu_direct")'s options restated."""
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    return NewtonOptions(max_iter=15, tol_residual=1e-6,
+                         linear_solver="tpu_direct", ndlu_leaf_max=256)
+
+
+def buoyant_direct_phase(bprob, bx):
+    """Phase 25: the 48x48 buoyant deck on bench.py's tpu_direct rung:
+    6 +- 1 Newton iterations, substitution launches = 2 x levels x solves,
+    front-LU and front-gather launches = levels x factorizations, x within
+    BUOY_PATHS_TOL of phase 13's gmres+ndlu solution ``bx``."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    solver = NewtonSolver(bprob, buoyant_direct_opts())
+    res, _, ln = warm_then_timed(solver, np.zeros(bprob.dofmap.n_dof),
+                                 bprob.base_params(), "buoyant tpu_direct")
+    nd = solver._ndlu
+    levels = nd_levels(nd)
+    log(f"buoyant tpu_direct tree: {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}")
+    if not res.converged or res.res_norms[-1][1] > 1e-6:
+        raise RuntimeError("buoyant tpu_direct did not converge to 1e-6")
+    if abs(res.iters - BUOY_NEWTON) > 1:
+        raise RuntimeError(f"buoyant tpu_direct took {res.iters} Newton "
+                           f"iterations, not {BUOY_NEWTON} +- 1")
+    solves, nf = nd.n_solve, solver._ndlu_nfactor
+    if solves < 1 or ln["trsv"] != 2 * len(levels) * solves:
+        raise RuntimeError(f"buoyant substitution launches {ln['trsv']} != "
+                           f"2 x {len(levels)} levels x {solves} solves")
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"buoyant tpu_direct front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != "
+                           f"{len(levels)} levels x {nf} factorizations")
+    dx = rel_dx(res.x, bx)
+    log(f"buoyant tpu_direct vs gmres+ndlu: max |x_direct - x_gmres| / "
+        f"(1 + |x_gmres|) = {dx:.3e}")
+    if not np.all(np.isfinite(res.x)) or dx > BUOY_PATHS_TOL:
+        raise RuntimeError(f"buoyant tpu_direct and gmres+ndlu solutions "
+                           f"differ by {dx:.3e} > {BUOY_PATHS_TOL:.0e}")
+    return ln
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -1885,7 +2427,7 @@ def main() -> int:
         raise RuntimeError("buoyant solution has the wrong shape or "
                            "non-finite values")
     where_time_goes(bprob, bnd, bvals, bx0, bparams, "buoyant")
-    del bprob, bsolver, bnd, bvals
+    del bsolver, bnd, bvals  # bprob stays for phase 25
 
     # ---- 14. small cross-check of the viscoelastic deck: GPU vs CPU
     log(f"before the viscoelastic phases: {mem_line()}")
@@ -1911,6 +2453,18 @@ def main() -> int:
     # cavity, phase 5's solver)
     pipe = pipelined_phase(solver, x_init, params)
 
+    # ---- 22. small cross-check of the ALE slot coater: GPU vs CPU
+    cross_check_slot_coater()
+
+    # ---- 23.-24. the slot coater's two rungs (96x24)
+    sc = slot_gmres_phase(dev)
+    sd = slot_direct_phase(dev, sc.pop("x"))
+    del sc["prob"]
+    log(f"after the slot coater phases: {mem_line()}")
+
+    # ---- 25. the buoyant deck's tpu_direct rung (48x48)
+    bd_ln = buoyant_direct_phase(bprob, bx)
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -1919,7 +2473,10 @@ def main() -> int:
                 "two-phase gmres_ndlu": tp["launches"],
                 "two-phase tpu_direct": td["launches"],
                 "cavity pipelined": pipe["pipelined"],
-                "cavity sequential": pipe["sequential"]}
+                "cavity sequential": pipe["sequential"],
+                "slot coater gmres_ndlu": sc["launches"],
+                "slot coater tpu_direct": sd["launches"],
+                "buoyant tpu_direct": bd_ln}
 
     def path_launches(kind):
         return {k: ln[kind] for k, ln in more_paths.items()}
@@ -1932,7 +2489,7 @@ def main() -> int:
         "launches_by_path": {"gmres+ndlu": launches, "tpu_direct": d_lu,
                              "buoyant gmres+ndlu": b_lu, **path_launches("lu")},
         "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"],
-                           tp["max_abs"]),
+                           tp["max_abs"], sc["max_abs"], sd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -1949,6 +2506,10 @@ def main() -> int:
         "two_phase_plain_ms": tp["lu_ms"][torch.float32][1],
         "two_phase_library_ms": tp["lu_ms"][torch.float32][2],
         "two_phase_bound_ms": tp["lu_bound"][0],
+        "slot_coater_ms": sc["lu_ms"][torch.float32][0],
+        "slot_coater_plain_ms": sc["lu_ms"][torch.float32][1],
+        "slot_coater_library_ms": sc["lu_ms"][torch.float32][2],
+        "slot_coater_bound_ms": sc["lu_bound"][0],
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -1957,7 +2518,8 @@ def main() -> int:
         "launches": d_trsv + b_trsv + sum(path_launches("trsv").values()),
         "launches_by_path": {"tpu_direct": d_trsv, **path_launches("trsv")},
         "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
-                           vd["trsv"]["max_abs"], td["trsv"]["max_abs"]),
+                           vd["trsv"]["max_abs"], td["trsv"]["max_abs"],
+                           sd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -1989,6 +2551,14 @@ def main() -> int:
         "two_phase_device_ms": td["trsv"]["device_ms"]["kernel"],
         "two_phase_library_device_ms":
             td["trsv"]["device_ms"]["solve_triangular"],
+        "slot_coater_ms": sd["trsv"]["ms"][torch.float32][0],
+        "slot_coater_plain_ms": sd["trsv"]["ms"][torch.float32][1],
+        "slot_coater_library_ms": sd["trsv"]["ms"][torch.float32][2],
+        "slot_coater_bound_ms": sd["bound"][0],
+        "slot_coater_device_ms": sd["trsv"]["device_ms"]["kernel"],
+        "slot_coater_library_device_ms":
+            sd["trsv"]["device_ms"]["solve_triangular"],
+        "slot_coater_step_ns": sd["step_ns"],
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -1999,7 +2569,8 @@ def main() -> int:
         "launches_by_path": {"gmres+ndlu": g_launches, "tpu_direct": d_gather,
                              "buoyant gmres+ndlu": b_gather,
                              **path_launches("gather")},
-        "max_abs_err": max(gather_abs, ve["gather_abs"], tp["gather_abs"]),
+        "max_abs_err": max(gather_abs, ve["gather_abs"], tp["gather_abs"],
+                           sc["gather_abs"], sd["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -2013,6 +2584,10 @@ def main() -> int:
         "two_phase_plain_ms": tp["g_times"]["plain"][0],
         "two_phase_library_ms": tp["g_times"]["index_select"][0],
         "two_phase_bound_ms": tp["g_bound"][0],
+        "slot_coater_ms": sc["g_times"]["kernel"][0],
+        "slot_coater_plain_ms": sc["g_times"]["plain"][0],
+        "slot_coater_library_ms": sc["g_times"]["index_select"][0],
+        "slot_coater_bound_ms": sc["g_bound"][0],
     }]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Global residual + Jacobian assembly (counterpart of
-``goma_tpu/fem/assembly.py``), cut to the slices the lid-driven cavity and
-the buoyant-convection deck run.
+``goma_tpu/fem/assembly.py``), cut to the slices the BASELINE decks run
+(cavity, buoyant convection, viscoelastic channel, level-set bubble, ALE
+slot coater).
 
 Two element paths, chosen per block at ``finalize``:
 
@@ -11,26 +12,35 @@ Two element paths, chosen per block at ``finalize``:
   ``fem/fields.py``, the element Jacobian by forward-mode AD,
   ``torch.func.vmap(torch.func.jacfwd(...))`` over the block's elements.
 
+Integrated boundary conditions (reference ``src/bc_integ.c:84``) are face
+kernels (``add_face_kernel``): per side set and block, ``vmap(jacfwd(...))``
+of the face residual over the set's faces, with per-face basis tables
+(``eval_surfacevars``: the planar-face branch, on the displaced
+coordinates under ALE). Their element Jacobians (``faceJ``) enter the CSR
+values, the row sums and the element matvec beside the blocks' (``blockJ``).
+
 Per-element results are combined into global arrays by GATHERS through
 precomputed transpose-gather maps — ``tg`` for dof-indexed vectors (R, row
-sums, the element matvec) and ``nnztg`` for CSR values. A gather + sum is
-deterministic on the GPU; a scatter-add would need atomics, whose summation
-order changes from run to run.
+sums, the element matvec) and ``nnztg`` for CSR values, each over the
+block parts followed by the face parts, in goma_tpu's order. A gather + sum
+is deterministic on the GPU; a scatter-add would need atomics, whose
+summation order changes from run to run.
 
 Dirichlet conditions are masked row surgery: ``R = x - x_bc`` on
 constrained rows, identity rows in the CSR values and in the matvec.
 
-Everything else goma_tpu's Problem supports (face / edge / interface /
-overset kernels, rotated and pointwise conditions, row injection,
-periodicity, external fields, axisymmetric coordinates, ALE, shell and
-Nedelec blocks, the residual-only pass) raises ``NotImplementedError`` at
-``finalize``: later slices (see ROADMAP).
+Everything else goma_tpu's Problem supports (edge / interface / overset
+kernels, face kernels on bar-endpoint faces, rotated and pointwise
+conditions, point loads, row injection, periodicity, external fields,
+axisymmetric coordinates, shell and Nedelec blocks, the residual-only pass)
+raises ``NotImplementedError`` at ``finalize``: later slices (see ROADMAP).
 """
 
 from __future__ import annotations
 
 import inspect
 import warnings
+from dataclasses import dataclass
 from typing import Any
 
 import numpy as np
@@ -39,13 +49,81 @@ import torch
 from goma_tpu_torch import config
 from goma_tpu_torch.fem import fastns
 from goma_tpu_torch.fem.dofmap import DofMap, build_dofmap
-from goma_tpu_torch.elements import element_type
-from goma_tpu_torch.fem.equations import Equation
-from goma_tpu_torch.fem.fields import BlockTables, build_block_tables, eval_fieldvars
+from goma_tpu_torch.elements import (element_type, eval_basis, face_rule,
+                                     geom_interp)
+from goma_tpu_torch.elements import faces as elem_faces
+from goma_tpu_torch.fem.equations import Equation, FaceKernel, SurfaceVars
+from goma_tpu_torch.fem.fields import (MESH_VAR, BlockTables, _unpack,
+                                       build_block_tables, eval_fieldvars)
 from goma_tpu_torch.fem.sparsity import CSRPattern, build_pattern, nnz_map_for_gather
 from goma_tpu_torch.mesh.mesh import Mesh
+from goma_tpu_torch.utils.la import det_and_inv
 
 _LATER = "later slice of the port, see ROADMAP"
+
+
+def eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, slots, dim,
+                     dtype) -> SurfaceVars:
+    """FieldVars at the quadrature points of one face of one element.
+
+    ``ftab`` holds the face's basis tables: "Ng"/"dNg" geometric, per
+    interpolation "N:<interp>"/"dN:<interp>", and "refjac" (dim, dim-1),
+    the face's tangent map in the element's reference coordinates. Under
+    ALE the coordinates are displaced (``X_e + d``), so AD sees the normal's
+    and the measure's mesh sensitivities. Cut to this slice: the planar-face
+    branch for dim 2 and 3 in cartesian coordinates; goma_tpu's
+    bar-endpoint ("psign") faces and the axisymmetric r factor are refused
+    at ``Problem.finalize``.
+    """
+    u = _unpack(q_e, slots)
+    udot = _unpack(qdot_e, slots)
+    Xc = X_e + u[MESH_VAR].T if MESH_VAR in u else X_e
+
+    Jmat = torch.einsum("qnd,nk->qkd", ftab["dNg"], Xc)
+    detJ, invJ = det_and_inv(Jmat)
+    T = torch.einsum("qkd,dm->qkm", Jmat, ftab["refjac"])
+
+    fv = SurfaceVars()
+    fv.dim = dim
+    fv.invJ = invJ
+    fv.tangents = T
+    if dim == 2:
+        t = T[:, :, 0]
+        mag = torch.linalg.vector_norm(t, dim=1)
+        fv.normal = torch.stack([t[:, 1], -t[:, 0]], dim=1) / mag[:, None]
+    else:
+        cr = torch.linalg.cross(T[:, :, 0], T[:, :, 1], dim=1)
+        mag = torch.linalg.vector_norm(cr, dim=1)
+        fv.normal = cr / mag[:, None]
+    fv.wdA = fwts * mag
+    fv.x = torch.einsum("qn,nk->qk", ftab["Ng"], Xc)
+    fv.detJ = detJ
+    fv.h_elem = 2.0 * torch.abs(fv.detJ) ** (1.0 / dim)
+
+    gphi_cache = {}
+    for s in slots:
+        Ni, dNi = ftab[f"N:{s.interp}"], ftab[f"dN:{s.interp}"]
+        if s.interp not in gphi_cache:
+            gphi_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, invJ)
+        gp = gphi_cache[s.interp]
+        fv.phi[s.var] = Ni
+        fv.gphi[s.var] = gp
+        fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
+        fv.grad[s.var] = torch.einsum("qnk,cn->qck", gp, u[s.var])
+        fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
+    return fv
+
+
+@dataclass
+class _FaceSet:
+    """The faces of one side set in one block, with their kernels."""
+
+    block_index: int
+    kernels: list[FaceKernel]
+    face_elems: np.ndarray  # (nf,) local element ids within the block
+    ftabs: dict[str, np.ndarray]  # stacked per-face tables (nf, ...)
+    fwts: np.ndarray  # (nqf,)
+    name: str = ""
 
 
 def _cast_floats(params: dict, dtype) -> dict:
@@ -93,6 +171,7 @@ class Problem:
         self._dtype = dtype
         self.device = config.resolve_device(device)
         self._dirichlet: list[tuple[str, str, int, Any]] = []
+        self._face_sets: list[tuple[str, FaceKernel]] = []
         # registrations of features outside this slice; finalize raises
         self._unported: list[str] = []
         # optional lower-precision Jacobian (mixed-precision Newton-Krylov);
@@ -109,8 +188,10 @@ class Problem:
         f(coords (n, dim)) -> (n,)."""
         self._dirichlet.append((nodeset, var, comp, value))
 
-    def add_face_kernel(self, sideset, kernel):
-        self._unported.append("face kernels")
+    def add_face_kernel(self, sideset: str, kernel: FaceKernel):
+        """Integrated boundary term on a side set (reference
+        ``apply_integrated_bc``, src/bc_integ.c:84)."""
+        self._face_sets.append((sideset, kernel))
 
     def add_interface_kernel(self, pairs, kernel):
         self._unported.append("interface kernels")
@@ -175,6 +256,15 @@ class Problem:
         self.pattern: CSRPattern = build_pattern(self.dofmap.n_dof, gathers)
         self._nnz_maps = [nnz_map_for_gather(self.pattern, g) for g in gathers]
 
+        # face sets: the registered kernels grouped by side set (in the
+        # order of first registration), split by block
+        bysset: dict[str, list[FaceKernel]] = {}
+        for name, k in self._face_sets:
+            bysset.setdefault(name, []).append(k)
+        self.face_sets: list[_FaceSet] = []
+        for name, kernels in bysset.items():
+            self.face_sets.extend(self._build_face_set(name, kernels))
+
         # Dirichlet arrays: duplicate resolution keeps the FIRST spec in the
         # deck, with a warning when a later spec carries a conflicting value
         # (the reference's dup rule, src/mm_bc_conflict.c:832-851)
@@ -235,17 +325,72 @@ class Problem:
         self._dir_diag_pos = self.pattern.diag[self.dirichlet_dofs]
 
         # transpose-gather map: for every dof, the positions of its
-        # contributions in the concatenated element-local vectors (pad ->
-        # the trailing zero slot)
-        flat = np.concatenate([g.ravel() for g in gathers]).astype(np.int64)
+        # contributions in the concatenated (blocks..., faces...)
+        # element-local vectors (pad -> the trailing zero slot)
+        face_g = [gathers[fs.block_index][fs.face_elems]
+                  for fs in self.face_sets]
+        flat = np.concatenate([g.ravel() for g in gathers + face_g]
+                              ).astype(np.int64)
         self._tgather_pos = _transpose_gather(flat, self.dofmap.n_dof)
         # the same for CSR values: per nnz entry, the positions of its
-        # contributions in the concatenated element-Jacobian arrays
-        flatn = np.concatenate([m.ravel() for m in self._nnz_maps])
+        # contributions in the concatenated element- and face-Jacobian
+        # arrays
+        face_n = [self._nnz_maps[fs.block_index][fs.face_elems]
+                  for fs in self.face_sets]
+        flatn = np.concatenate([m.ravel() for m in self._nnz_maps + face_n])
         self._nnz_tgather = _transpose_gather(flatn, self.pattern.nnz)
 
         self._fast_static: dict[int, dict] = {}
         self._build_tables()
+
+    def _build_face_set(self, sideset_name: str,
+                        kernels: list[FaceKernel]) -> list[_FaceSet]:
+        """One _FaceSet per block the side set touches: the faces' local
+        element ids and their basis tables at the face quadrature points
+        (geometric and per interpolation, plus each face's reference tangent
+        map), host numpy."""
+        mesh = self.mesh
+        ss = mesh.sidesets[sideset_name]
+        per_block: dict[int, list[tuple[int, int]]] = {}
+        for e, f in zip(ss.elems, ss.faces):
+            bi, le = mesh.global_elem_block(int(e))
+            per_block.setdefault(bi, []).append((le, int(f)))
+        out = []
+        for bi, lst in per_block.items():
+            blk = mesh.blocks[bi]
+            bd = self.dofmap.blocks[bi]
+            et = element_type(blk.elem_type)
+            if et.family == "bar":
+                raise NotImplementedError(
+                    f"face kernels on bar-endpoint faces: {_LATER}")
+            gi = geom_interp(et)
+            fpts, fwts = face_rule(et.family, self.quad_order)
+            all_faces = elem_faces(et.family)
+            interps = {s.interp for s in bd.slots}
+            Ngs, dNgs, refjacs = [], [], []
+            Ni: dict[str, list] = {i: [] for i in interps}
+            dNi: dict[str, list] = {i: [] for i in interps}
+            for _, f in lst:
+                face = all_faces[f]
+                epts = face.ref_map(fpts)
+                Ng, dNg = eval_basis(et.family, gi, epts)
+                Ngs.append(Ng)
+                dNgs.append(dNg)
+                refjacs.append(face.ref_jac)
+                for itp in interps:
+                    N, dN = eval_basis(et.family, itp, epts)
+                    Ni[itp].append(N)
+                    dNi[itp].append(dN)
+            ftabs = {"Ng": np.stack(Ngs), "dNg": np.stack(dNgs),
+                     "refjac": np.stack(refjacs)}
+            for itp in interps:
+                ftabs[f"N:{itp}"] = np.stack(Ni[itp])
+                ftabs[f"dN:{itp}"] = np.stack(dNi[itp])
+            out.append(_FaceSet(
+                block_index=bi, kernels=kernels,
+                face_elems=np.array([le for le, _ in lst], dtype=np.int64),
+                ftabs=ftabs, fwts=fwts, name=sideset_name))
+        return out
 
     def _build_tables(self):
         """Static tables as tensors on ``self.device``."""
@@ -274,6 +419,14 @@ class Problem:
             if ng is not None:
                 T[f"fns:gnode{bi}"] = put(ng[0])
                 T[f"fns:gp{bi}"] = put(ng[1])
+        for j, fs in enumerate(self.face_sets):
+            bd = self.dofmap.blocks[fs.block_index]
+            blk = self.mesh.blocks[fs.block_index]
+            T[f"fg{j}"] = put(bd.gather[fs.face_elems].astype(np.int64))
+            T[f"fx{j}"] = put(self.mesh.coords[blk.conn[fs.face_elems]], dt)
+            for k, v in fs.ftabs.items():
+                T[f"ft{j}:{k}"] = put(v, dt)
+            T[f"fw{j}"] = put(fs.fwts, dt)
         T["tg"] = put(self._tgather_pos)
         T["nnztg"] = put(self._nnz_tgather)
         T["dirmask"] = put(self._dir_mask)
@@ -360,15 +513,47 @@ class Problem:
 
         return elem_res
 
+    def _face_residual_fn(self, j: int, dtype=None):
+        """The residual of ONE face of face set ``j`` at ``dtype``:
+        ``face_res(q_e, hist_e, X_e, ftab, params) -> (r, r)`` over the
+        parent element's local dofs, every kernel's surface integrand
+        contracted with ``wdA``, built out of place in slot order as
+        ``elem_res`` is."""
+        fs = self.face_sets[j]
+        bd = self.dofmap.blocks[fs.block_index]
+        mat = self.materials[fs.block_index]
+        dtype = dtype or self.dtype
+        dim = self.mesh.dim
+        fwts = self._tables[f"fw{j}"].to(dtype)
+
+        def face_res(q_e, hist_e, X_e, ftab, params):
+            qdot_e = params["ct"] * q_e + hist_e
+            sfv = eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, bd.slots,
+                                   dim, dtype)
+            acc = {}
+            for k in fs.kernels:
+                contrib = k.residual(sfv, mat, params)  # (nqf, ncomp, nbf)
+                a = torch.einsum("q,qcn->cn", sfv.wdA, contrib).reshape(-1)
+                acc[k.var] = acc[k.var] + a if k.var in acc else a
+            r = torch.cat([acc[s.var] if s.var in acc
+                           else q_e.new_zeros(s.size) for s in bd.slots])
+            return r, r
+
+        return face_res
+
     def _elem_rj_parts(self, x, params, T, rdt=None, jdt=None):
-        """Per-block residual vectors (at ``rdt`` or the problem dtype),
-        element Jacobians (at ``jdt``, by default ``jacobian_dtype``) and
-        element-level absolute row sums (None for generic blocks). With
+        """Per-block and per-face-set residual vectors (at ``rdt`` or the
+        problem dtype), element Jacobians of the blocks (``blockJ``) and of
+        the face sets (``faceJ``, both at ``jdt``, by default
+        ``jacobian_dtype``) and element-level absolute row sums (None for
+        generic blocks and face sets). With
         ``rdt == jacobian_dtype`` the residual and Jacobian come out of ONE
         fused or ``jacfwd`` call (the switched-precision Newton prep). A
         mixed-precision generic block differentiates a second element
         residual built at the Jacobian dtype, with params, x, history and
-        coordinates cast — not a cast of the full-precision Jacobian."""
+        coordinates cast — not a cast of the full-precision Jacobian; face
+        sets likewise. Returns (r_parts, blockJ, faceJ, rs_parts), the
+        residual and row-sum parts in (blocks..., faces...) order."""
         dtype = rdt if rdt is not None else self.dtype
         jdt = jdt or self.jacobian_dtype or self.dtype
         if dtype != self.dtype:
@@ -413,7 +598,14 @@ class Problem:
             r_parts.append(r)
             blockJ.append(J)
             rs_parts.append(rs)
-        return r_parts, blockJ, rs_parts
+        faceJ = []
+        for j in range(len(self.face_sets)):
+            r, J = self._face_rj(j, T, x, hist, params, dtype,
+                                 (xj, histj, params_j, jdt) if mixed else None)
+            r_parts.append(r)
+            faceJ.append(J)
+            rs_parts.append(None)
+        return r_parts, blockJ, faceJ, rs_parts
 
     def _coords(self, T, bi, dtype):
         """Block ``bi``'s element node coordinates at ``dtype``."""
@@ -439,18 +631,45 @@ class Problem:
             xj[g], histj[g], self._coords(T, bi, jdt), params_j)
         return r, J
 
+    def _face_rj(self, j, T, x, hist, params, dtype, mixed):
+        """(r (nf, nl), J (nf, nl, nl)) of face set ``j``, as
+        ``_generic_rj`` for a block."""
+        from torch.func import jacfwd, vmap
+
+        fs = self.face_sets[j]
+        g = T[f"fg{j}"]
+        axes = (0, 0, 0, 0, None)
+
+        def geom(dt):
+            return (T[f"fx{j}"].to(dt),
+                    {k: T[f"ft{j}:{k}"].to(dt) for k in fs.ftabs})
+
+        Xf, ftabs = geom(dtype)
+        face_res = self._face_residual_fn(j, dtype)
+        if mixed is None:
+            J, r = vmap(jacfwd(face_res, argnums=0, has_aux=True),
+                        in_dims=axes)(x[g], hist[g], Xf, ftabs, params)
+            return r, J
+        r, _ = vmap(face_res, in_dims=axes)(x[g], hist[g], Xf, ftabs, params)
+        xj, histj, params_j, jdt = mixed
+        J, _ = vmap(jacfwd(self._face_residual_fn(j, jdt), argnums=0,
+                           has_aux=True), in_dims=axes)(
+            xj[g], histj[g], *geom(jdt), params_j)
+        return r, J
+
     def _assemble_with_elem(self, x, params):
-        """Residual, CSR values (at ``jacobian_dtype``) and the element
-        Jacobians (``aux``) that power the matrix-free ``element_matvec``."""
+        """Residual, CSR values (at ``jacobian_dtype``) and the element and
+        face Jacobians (``aux = (blockJ, faceJ)``) that power the
+        matrix-free ``element_matvec``."""
         T = self._tables
         dtype = self.dtype
         jdt = self.jacobian_dtype or dtype
         x = x.to(dtype)
-        r_parts, blockJ, _ = self._elem_rj_parts(x, params, T)
+        r_parts, blockJ, faceJ, _ = self._elem_rj_parts(x, params, T)
         R = _combine(r_parts, T["tg"], dtype)
-        vals = _combine(blockJ, T["nnztg"], jdt)
+        vals = _combine(blockJ + faceJ, T["nnztg"], jdt)
         R, vals = self._apply_dirichlet(x, R, vals, params)
-        return R, vals, tuple(blockJ)
+        return R, vals, (tuple(blockJ), tuple(faceJ))
 
     def _assemble(self, x, params):
         """(R, vals): the global residual and CSR Jacobian values, both at
@@ -459,9 +678,10 @@ class Problem:
         T = self._tables
         dtype = self.dtype
         x = x.to(dtype)
-        r_parts, blockJ, _ = self._elem_rj_parts(x, params, T, jdt=dtype)
+        r_parts, blockJ, faceJ, _ = self._elem_rj_parts(x, params, T,
+                                                        jdt=dtype)
         R = _combine(r_parts, T["tg"], dtype)
-        vals = _combine(blockJ, T["nnztg"], dtype)
+        vals = _combine(blockJ + faceJ, T["nnztg"], dtype)
         return self._apply_dirichlet(x, R, vals, params)
 
     def _assemble_fast(self, x, params, rdt=None):
@@ -474,30 +694,33 @@ class Problem:
         upper-bound the assembled row sums (exact where contributions to a
         shared entry agree in sign) and serve the reference's row-sum
         scaling (src/sl_matrix_util.c:442). Fast blocks hand them back with
-        the kernel; generic blocks re-read their (ne, nl, nl) Jacobians.
-        Returns (R, rs, aux)."""
+        the kernel; generic blocks and face sets re-read their (ne, nl, nl)
+        Jacobians. Returns (R, rs, aux) with aux = (blockJ, faceJ)."""
         T = self._tables
         dtype = rdt if rdt is not None else self.dtype
         jdt = self.jacobian_dtype or self.dtype
         if dtype != self.dtype:
             params = _cast_floats(params, dtype)
         x = x.to(dtype)
-        r_parts, blockJ, rs_el = self._elem_rj_parts(x, params, T, rdt=rdt)
+        r_parts, blockJ, faceJ, rs_el = self._elem_rj_parts(x, params, T,
+                                                            rdt=rdt)
         rs_el = [torch.sum(torch.abs(J), dim=2) if s is None else s
-                 for J, s in zip(blockJ, rs_el)]
+                 for J, s in zip(blockJ + faceJ, rs_el)]
         R = _combine(r_parts, T["tg"], dtype)
         rs = _combine(rs_el, T["tg"], jdt)
         R, _ = self._apply_dirichlet(x, R, None, params)
         if self.dirichlet_dofs.size:
             rs = torch.where(T["dirmask"], torch.ones((), dtype=jdt,
                                                       device=rs.device), rs)
-        return R, rs, tuple(blockJ)
+        return R, rs, (tuple(blockJ), tuple(faceJ))
 
     def element_matvec(self, T, aux, scale, v):
         """Matrix-free y = A@v from the stored element Jacobians,
         reproducing the Dirichlet-surgered, scaled CSR operator; the
-        per-element products are combined through the transpose gather."""
+        per-element and per-face products are combined through the
+        transpose gather. ``aux = (blockJ, faceJ)``."""
         T = T if T is not None else self._tables
+        blockJ, faceJ = aux
         parts = []
         for bi in range(len(self.dofmap.blocks)):
             gn = T.get(f"fns:gnode{bi}")
@@ -505,7 +728,10 @@ class Problem:
                 q = fastns.node_gather(v, gn, T[f"fns:gp{bi}"])
             else:
                 q = v[T[f"g{bi}"]]  # (ne, nl)
-            parts.append(torch.bmm(aux[bi], q.unsqueeze(2)).squeeze(2))
+            parts.append(torch.bmm(blockJ[bi], q.unsqueeze(2)).squeeze(2))
+        for j in range(len(self.face_sets)):
+            q = v[T[f"fg{j}"]]
+            parts.append(torch.bmm(faceJ[j], q.unsqueeze(2)).squeeze(2))
         y = _combine(parts, T["tg"], v.dtype)
         return self._matvec_post(T, scale, v, y)
 

@@ -7,10 +7,16 @@ elements with ``torch.func.vmap`` and differentiates it with
 ``torch.func.jacfwd``, so the element Jacobian is exact forward-mode AD of
 the residual, as in goma_tpu.
 
+ALE: with a mesh-displacement variable in the block the coordinates are
+``X_ref + d``, with ``d`` part of the differentiated unknowns, so
+``jacfwd`` of the residual carries every mesh sensitivity exactly (the
+reference hand-codes them in ``load_fv_mesh_derivs``); the reference
+configuration (``X0``, ``wdetJ0``, ``gphi0``, ``grad0``) and the
+deformation gradient ``F`` come with it.
+
 Cut to this slice: volume elements with Lagrange interpolations, cartesian
-coordinates, no mesh-displacement variable, no external fields. The N1
-(Nedelec) and H3 (Hermite) tables and the ALE reference-configuration
-quantities raise ``NotImplementedError`` here; ``Problem.finalize`` refuses
+coordinates, no external fields. The N1 (Nedelec) and H3 (Hermite) tables
+raise ``NotImplementedError`` here; ``Problem.finalize`` refuses
 axisymmetric coordinates, external fields and shell/curve blocks (later
 slices, see ROADMAP).
 """
@@ -91,11 +97,20 @@ class FieldVars:
       gphi[v]  (nq, nbf, dim)   physical gradient of basis
       h_elem   (nq,)            element size measure (for SUPG/PSPG tau)
 
+    When a mesh-displacement variable is active (ALE), the reference
+    configuration (total-Lagrangian mesh equations; the reference's
+    ``belly_flop`` deformation gradient, src/mm_fill_solid.c:77):
+      X0       (nq, dim)        undisplaced position
+      wdetJ0   (nq,)            reference measure
+      gphi0[v] (nq, nbf, dim)   basis gradient w.r.t. reference coords
+      grad0[v] (nq, ncomp, dim) field gradient w.r.t. reference coords
+      F        (nq, dim, dim)   deformation gradient dx/dX0
+
     Without mesh motion the reference configuration is the current one:
     ``X0``, ``wdetJ0``, ``gphi0`` and ``grad0`` alias their current
-    counterparts, as in goma_tpu. (goma_tpu's axisymmetric, ALE,
-    external-field and node-anchored attributes belong to branches this
-    slice does not carry.)
+    counterparts and ``F`` stays None, as in goma_tpu. (goma_tpu's
+    axisymmetric, external-field and node-anchored attributes belong to
+    branches this slice does not carry.)
     """
 
     def __init__(self):
@@ -114,6 +129,7 @@ class FieldVars:
         self.wdetJ0 = None
         self.gphi0: dict[str, Any] = {}
         self.grad0: dict[str, Any] = {}
+        self.F = None
 
 
 def _unpack(q_e, slots: list[LocalSlot]):
@@ -126,26 +142,36 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
     """FieldVars of one element: local dofs ``q_e``/``qdot_e`` (n_ldof,),
     node coordinates ``X_e`` (n_geom_nodes, dim), tables at ``dtype``."""
     u = _unpack(q_e, slots)
-    if MESH_VAR in u:
-        raise NotImplementedError(f"ALE ({MESH_VAR}): {_LATER}")
     udot = _unpack(qdot_e, slots)
     tb = tables.on(dtype, q_e.device)
+    ale = MESH_VAR in u
+    # ALE: displaced coordinates carry dofs -> AD sees mesh sensitivities
+    Xc = X_e + u[MESH_VAR].T if ale else X_e
 
     # isoparametric map: Jmat[q,k,d] = dx_k/dxi_d; invJ[q,d,k] = dxi_d/dx_k
-    Jmat = torch.einsum("qnd,nk->qkd", tb["dNg"], X_e)
+    Jmat = torch.einsum("qnd,nk->qkd", tb["dNg"], Xc)
     detJ, invJ = det_and_inv(Jmat)
 
     fv = FieldVars()
     fv.dim = tables.dim
     fv.invJ = invJ
-    fv.x = torch.einsum("qn,nk->qk", tb["Ng"], X_e)
+    fv.x = torch.einsum("qn,nk->qk", tb["Ng"], Xc)
     fv.detJ = detJ
     fv.wdetJ = tb["qwts"] * detJ
     fv.h_elem = 2.0 * torch.abs(detJ) ** (1.0 / tables.dim)
-    fv.X0 = fv.x
-    fv.wdetJ0 = fv.wdetJ
+    if ale:
+        Jmat0 = torch.einsum("qnd,nk->qkd", tb["dNg"], X_e)
+        detJ0, invJ0 = det_and_inv(Jmat0)
+        fv.X0 = torch.einsum("qn,nk->qk", tb["Ng"], X_e)
+        fv.wdetJ0 = tb["qwts"] * detJ0
+        # F[k,m] = dx_k/dxi_d dxi_d/dX0_m
+        fv.F = torch.einsum("qkd,qdm->qkm", Jmat, invJ0)
+    else:
+        fv.X0 = fv.x
+        fv.wdetJ0 = fv.wdetJ
 
     gphi_cache: dict[str, Any] = {}
+    gphi0_cache: dict[str, Any] = {}
     for s in slots:
         Ni, dNi = tb[f"N:{s.interp}"], tb[f"dN:{s.interp}"]
         if s.interp not in gphi_cache:
@@ -156,6 +182,13 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
         fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
         fv.grad[s.var] = torch.einsum("qnk,cn->qck", gp, u[s.var])
         fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
-        fv.gphi0[s.var] = gp
-        fv.grad0[s.var] = fv.grad[s.var]
+        if ale:
+            if s.interp not in gphi0_cache:
+                gphi0_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, invJ0)
+            fv.gphi0[s.var] = gphi0_cache[s.interp]
+            fv.grad0[s.var] = torch.einsum("qnk,cn->qck", fv.gphi0[s.var],
+                                           u[s.var])
+        else:
+            fv.gphi0[s.var] = gp
+            fv.grad0[s.var] = fv.grad[s.var]
     return fv

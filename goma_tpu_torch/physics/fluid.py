@@ -42,12 +42,18 @@ def _as_nq(a, nq, like):
 
 
 def advective_velocity(fv, var: str = "velocity"):
-    """The advective velocity at the quadrature points: ``u``, or zero for
-    a pure-transport block with no flow field. (goma_tpu subtracts the mesh
-    velocity under ALE, which this slice does not carry.)"""
+    """ALE advective velocity u - d_dot(mesh): the convection seen at a
+    mesh point (reference: the x_dot subtraction throughout mm_fill_*.c for
+    ALE); ``u`` on a fixed mesh, zero for a pure-transport block with no
+    flow field."""
+    from goma_tpu_torch.fem.fields import MESH_VAR
+
     if var not in fv.val:
         return torch.zeros_like(fv.x)
-    return fv.val[var]
+    u = fv.val[var]
+    if MESH_VAR in fv.dot:
+        return u - fv.dot[MESH_VAR]
+    return u
 
 
 class Momentum(Equation):

@@ -17,10 +17,15 @@ The step loop runs on the host in numpy, as in goma_tpu: once per step
 ``hist`` goes to the Problem's device at its dtype and ``ct`` and the time
 become 0-d tensors there; each Newton solve runs on the device.
 
-Cut to this slice: ``variable_stats=True`` and ``quality_guard=True`` need
-goma_tpu's ``post/stats.py`` and ``post/quality.py``, which are not ported;
-they raise ``NotImplementedError`` at construction (later slices, see
-ROADMAP).
+``quality_guard=True`` (goma_tpu's ALE guard, the reference's
+negative-element-volume ladder): after each converged Newton solve the min
+detJ of the displaced mesh is read once (``post/quality.py``, one device
+reduction and one host read); min detJ <= 0 counts as a failed step,
+halving dt and retrying with the same failure accounting.
+
+Cut to this slice: ``variable_stats=True`` needs goma_tpu's
+``post/stats.py``, which is not ported; it raises ``NotImplementedError``
+at construction (a later slice, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -58,8 +63,8 @@ class TimeOptions:
     # (the reference reconstructs old time derivatives on restart rather than
     # trusting zeros; BE bootstrap is the equivalent safeguard)
     bootstrap_be: bool = True
-    # element-quality check after each accepted step (goma_tpu's ALE
-    # guard): a later slice
+    # element-quality check after each converged Newton solve (ALE): a
+    # tangled element (min detJ <= 0) fails the step
     quality_guard: bool = False
     # print a per-step line (the reference's transient console output)
     verbose: bool = False
@@ -92,8 +97,7 @@ class TransientSolver:
         self.problem = problem
         self.newton = NewtonSolver(problem, newton_options)
         self.topts = time_options or TimeOptions()
-        if self.topts.quality_guard:
-            raise NotImplementedError(f"TimeOptions(quality_guard=True): {_LATER}")
+        self._quality_fn = None
         if self.topts.variable_stats:
             raise NotImplementedError(f"TimeOptions(variable_stats=True): {_LATER}")
 
@@ -146,6 +150,17 @@ class TransientSolver:
                     f"finite={bool(np.all(np.isfinite(res.x)))}",
                     file=sys.stderr, flush=True,
                 )
+            if ok and to.quality_guard:
+                if self._quality_fn is None:
+                    from goma_tpu_torch.post.quality import make_quality_fn
+
+                    self._quality_fn = make_quality_fn(prob)
+                # one host read of the three 0-d results
+                mn = torch.stack(self._quality_fn(res.x)).tolist()[0]
+                ok = mn > 0.0
+                if to.verbose and not ok:
+                    print(f"[transient]   quality reject: min detJ = {mn:.3e}",
+                          file=sys.stderr, flush=True)
             if not ok:
                 failures += 1
                 if failures > to.max_failures or dt * 0.5 < to.min_dt:

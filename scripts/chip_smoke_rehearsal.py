@@ -5,6 +5,7 @@ shapes before a run on the card.
 
     python3 scripts/chip_smoke_rehearsal.py [--only-viscoelastic]
                                             [--only-two-phase]
+                                            [--only-slot-coater]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -12,11 +13,13 @@ on the CPU; each kernel wrapper runs its plain version and counts that as a
 launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
 ``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
 syncs).
-The decks are cut to 8x8 (cavity, buoyant, static bubble) and 8x4
-(viscoelastic), the checks that need the full size (Ghia, the buoyant Newton
-count, the paths' agreement, the Laplace jump) are widened, and the linear
-iteration counts the script requires are those of the cut decks. Every time
-it prints is a CPU time, not a device number.
+The decks are cut to 8x8 (cavity, buoyant, static bubble), 8x4
+(viscoelastic) and 16x4 (slot coater), the checks that need the full size
+(Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump) are
+widened, and the linear iteration counts, the slot coater's accepted steps
+and free-surface heights the script requires are those of the cut decks
+(goma_tpu's at 16x4, CPU). Every time it prints is a CPU time, not a device
+number.
 """
 
 import argparse
@@ -74,6 +77,16 @@ def _fake_cuda():
 
 BUOY_LINEAR_8 = [1, 4, 7, 6, 10, 6]
 VE_LINEAR_4 = [1, 4, 11, 13]
+# goma_tpu's bench_slot_coater make() at 16x4 (CPU): Newton per accepted
+# step, and the gmres_ndlu rung's free-surface heights at t = 0.08
+SC_REF_NEWTON_16 = {
+    "gmres_ndlu": {"warm": [8, 7, 7, 6, 6, 7, 7, 6], "timed": [6, 5, 5, 6]},
+    "tpu_direct": {"warm": [8, 7, 7, 6, 5, 6, 6, 5], "timed": [6, 5, 5, 5]}}
+SC_REF_HEIGHTS_16 = [(1.5, 1.0), (1.75, 0.8769404440331855),
+                     (2.0, 0.7523322375211594), (2.375, 0.5868910113006314),
+                     (2.625, 0.5227634074595855), (2.875, 0.49500209319838806),
+                     (3.125, 0.4865396035429377), (3.5, 0.48471373107941396),
+                     (3.75, 0.4868615787472427), (4.0, 0.49554009287321155)]
 
 
 def _counted(plain):
@@ -109,6 +122,9 @@ def load_smoke():
     cs.CAVITY_LINEAR = [1, 13, 13, 10]
     cs.BUOY_LINEAR = BUOY_LINEAR_8
     cs.VE_LINEAR = VE_LINEAR_4
+    cs.SC_NX, cs.SC_NY = 16, 4
+    cs.SC_REF_NEWTON = SC_REF_NEWTON_16
+    cs.SC_REF_HEIGHTS = SC_REF_HEIGHTS_16
     return cs
 
 
@@ -118,6 +134,8 @@ def main() -> int:
                     help="run phases 14-17 only")
     ap.add_argument("--only-two-phase", action="store_true",
                     help="run phases 18-21 only")
+    ap.add_argument("--only-slot-coater", action="store_true",
+                    help="run phases 22-25 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -138,6 +156,17 @@ def main() -> int:
         prob = cs.cavity_problem(cs.N_MAIN, dev)
         cs.pipelined_phase(NewtonSolver(prob, cs.cavity_opts()),
                            np.zeros(prob.dofmap.n_dof), prob.base_params())
+    elif args.only_slot_coater:
+        from goma_tpu_torch.solvers import NewtonSolver
+
+        dev = torch.device("cpu")
+        cs.cross_check_slot_coater()
+        sc = cs.slot_gmres_phase(dev)
+        cs.slot_direct_phase(dev, sc["x"])
+        bprob = cs.buoyant_problem(cs.N_BUOY, dev)
+        bx = NewtonSolver(bprob, cs.buoyant_opts()).solve(
+            np.zeros(bprob.dofmap.n_dof), bprob.base_params()).x
+        cs.buoyant_direct_phase(bprob, bx)
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

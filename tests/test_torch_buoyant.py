@@ -23,10 +23,16 @@ Boussinesq body force) in the PyTorch port against goma_tpu, at 8x8.
 - The same in float64 end to end (Jacobian and factor, tol 1e-9): equal
   Newton and linear iterations, ||R||_2 within rel 1e-6 while above 1e-8
   (the norms are taken in float32 in both packages), x within 1e-8.
+- bench.bench_buoyant("tpu_direct") (float32 Jacobian and factor, leaf
+  256, tol 1e-6), goma_tpu's lazy NDLU given the unpivoted front LU as in
+  tests/test_torch_tpu_direct.py: equal Newton iterations, x within
+  1e-5 + 1e-6 |x| (both stop below ||R||_2 1e-6 after refined float32
+  steps; the bound of the gmres case).
 """
 
 import functools
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -46,6 +52,9 @@ from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
 BENCH = dict(max_iter=15, tol_residual=1e-6, linear_tol=1e-4, precond="ndlu",
              linear_solver="gmres", gmres_restart=60, linear_maxiter=240,
              ndlu_leaf_max=256, ew_eta_floor=1e-3, ew_endgame="standard")
+# bench.bench_buoyant("tpu_direct")
+BENCH_DIRECT = dict(max_iter=15, tol_residual=1e-6, linear_solver="tpu_direct",
+                    ndlu_leaf_max=256)
 
 
 @functools.lru_cache(maxsize=None)
@@ -89,8 +98,20 @@ def _solve(kw, mixed):
     pj.jacobian_dtype = jnp.float32 if mixed else None
     pt.jacobian_dtype = torch.float32 if mixed else None
     sj = JSolver(pj, JOptions(**kw))
-    sj.precond.front_lu = "pallas"
-    rj = sj.solve(np.zeros(pj.dofmap.n_dof), pj.base_params())
+    x0 = np.zeros(pj.dofmap.n_dof)
+    if kw["linear_solver"] == "tpu_direct":
+        # goma_tpu's lazy tpu_direct NDLU, built as it builds it, with the
+        # unpivoted front LU the port runs
+        vals = sj._prep(jnp.asarray(x0), pj.base_params(), sj._ntab["ell"])[1]
+        sj._ndlu = jndlu.NDLU(
+            pj.pattern, leaf_max=sj.opts.ndlu_leaf_max,
+            dtype=jnp.dtype(sj.opts.ndlu_dtype), front_lu="pallas",
+            defer_dofs=jndlu.zero_diag_defer_mask(pj.pattern,
+                                                  jax.device_get(vals)),
+            clusters=jndlu.node_clusters(pj))
+    else:
+        sj.precond.front_lu = "pallas"
+    rj = sj.solve(x0, pj.base_params())
     st = NewtonSolver(pt, NewtonOptions(**kw))
     rt = st.solve(np.zeros(pt.dofmap.n_dof), pt.base_params())
     return rj, rt
@@ -120,3 +141,11 @@ def test_buoyant_newton_f64_matches_goma_tpu():
         if l2j > 1e-8:
             assert abs(l2t - l2j) <= 1e-6 * l2j, (rt.summary(), rj.summary())
     np.testing.assert_allclose(rt.x, rj.x, rtol=0, atol=1e-8)
+
+
+def test_buoyant_tpu_direct_bench_options_match_goma_tpu():
+    rj, rt = _solve(BENCH_DIRECT, mixed=True)
+    assert rj.converged and rt.converged, (rt.summary(), rj.summary())
+    assert rt.iters == rj.iters, (rt.summary(), rj.summary())
+    assert rt.res_norms[-1][1] < 1e-6 and rj.res_norms[-1][1] < 1e-6
+    np.testing.assert_allclose(rt.x, rj.x, rtol=1e-6, atol=1e-5)

@@ -91,7 +91,7 @@ def test_assemble_fast_matches(assembled):
     Rt, rst, auxt = pt._assemble_fast(xt, ptp)
     _close(Rt, Rj, 1e-12, "R")  # the residual is float64 in every case
     _close(rst, rsj, rtol, "row sums")
-    _close(auxt[0], auxj[0][0], rtol, "element J")
+    _close(auxt[0][0], auxj[0][0], rtol, "element J")
 
 
 def test_assemble_fast_prep32_matches():
@@ -121,8 +121,9 @@ def test_element_matvec_matches(assembled):
     scale = 1.0 / np.sqrt(np.asarray(rsj))
     yj = pj.element_matvec(None, auxj, jnp.asarray(scale, jdt),
                            jnp.asarray(scale * v, jdt))
-    yt = pt.element_matvec(None, auxt, torch.as_tensor(scale, dtype=auxt[0].dtype),
-                           torch.as_tensor(scale * v, dtype=auxt[0].dtype))
+    jdt_t = auxt[0][0].dtype
+    yt = pt.element_matvec(None, auxt, torch.as_tensor(scale, dtype=jdt_t),
+                           torch.as_tensor(scale * v, dtype=jdt_t))
     _close(yt, yj, rtol, "element matvec")
 
 

@@ -87,9 +87,13 @@ def test_eval_fieldvars_matches():
 
 
 def test_fields_outside_slice_raise():
-    """Nedelec tables and a mesh-displacement (ALE) variable raise."""
+    """Nedelec and Hermite tables raise; a mesh-displacement (ALE) variable,
+    refused before the slot coater's slice, now evaluates (at zero
+    displacement: F = I and the reference frame equals the current one)."""
     with pytest.raises(NotImplementedError):
         tfields.build_block_tables("QUAD9", {"N1"}, 3)
+    with pytest.raises(NotImplementedError):
+        tfields.build_block_tables("QUAD9", {"H3"}, 3)
     mesh_m, fem, phys = TORCH_PKG
     prob = fem.Problem(mesh_m.rectangle_mesh(1, 1, elem="QUAD9"),
                        [phys.Energy()], device="cpu")
@@ -98,6 +102,8 @@ def test_fields_outside_slice_raise():
     ale = [tfields.LocalSlot(tfields.MESH_VAR, 2, "Q2", 9, 0)]
     z = torch.zeros(18, dtype=torch.float64)
     X = torch.as_tensor(prob.mesh.coords[prob.mesh.blocks[0].conn[0]])
-    with pytest.raises(NotImplementedError):
-        tfields.eval_fieldvars(z, z, X, prob.tables[0], ale, torch.float64)
+    fv = tfields.eval_fieldvars(z, z, X, prob.tables[0], ale, torch.float64)
+    eye = torch.eye(2, dtype=torch.float64).expand_as(fv.F)
+    assert torch.allclose(fv.F, eye, rtol=0, atol=1e-14)
+    assert torch.allclose(fv.wdetJ0, fv.wdetJ, rtol=0, atol=1e-14)
     assert bd.n_ldof == 9

@@ -93,9 +93,9 @@ def test_element_residual_and_jacobian_match(case):
     x, p = _params(pj, seed=21)
     rj, Jj = jax.jit(lambda xx, pp: pj._elem_rj_parts(xx, pp, pj._tables)[:2])(
         jnp.asarray(x), _jax_params(pj, p))
-    rt, Jt, rst = pt._elem_rj_parts(torch.as_tensor(x),
-                                    params_from_numpy(p, device="cpu"),
-                                    pt._tables)
+    rt, Jt, _, rst = pt._elem_rj_parts(torch.as_tensor(x),
+                                       params_from_numpy(p, device="cpu"),
+                                       pt._tables)
     assert rst == [None]
     assert _rel(rt[0], rj[0]) <= 1e-12
     assert _rel(Jt[0], Jj[0]) <= 1e-12
@@ -139,7 +139,7 @@ def test_assemble_fast_buoyant_mixed_matches():
     Rt, rst, auxt = pt._assemble_fast(torch.as_tensor(x), pt.base_params())
     assert _rel(Rt, Rj) <= 1e-12
     assert _rel(rst, rsj) <= 1e-5
-    assert _rel(auxt[0], auxj[0][0]) <= 1e-5
+    assert _rel(auxt[0][0], auxj[0][0]) <= 1e-5
     v = np.random.default_rng(5).standard_normal(pj.dofmap.n_dof)
     scale = 1.0 / np.sqrt(np.asarray(rsj))
     yj = pj.element_matvec(None, auxj, jnp.asarray(scale, jnp.float32),

@@ -224,8 +224,11 @@ def test_port_imports_and_builds_without_jax():
     """goma_tpu_torch never imports jax: with jax blocked in sys.modules the
     package imports and builds (and assembles) the cavity Problem (fused
     kernel), a buoyant, a viscoelastic and a two-phase level-set Problem
-    (generic AD path), a TransientSolver, and runs the pipelined loop's
-    ``_eta_device``."""
+    (generic AD path), a TransientSolver, runs the pipelined loop's
+    ``_eta_device``, and builds and finalizes the ALE slot coater deck
+    (tests/test_torch_slot_coater.py's ``slot_coater``, read from its
+    source: that module imports jax) with its quality-guarded
+    TransientSolver, then assembles it and reads its element quality."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -295,6 +298,19 @@ def test_port_imports_and_builds_without_jax():
         eta = ls._eta_device(torch.tensor(1e-3, dtype=torch.float64),
                              torch.tensor(-1.0))
         assert float(eta) == ls._eta(1e-3, None)
+        # the ALE slot coater: mesh motion, face kernels, quality guard
+        import ast
+        src = open("tests/test_torch_slot_coater.py").read()
+        fn = next(n for n in ast.parse(src).body
+                  if isinstance(n, ast.FunctionDef) and n.name == "slot_coater")
+        ns = {"np": np}
+        exec(compile(ast.Module([fn], []), "slot_coater", "exec"), ns)
+        sprob, sts, sx0 = ns["slot_coater"](8, 2)
+        assert sts.topts.quality_guard and len(sprob.face_sets) == 1
+        R, vals = sprob._assemble(torch.as_tensor(sx0), sprob.base_params())
+        assert bool(torch.isfinite(vals).all()) and vals.shape[0] == sprob.pattern.nnz
+        from goma_tpu_torch.post.quality import element_quality
+        assert element_quality(sprob, sx0).ok
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -336,7 +352,8 @@ def test_newton_options_outside_slice_raise(kw):
         NewtonOptions(**kw)
 
 
-@pytest.mark.parametrize("feature", ["face", "periodic", "coord", "interface"])
+@pytest.mark.parametrize("feature", ["point_load", "periodic", "coord",
+                                     "interface"])
 def test_problem_outside_slice_raises(feature):
     mesh_m, fem, phys = TORCH_PKG
     mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
@@ -344,13 +361,25 @@ def test_problem_outside_slice_raises(feature):
     prob = fem.Problem(mesh, eqs, {"rho": 1.0, "mu": 1.0},
                        coord="cylindrical" if feature == "coord" else "cartesian",
                        device="cpu")
-    if feature == "face":
-        prob.add_face_kernel("top", object())
+    if feature == "point_load":
+        prob.add_point_load("top", "velocity", lambda q, X, p: q)
     if feature == "periodic":
         prob.add_periodic("left", "right")
     if feature == "interface":
         prob.add_interface_kernel(np.zeros((1, 2), dtype=np.int64), object())
     with pytest.raises(NotImplementedError):
+        prob.finalize()
+
+
+def test_slot_coater_rotation_still_raises():
+    """The slot coater deck finalizes (face kernels, ALE); rotated
+    conditions on its free surface are a later slice and still refuse at
+    ``finalize``."""
+    from test_torch_slot_coater import slot_coater
+
+    prob, _, _ = slot_coater(4, 2)
+    prob.add_rotation("free", "mesh_displacement")
+    with pytest.raises(NotImplementedError, match="rotated conditions"):
         prob.finalize()
 
 

@@ -171,7 +171,7 @@ def test_two_phase_element_residual_and_jacobian_match(supg):
     tp["ls_eps"] = torch.tensor(EPS, dtype=torch.float64)
     rj, Jj = jax.jit(lambda xx, pp: pj._elem_rj_parts(xx, pp, pj._tables)[:2])(
         jnp.asarray(x), jp)
-    rt, Jt, _ = pt._elem_rj_parts(torch.as_tensor(x), tp, pt._tables)
+    rt, Jt, _, _ = pt._elem_rj_parts(torch.as_tensor(x), tp, pt._tables)
     rj, Jj = np.asarray(rj[0]), np.asarray(Jj[0])
     rt, Jt = rt[0].numpy(), Jt[0].numpy()
     assert np.isfinite(Jt).all() and np.isfinite(rt).all()

@@ -112,8 +112,9 @@ def test_ve_element_residual_and_jacobian_match(case):
     jp["ct"], jp["hist"] = jnp.asarray(p["ct"]), jnp.asarray(p["hist"])
     rj, Jj = jax.jit(lambda xx, pp: pj._elem_rj_parts(xx, pp, pj._tables)[:2])(
         jnp.asarray(x), jp)
-    rt, Jt, _ = pt._elem_rj_parts(torch.as_tensor(x),
-                                  params_from_numpy(p, device="cpu"), pt._tables)
+    rt, Jt, _, _ = pt._elem_rj_parts(torch.as_tensor(x),
+                                     params_from_numpy(p, device="cpu"),
+                                     pt._tables)
     rj, Jj = np.asarray(rj[0]), np.asarray(Jj[0])
     rt, Jt = rt[0].numpy(), Jt[0].numpy()
     assert Jt.dtype == (np.float32 if f32 else np.float64)
