@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Thirteen main paths, each read with
-its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
+failure and when CUDA is unavailable. Thirteen main paths of the three
+kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
 ``tpu_direct`` (phase 16) and transient start-up (phase 17), the
@@ -13,8 +13,12 @@ level-set static bubble's ``gmres_ndlu`` (phase 19) and ``tpu_direct``
 (phase 20) rungs on the transient driver, the cavity's pipelined and
 sequential Newton loops (phase 21), the ALE slot coater's ``gmres_ndlu``
 (phase 23) and ``tpu_direct`` (phase 24) rungs on the quality-guarded
-adaptive driver, and the buoyant deck's ``tpu_direct`` rung (phase 25).
-Every ``gmres`` deck with
+adaptive driver, and the buoyant deck's ``tpu_direct`` rung (phase 25);
+then goma_tpu's other preconditioners and linear solvers, which run no
+hand kernel (their stages are torch ops): every option on the 8x8 cavity
+(phase 26), the two-level preconditioner on the 64x64 cavity (phase 27)
+and the 48x48 buoyant deck (phase 28), and the host ``direct`` rung on the
+48x48 static bubble (phase 29). Every ``gmres`` deck with
 ``tol_update == 0`` runs the pipelined Newton loop, as in goma_tpu; the
 buoyant, viscoelastic and cavity phases hold goma_tpu's linear iteration
 counts under it. Phases:
@@ -182,7 +186,35 @@ counts under it. Phases:
     phase 23, and substitution launches = 2 x levels x solves;
 25. the 48x48 buoyant deck on bench.py's ``tpu_direct`` rung (leaf 256):
     6 +- 1 Newton iterations, the launch counts of phase 10, x within a
-    stated bound of phase 13's ``gmres+ndlu`` solution.
+    stated bound of phase 13's ``gmres+ndlu`` solution;
+26. the 8x8 cavity (float64, tol 1e-8) with each of goma_tpu's other
+    preconditioners and solvers (``SMALL_OPTIONS``: auto, two-level with
+    either smoother or the ``"inv"`` coarse solve, block Jacobi,
+    FieldSplit, PCD, BiCGStab, host direct, bf16 storage) on cuda and on
+    cpu: the same Newton count, linear iterations per step within a
+    stated bound, x within phase 4's bound; each printed beside
+    goma_tpu's counts;
+27. the 64x64 cavity on bench.py's ``twolevel`` kind (float32 Jacobian,
+    Vanka smoother, one sweep, restart 240): one warm-up solve,
+    ``reset_lagged()``, one timed solve; require convergence to 1e-6,
+    goma_tpu's Newton count +-1 (``TWOLEVEL_REF``, from
+    scripts/twolevel_reference.py), the same linear iterations in both
+    solves (the Galerkin sum is deterministic) and x within a stated
+    bound of phase 5's; print s/iteration, the buckets, the linear
+    iterations, factorizations, host syncs per Newton iteration, one
+    factorization split (Vanka inverses, Galerkin coarse build, coarse LU)
+    and one apply split (smoother, restrict + prolong, coarse solve,
+    operator) by CUDA events, the kernels of one apply, one coarse solve
+    by LU against the explicit float32 inverse (CUDA events and graph
+    replay, each beside its byte bound) and torch's peak memory;
+28. the same for the 48x48 buoyant deck on bench.py's third rung (restart
+    160, maxiter 1000), one solve, 6 +- 1 Newton iterations, x against
+    phase 13's;
+29. the 48x48 static bubble on the host ``direct`` rung
+    (bench.bench_two_phase("direct"): float64 prep, SuperLU on the host),
+    phase 19's legs: 2 converged steps a leg with phase 19's Newton count
+    +-1 each, the Laplace jump within 8% of 2, the end state within a
+    stated bound of phase 19's; s/iteration printed.
 
 The last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
@@ -344,6 +376,57 @@ SC_X_TOL = 1e-7
 # the pressure carries the hydrostatic head (Ra Pr = 7100). H100 reading
 # 1.2e-5
 BUOY_PATHS_TOL = 1e-4
+# goma_tpu's 8x8 cavity (float64, NewtonOptions(tol_residual=1e-8) plus
+# each option; JAX x64 on a CPU, 5 Newton iterations each): linear
+# iterations per Newton step, recorded here because this script imports no
+# goma_tpu (tests/test_torch_solvers.py holds the port to goma_tpu live).
+# Entries: (options, TwoLevel.coarse_solve, goma_tpu's counts)
+SMALL_OPTIONS = {
+    "auto (twolevel, vanka)": ({}, None, [26, 37, 35, 30, 34]),
+    "twolevel bj": (dict(precond="twolevel", smoother="bj"), None,
+                    [33, 44, 41, 35, 41]),
+    "block_jacobi": (dict(precond="block_jacobi"), None,
+                     [231, 435, 304, 220, 333]),
+    "fieldsplit": (dict(precond="fieldsplit"), None, [102, 117, 114, 105, 115]),
+    "pcd": (dict(precond="pcd"), None, [128, 143, 129, 107, 131]),
+    "bicgstab": (dict(linear_solver="bicgstab"), None, [600, 54, 55, 52, 55]),
+    "direct": (dict(linear_solver="direct"), None, [1, 1, 1, 1, 1]),
+    "bf16": (dict(precond_dtype="bf16"), None, [26, 37, 35, 30, 35]),
+    "bf16-coarse": (dict(precond_dtype="bf16-coarse"), None,
+                    [26, 37, 35, 30, 34]),
+    "coarse inv": ({}, "inv", [42, 60, 55, 43, 55]),
+}
+# linear iterations per step may differ between cuda and cpu by this much
+# (the card rounds its sums in another order): 2, but PCD's dense Ap
+# inverse is applied in float32, and its counts move by up to 18 under a
+# 1e-7 relative perturbation of Fp on the CPU; BiCGStab's by up to 4
+# under a 1e-15 perturbation of the smoother (tests/test_torch_solvers.py)
+SMALL_LIN_TOL = {"pcd": 20, "bicgstab": 5}
+SMALL_LIN_TOL_DEFAULT = 2
+# goma_tpu's two-level records on a CPU (scripts/twolevel_reference.py,
+# float32 Jacobian, one solve from x = 0; jax 0.9.0): the 64x64 cavity on
+# bench.py's twolevel kind (200.5 s of solve) and the 48x48 buoyant deck on
+# its third rung (1834 s: every GMRES solve stops at linear_maxiter, 1000
+# rounded up to whole restarts of 160)
+TWOLEVEL_REF = {"cavity": {"newton": 4, "linear": [62, 166, 168, 130]},
+                "buoyant": {"newton": 6, "linear": [1120] * 6}}
+# max |x_twolevel - x_gmres+ndlu| on the 64x64 cavity: both stop at
+# ||R||_2 <= 1e-6 after inexact float32 steps (the tpu_direct rung's bound;
+# H100 reading 1.39e-5)
+TWOLEVEL_X_TOL = 5e-5
+# max |x_twolevel - x_gmres+ndlu| / (1 + |x_gmres+ndlu|) on the 48x48
+# buoyant deck: every GMRES solve of the two-level rung stops at its cap
+# (1,120 iterations), so each Newton step is inexact and the converged
+# state (||R||_2 <= 1e-6) differs from the gmres+ndlu one by more than the
+# direct rungs do, nearly all of it in the pressure (hydrostatic head up
+# to 8,250) near its pinned zero. goma_tpu's own two-level state lies
+# 2.22e-3 from its own gmres_ndlu state there (CPU,
+# scripts/twolevel_reference.py --x-out / --rung gmres_ndlu --x-ref); the
+# port may lie no farther from phase 13's (H100 reading 6.9e-4)
+BUOY_TWOLEVEL_X_TOL = 2.2e-3
+# the static bubble's host direct rung (bench.bench_two_phase("direct")):
+# the end state against phase 19's gmres_ndlu state, max |dx| / (1 + |x|)
+BUBBLE_DIRECT_TOL = 1e-5
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -1322,7 +1405,7 @@ def ve_direct_phase(dev, prob, x_gmres):
     solver = NewtonSolver(prob, ve_direct_opts())
     params = prob.base_params()
     x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
-    R, vals, _, scale = solver._prepare_direct(x0, params)
+    R, vals, _, scale, _ = solver._prepare(x0, params)
     nd = solver._direct_ndlu(vals)
     levels = nd_levels(nd)
     log(f"viscoelastic tpu_direct setup: {len(levels)} ND levels (nn, s, b) = "
@@ -1519,7 +1602,7 @@ def transient_legs(ts, x0, params, label):
     xdot. (bench.py carries the lagged factor into the timed leg; the reset
     makes the timed leg factor, so its kernels launch in the run that is
     read.) Returns (timed-leg result, seconds, launches, per-step Newton
-    results)."""
+    results, warm-leg result)."""
     from goma_tpu_torch.solvers.batched_lu import batched_lu
     from goma_tpu_torch.solvers.batched_trsv import batched_trsv
     from goma_tpu_torch.solvers.front_gather import front_gather
@@ -1569,7 +1652,7 @@ def transient_legs(ts, x0, params, label):
     if not np.all(np.isfinite(r2.x)) or r2.x.shape != x0.shape:
         raise RuntimeError(f"{label}: end state has the wrong shape or "
                            "non-finite values")
-    return r2, sec, ln, per_step
+    return r2, sec, ln, per_step, r1
 
 
 def bubble_gmres_phase(dev):
@@ -1599,7 +1682,7 @@ def bubble_gmres_phase(dev):
     gather_abs = check_gathers(nd, vals, "two-phase tree")
     g_times, g_bound = gather_times(nd, vals, "two-phase tree")
 
-    res, _, ln, _ = transient_legs(ts, x0, params, "two-phase gmres_ndlu")
+    res, _, ln, _, warm = transient_legs(ts, x0, params, "two-phase gmres_ndlu")
     nf = solver.n_factor
     if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
         raise RuntimeError(f"two-phase front-LU launches {ln['lu']} / "
@@ -1613,7 +1696,10 @@ def bubble_gmres_phase(dev):
                            f"{BUBBLE_DP_RTOL:.0%} of {BUBBLE_DP}")
     max_abs = max(max_abs, lu_abs,
                   check_real_fronts(nd, scaled(res.x), "two-phase end state"))
+    newton = {leg: [st.newton_iters for st in r.steps]
+              for leg, r in (("warm", warm), ("timed", res))}
     return {"prob": prob, "params": params, "x": res.x, "launches": ln,
+            "newton": newton,
             "max_abs": max_abs, "lu_ms": lu_ms, "lu_bound": lu_bound(shapes),
             "gather_abs": gather_abs, "g_times": g_times, "g_bound": g_bound}
 
@@ -1629,7 +1715,7 @@ def bubble_direct_phase(dev, prob, params, x_gmres):
     solver = ts.newton
     xt = torch.as_tensor(x0, dtype=prob.dtype, device=dev)
     p = step_params(params, x0, 0.02)
-    R, vals, _, scale = solver._prepare_direct(xt, p)
+    R, vals, _, scale, _ = solver._prepare(xt, p)
     nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
     levels = nd_levels(nd)
     log(f"two-phase tpu_direct setup: {len(levels)} ND levels (nn, s, b) = "
@@ -1641,7 +1727,7 @@ def bubble_direct_phase(dev, prob, params, x_gmres):
                            f"substitutions, not 2 x {len(levels)} levels")
     trsv = check_substitutions(calls, "two-phase")
 
-    res, _, ln, _ = transient_legs(ts, x0, params, "two-phase tpu_direct")
+    res, _, ln, _, _ = transient_legs(ts, x0, params, "two-phase tpu_direct")
     solves, nf = nd.n_solve, solver._ndlu_nfactor
     if solves < 1 or ln["trsv"] != 2 * len(levels) * solves:
         raise RuntimeError(f"two-phase substitution launches {ln['trsv']} != "
@@ -2108,7 +2194,7 @@ def slot_direct_phase(dev, x_gmres):
     params = prob.base_params()
     solver = ts.newton
     xt = torch.as_tensor(x0, dtype=prob.dtype, device=dev)
-    R, vals, _, scale = solver._prepare_direct(
+    R, vals, _, scale, _ = solver._prepare(
         xt, slot_step_params(params, x0, 0.01, 0.01))
     nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
     levels = nd_levels(nd)
@@ -2199,6 +2285,260 @@ def buoyant_direct_phase(bprob, bx):
     return ln
 
 
+def small_options_phase():
+    """Phase 26: the 8x8 cavity (float64) with each of goma_tpu's other
+    preconditioners and linear solvers (SMALL_OPTIONS) on cuda and on cpu:
+    the same Newton count, linear iterations per step within
+    SMALL_LIN_TOL, x within phase 4's bound; each option's counts printed
+    beside goma_tpu's."""
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+
+    for name, (kw, coarse_solve, ref) in SMALL_OPTIONS.items():
+        got = {}
+        for d in ("cuda", "cpu"):
+            p8 = cavity_problem(8, torch.device(d))
+            p8.jacobian_dtype = None
+            sv = NewtonSolver(p8, NewtonOptions(tol_residual=1e-8, **kw))
+            if coarse_solve:
+                sv.precond.coarse_solve = coarse_solve
+            t0 = time.perf_counter()
+            r = sv.solve(np.zeros(p8.dofmap.n_dof), p8.base_params())
+            got[d] = (r, time.perf_counter() - t0, sv._precond_kind)
+        (rc, tc, kind), (rp, tp_, _) = got["cuda"], got["cpu"]
+        tol = SMALL_LIN_TOL.get(name, SMALL_LIN_TOL_DEFAULT)
+        dx = float(np.abs(rc.x - rp.x).max())
+        log(f"8x8 cavity {name} ({kind}): Newton cuda {rc.iters} cpu "
+            f"{rp.iters}; linear cuda {rc.linear_iters} cpu "
+            f"{rp.linear_iters} goma_tpu {ref}; max |x_cuda - x_cpu| = "
+            f"{dx:.2e}; {tc:.2f} s cuda, {tp_:.2f} s cpu")
+        if not (rc.converged and rp.converged) or rc.iters != rp.iters:
+            raise RuntimeError(f"8x8 cavity {name}: Newton differs between "
+                               f"cuda and cpu ({rc.iters}, {rp.iters}, "
+                               f"converged {rc.converged}, {rp.converged})")
+        if len(rc.linear_iters) != len(rp.linear_iters) or any(
+                abs(a - b) > tol for a, b in zip(rc.linear_iters,
+                                                 rp.linear_iters)):
+            raise RuntimeError(f"8x8 cavity {name}: linear iterations differ "
+                               f"by more than {tol} per step")
+        if dx > 1e-5:
+            raise RuntimeError(f"8x8 cavity {name}: cuda and cpu solutions "
+                               f"differ by {dx:.2e}")
+
+
+def twolevel_opts(deck):
+    """bench._cavity_opts("twolevel") and bench.bench_buoyant's third
+    rung, restated (bench.py imports jax)."""
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    if deck == "cavity":
+        return NewtonOptions(max_iter=20, tol_residual=1e-6, linear_tol=1e-4,
+                             gmres_restart=240, linear_maxiter=480,
+                             precond="twolevel", smooth_sweeps=1)
+    return NewtonOptions(max_iter=15, tol_residual=1e-6, linear_tol=1e-4,
+                         precond="twolevel", smooth_sweeps=1,
+                         gmres_restart=160, linear_maxiter=1000)
+
+
+def coarse_apply_as(tl, mode, coarse, rc):
+    """The coarse solve of ``tl`` with ``coarse_solve`` set to ``mode``."""
+    keep, tl.coarse_solve = tl.coarse_solve, mode
+    try:
+        return tl._coarse_apply(coarse, rc)
+    finally:
+        tl.coarse_solve = keep
+
+
+def replay_ms(fn):
+    """graph_ms(fn), or nan (logged) where ``fn`` cannot be captured."""
+    try:
+        return graph_ms(fn)
+    except RuntimeError as e:
+        log(f"CUDA-graph replay: not measured ({str(e).splitlines()[0]})")
+        return float("nan")
+
+
+def twolevel_phase(prob, label, deck, x_ref, x_tol, relative, warm_up=True):
+    """Phases 27 and 28: ``deck``'s two-level options (Vanka smoother,
+    dense Galerkin coarse LU) on ``prob`` through the pipelined loop: one
+    warm-up solve (``warm_up``), ``reset_lagged()``, one timed solve with
+    its host syncs counted; require convergence to 1e-6, goma_tpu's Newton
+    count +-1 (TWOLEVEL_REF), the same linear iterations in both solves
+    (the coarse sum is deterministic) and x within ``x_tol`` of ``x_ref``
+    (max |dx|, over 1 + |x_ref| where ``relative``); print
+    s/iteration, the buckets, factorizations, host syncs per Newton
+    iteration, one factorization split (Vanka inverses, Galerkin coarse
+    build, coarse LU) and one apply split (smoother, restrict + prolong,
+    coarse solve, operator) by CUDA events, kernels per apply, and one
+    coarse solve by LU against the explicit inverse (``"inv"``) with each
+    one's byte bound. Returns the solution."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    dev = prob.device
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    solver = NewtonSolver(prob, twolevel_opts(deck))
+    tl = solver.precond
+    nl = [tuple(tl.bj.tables[f"vk:pos{bi}"].shape[:2]) for bi in range(tl.bj.nb)]
+    log(f"{label} setup: {prob.dofmap.n_dof} dof, precond "
+        f"{solver._precond_kind} ({type(tl.bj).__name__} blocks (ne, nl) = "
+        f"{nl}, coarse_solve {tl.coarse_solve}), nc = {tl.nc} "
+        f"({tl.n_elliptic} elliptic), coarse pattern {tl._c_nnz} entries, "
+        f"Galerkin expansion {tl.tables['ac_rep'].numel()} terms, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if solver._precond_kind != "twolevel" or tl.coarse_solve != "lu":
+        raise RuntimeError(f"{label}: not the two-level LU preconditioner")
+    x_init = np.zeros(prob.dofmap.n_dof)
+    params = prob.base_params()
+    warm = None
+    if warm_up:
+        t0 = time.perf_counter()
+        warm = solver.solve(x_init, params)
+        torch.cuda.synchronize()
+        log(f"{label} warm-up: {time.perf_counter() - t0:.2f} s, iters="
+            f"{warm.iters}, lin={warm.linear_iters}, converged="
+            f"{warm.converged}")
+    solver.reset_lagged()
+    solver.n_factor = solver.n_discarded = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, syncs = count_syncs(lambda: solver.solve(x_init, params))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    its = max(res.iters, 1)
+    ref = TWOLEVEL_REF[deck]
+    log(res.summary())
+    log(f"{label}: iters={res.iters} (goma_tpu {ref['newton']}) converged="
+        f"{res.converged} lin={res.linear_iters} (goma_tpu {ref['linear']}) "
+        f"factorizations={solver.n_factor} discarded speculative solves="
+        f"{solver.n_discarded}; asm {res.assembly_time / its * 1e3:.1f} ms + "
+        f"slv {res.solve_time / its * 1e3:.1f} ms per iteration, "
+        f"{sec / its:.4f} s/iter (total {sec:.3f} s); {syncs} host syncs, "
+        f"{syncs / its:.1f} per Newton iteration")
+    if not res.converged or res.res_norms[-1][1] > 1e-6:
+        raise RuntimeError(f"{label} did not converge to 1e-6")
+    if abs(res.iters - ref["newton"]) > 1:
+        raise RuntimeError(f"{label}: {res.iters} Newton iterations, not "
+                           f"goma_tpu's {ref['newton']} +- 1")
+    if warm is not None and warm.linear_iters != res.linear_iters:
+        raise RuntimeError(f"{label}: two solves from x = 0 took different "
+                           f"linear iterations ({warm.linear_iters}, "
+                           f"{res.linear_iters})")
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: solution has the wrong shape or "
+                           "non-finite values")
+    dx = rel_dx(x, x_ref) if relative else float(np.abs(x - x_ref).max())
+    dm = prob.dofmap
+    by_var = []
+    for v in dm.vars:
+        for c in range(v.ncomp):
+            d = dm.dof_of_node_svar[:, dm.svar(v.name, c)]
+            d = d[d >= 0]
+            by_var.append(f"{v.name}[{c}] {np.abs(x - x_ref)[d].max():.2e} "
+                          f"(max|x| {np.abs(x_ref[d]).max():.3g})")
+    l2 = [float(solver._prepare_fast(torch.as_tensor(
+        v, dtype=prob.dtype, device=dev), params)[1][1]) for v in (x, x_ref)]
+    log(f"{label} vs gmres+ndlu: max |dx|{' / (1 + |x|)' if relative else ''}"
+        f" = {dx:.3e}; max |dx| by field: {', '.join(by_var)}; ||R||_2 at "
+        f"the two solutions {l2[0]:.3e}, {l2[1]:.3e}")
+    if dx > x_tol:
+        raise RuntimeError(f"{label}: {dx:.3e} from the gmres+ndlu solution "
+                           f"(limit {x_tol:.0e})")
+
+    # one factorization and one apply, split, at x = 0
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+    R, _, scale, aux = solver._prepare_fast(x0, params)
+    vals = solver._scaled_vals(x0, params, scale)
+    Binv = tl.bj.factor(vals)
+    Ac = tl.coarse_matrix(vals)
+    lu = tl.factor_coarse(Ac)
+    mv = solver._matvec(scale, aux)
+    r = (scale * R).to(vals.dtype)
+    rc = tl.restrict(r)
+    fac = (Binv, lu, mv)
+    f_ms = {"Vanka inverses": median_ms(lambda: tl.bj.factor(vals), 3),
+            "Galerkin coarse build": median_ms(lambda: tl.coarse_matrix(vals), 3),
+            "coarse LU": median_ms(lambda: tl.factor_coarse(Ac), 3)}
+    log(f"{label} factorization split (CUDA events): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in f_ms.items())
+        + f"; whole factor {median_ms(lambda: tl.factor(vals, mv), 3):.3f} ms")
+    a_ms = {"smoother (one sweep)": median_ms(lambda: tl.bj.apply(Binv, r), 10),
+            "restrict + prolong": median_ms(
+                lambda: tl.prolong(tl.restrict(r)), 10),
+            "coarse solve": median_ms(lambda: tl._coarse_apply(lu, rc), 10),
+            "operator (element matvec)": median_ms(lambda: mv(r), 10)}
+    apply_ms = median_ms(lambda: tl.apply(fac, r), 10)
+    dev_ms, kern = device_ms(lambda: tl.apply(fac, r), 3, required=False)
+    log(f"{label} apply split (CUDA events): "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in a_ms.items())
+        + f"; one V({tl.pre_sweeps},{tl.post_sweeps}) apply {apply_ms:.3f} ms, "
+        f"{dev_ms:.3f} ms device time in {kern} kernels")
+    # the coarse solve: LU against goma_tpu's TPU choice, the explicit
+    # float32 saddle-split inverse
+    t0 = time.perf_counter()
+    keep, tl.coarse_solve = tl.coarse_solve, "inv"
+    inv = tl.factor_coarse(Ac)
+    tl.coarse_solve = keep
+    torch.cuda.synchronize()
+    inv_fac_s = time.perf_counter() - t0
+    z_lu = coarse_apply_as(tl, "lu", lu, rc)
+    z_inv = coarse_apply_as(tl, "inv", inv, rc)
+    rel = float((z_inv - z_lu).abs().max() / z_lu.abs().max())
+    nc2 = tl.nc * tl.nc * Ac.element_size()
+    times = {}
+    for mode, coarse, nbytes in (("lu", lu, 2 * nc2), ("inv", inv, nc2)):
+        fn = lambda m=mode, c=coarse: coarse_apply_as(tl, m, c, rc)  # noqa: E731
+        times[mode] = (median_ms(fn, 10), replay_ms(fn),
+                       bound_ms(nbytes, 2.0 * tl.nc * tl.nc)[0])
+        log(f"{label} coarse solve {mode!r} at nc = {tl.nc}: "
+            f"{times[mode][0]:.3f} ms (CUDA events), {times[mode][1]:.3f} ms "
+            f"(CUDA-graph replay), byte bound {times[mode][2]:.4f} ms "
+            f"({nbytes / 1e6:.0f} MB)")
+    log(f"{label} coarse: LU factor {f_ms['coarse LU']:.1f} ms, inverse "
+        f"{inv_fac_s * 1e3:.1f} ms (one call, host clock); inv vs lu "
+        f"solution rel {rel:.2e}; {mem_line()}")
+    del inv, lu, Ac, Binv, fac, solver, tl
+    return x
+
+
+def bubble_host_direct_phase(dev, ref):
+    """Phase 29: the 48x48 static bubble on the host ``direct`` rung
+    (bench.bench_two_phase("direct"): the plain float64 prep, SuperLU on
+    the host), phase 19's two legs; require 2 converged steps a leg, each
+    with the gmres_ndlu rung's Newton count +-1 (``ref``), dp within 8% of
+    2, and the end state within BUBBLE_DIRECT_TOL of phase 19's."""
+    from goma_tpu_torch.solvers import NewtonOptions
+    from goma_tpu_torch.solvers.transient import TimeOptions, TransientSolver
+
+    t0 = time.perf_counter()
+    prob, x0, params = bubble_problem(N_BUBBLE, dev)
+    ts = TransientSolver(prob, NewtonOptions(max_iter=10, tol_residual=1e-8,
+                                             linear_solver="direct"),
+                         TimeOptions(dt0=0.02, t_end=0.04, adapt=False))
+    log(f"two-phase direct setup: {prob.dofmap.n_dof} dof, "
+        f"{prob.pattern.nnz} nnz, precond built: {ts.newton.precond}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    res, _, _, _, warm = transient_legs(ts, x0, params, "two-phase direct")
+    got = {leg: [st.newton_iters for st in r.steps]
+           for leg, r in (("warm", warm), ("timed", res))}
+    log(f"two-phase direct: Newton per step {got}, gmres_ndlu {ref['newton']}")
+    for leg in ("warm", "timed"):
+        a, b = got[leg], ref["newton"][leg]
+        if len(a) != len(b) or any(abs(u - v) > 1 for u, v in zip(a, b)):
+            raise RuntimeError(f"two-phase direct {leg} leg: Newton {a} not "
+                               f"within 1 of gmres_ndlu's {b}")
+    dp = laplace_jump(prob, res.x)
+    dx = rel_dx(res.x, ref["x"])
+    log(f"two-phase direct: dp = {dp:.5f}; vs gmres_ndlu: max |dx| / "
+        f"(1 + |x|) = {dx:.3e}")
+    if not abs(dp - BUBBLE_DP) <= BUBBLE_DP_RTOL * BUBBLE_DP:
+        raise RuntimeError(f"two-phase direct Laplace jump {dp:.4f} not "
+                           f"within {BUBBLE_DP_RTOL:.0%} of {BUBBLE_DP}")
+    if dx > BUBBLE_DIRECT_TOL:
+        raise RuntimeError(f"two-phase direct end state {dx:.3e} from "
+                           f"gmres_ndlu's (limit {BUBBLE_DIRECT_TOL:.0e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -2275,7 +2615,7 @@ def main() -> int:
     # ---- 8. substitution kernel vs twin on the tpu_direct deck's factors
     t0 = time.perf_counter()
     dsolver = NewtonSolver(prob, direct_opts())
-    R, dvals, _, dscale = dsolver._prepare_direct(x0, params)
+    R, dvals, _, dscale, _ = dsolver._prepare(x0, params)
     nd = dsolver._direct_ndlu(dvals)  # the NDLU the main path will use
     dlev = [(lev.nn, lev.smax, lev.bmax) for lev in nd.levels]
     log(f"tpu_direct setup: {len(dlev)} ND levels (nn, m, boundary) = {dlev}, "
@@ -2464,6 +2804,22 @@ def main() -> int:
 
     # ---- 25. the buoyant deck's tpu_direct rung (48x48)
     bd_ln = buoyant_direct_phase(bprob, bx)
+
+    # ---- 26. goma_tpu's other preconditioners and solvers, 8x8 cuda vs cpu
+    small_options_phase()
+
+    # ---- 27. the 64x64 cavity on bench.py's twolevel kind
+    twolevel_phase(prob, "cavity twolevel", "cavity", x, TWOLEVEL_X_TOL,
+                   relative=False)
+
+    # ---- 28. the 48x48 buoyant deck on bench.py's third rung (twolevel)
+    twolevel_phase(bprob, "buoyant twolevel", "buoyant", bx,
+                   BUOY_TWOLEVEL_X_TOL, relative=True, warm_up=False)
+    del bprob
+    log(f"after the two-level phases: {mem_line()}")
+
+    # ---- 29. the 48x48 static bubble on the host direct rung
+    bubble_host_direct_phase(dev, tp)
 
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)

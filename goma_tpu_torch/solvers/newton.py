@@ -1,32 +1,42 @@
 """Damped full-Newton nonlinear solver (counterpart of
-``goma_tpu/solvers/newton.py``), cut to two linear-solver paths.
+``goma_tpu/solvers/newton.py``) with goma_tpu's linear solvers and
+preconditioners, GCRO-DR recycling (``recycle_k > 0``) excepted.
 
-``linear_solver="gmres"`` (with ``precond="ndlu"``): per iteration, assemble
-R, element Jacobians and element row sums (``Problem._assemble_fast``), take
-the row-sum-scaled norms, test convergence, solve the symmetrically
-equilibrated system (DAD) z = D R with GMRES (operator: the element matvec;
-preconditioner: a lagged, selectively inverted NDLU of the equilibrated CSR
-values, built only when a (re)factor needs them), and update
-x <- x - lambda D z. Eisenstat-Walker forcing sets each linear tolerance;
+Per iteration: assemble, take the row-sum-scaled norms, test convergence,
+solve the symmetrically equilibrated system (DAD) z = D R, and update
+x <- x - lambda D z. Eisenstat-Walker forcing sets each Krylov tolerance;
 ``prep32_tol`` runs the far-from-solution preps entirely at the Jacobian
 dtype.
 
-``linear_solver="tpu_direct"``: per iteration, assemble R and the CSR
-values (``Problem._assemble_with_elem``), equilibrate them with the ELL row
-sums, and solve (DAD) z = D R with a lagged NDLU(invert=False): exact
-substitution through the ``batched_trsv`` kernel plus iterative refinement
-against the fresh operator, refactoring once when the lagged factor misses
-the residual guard.
+- ``gmres``/``bicgstab``: the vals-free fast prep (R, element Jacobians
+  and element row sums, ``Problem._assemble_fast``); operator the element
+  matvec; a lagged preconditioner factored from the equilibrated CSR values
+  only when it (re)factors: ``precond`` ``ndlu`` (the selectively inverted
+  multifrontal LU), ``twolevel`` (Vanka or block-Jacobi smoother, dense
+  Galerkin coarse solve), ``block_jacobi``, ``vanka``, ``fieldsplit``,
+  ``pcd``, or ``auto`` (two-level when the Q1/P1 coarse space is a real
+  reduction and small enough, else block Jacobi). ``precond_dtype``
+  ``bf16``/``bf16-coarse`` store factors in bfloat16.
+- ``tpu_direct``: assembled-vals prep (``Problem._assemble_with_elem``,
+  ELL row sums) and a lagged NDLU(invert=False): exact substitution
+  through the ``batched_trsv`` kernel plus iterative refinement against
+  the fresh operator, refactoring once when the lagged factor misses the
+  residual guard.
+- ``direct``: the plain full-precision prep (``Problem._assemble``) and
+  the host SuperLU solve (``direct_solve_host``); a ``LinearSolveError``
+  ends the Newton solve unconverged, so the transient driver halves dt.
+- ``row_scaling=False``: the full prep with R unscaled and a scale of
+  ones (no fast prep), so the sequential loop runs.
 
 ``solve`` routes as goma_tpu routes: ``gmres`` with ``tol_update == 0`` on
-a problem with the fast prep runs the pipelined loop (``_solve_pipelined``),
-everything else (``tpu_direct``, ``tol_update > 0``) the sequential loop
-(``_solve_sequential``). The pipelined loop dispatches the prep, the
-Eisenstat-Walker tolerance (computed on the device, ``_eta_device``) and
-the first GMRES cycle with no host read between them, and reads the prep's
-norms in the first cycle's one sync; it yields the same norm sequence and
-the same linear iterations as the sequential loop. On a converged
-iteration its speculative solve is thrown away (``n_discarded``).
+the fast prep runs the pipelined loop (``_solve_pipelined``), everything
+else the sequential loop (``_solve_sequential``). The pipelined loop
+dispatches the prep, the Eisenstat-Walker tolerance (computed on the
+device, ``_eta_device``) and the first GMRES cycle with no host read
+between them, and reads the prep's norms in the first cycle's one sync; it
+yields the same norm sequence and the same linear iterations as the
+sequential loop. On a converged iteration its speculative solve is thrown
+away (``n_discarded``).
 """
 
 from __future__ import annotations
@@ -38,7 +48,9 @@ import numpy as np
 import torch
 
 from goma_tpu_torch.fem.sparsity import EllOperator, row_sums_ell
-from goma_tpu_torch.solvers.linear import LinearResult, gmres, read_scalars
+from goma_tpu_torch.solvers.linear import (LinearResult, LinearSolveError,
+                                           bicgstab, direct_solve_host, gmres,
+                                           read_scalars)
 
 _LATER = "later slice of the port, see ROADMAP"
 
@@ -46,9 +58,8 @@ _LATER = "later slice of the port, see ROADMAP"
 @dataclass
 class NewtonOptions:
     """goma_tpu's options, every field and default kept so decks carry
-    over. Values outside the ported slice raise at construction (see
-    :func:`check_slice`); the fields that only steer unported paths (the
-    other preconditioners and Krylov methods) are accepted and unused."""
+    over. ``recycle_k > 0`` (GCRO-DR) raises at construction (see
+    :func:`check_slice`)."""
 
     max_iter: int = 15
     # convergence on the row-scaled residual, like the reference's Epsilon[0]
@@ -65,7 +76,7 @@ class NewtonOptions:
     custom_tol2: float = -1.0
     custom_tol3: float = -1.0
     row_scaling: bool = True
-    linear_solver: str = "gmres"  # gmres | tpu_direct (bicgstab | direct: later)
+    linear_solver: str = "gmres"  # gmres | bicgstab | direct | tpu_direct
     ndlu_leaf_max: int = 96
     ndlu_refine: int = 1
     # atomic mesh-node clustering of the ND bisection: every saddle
@@ -74,15 +85,19 @@ class NewtonOptions:
     ndlu_dtype: str = "float32"  # factorization precision
     ndlu_lag: bool = True
     ndlu_max_refine: int = 8
-    # gmres needs "ndlu" (auto | block_jacobi | ...: later); tpu_direct
-    # reads no preconditioner and accepts any value
-    precond: str = "auto"
+    # auto: two-level p-multigrid when the problem has a genuinely smaller
+    # Q1/P1 coarse space that fits a dense coarse solve, else block-Jacobi
+    precond: str = "auto"  # auto | block_jacobi | fieldsplit | pcd | twolevel | ndlu
     fieldsplit_mu: float | None = None
     fieldsplit_rho: float | None = None
     fieldsplit_sweeps: int = 2
+    # None: 1.0 for vanka (weighted overlap already averages), 0.7 for bj
     smooth_damp: float | None = None
     smooth_sweeps: int = 2
+    # post-smoothing sweeps of the two-level cycle; None -> smooth_sweeps
     smooth_post_sweeps: int | None = None
+    # two-level smoother: "bj" node-block Jacobi | "vanka" element-block
+    # additive Schwarz
     smoother: str = "vanka"
     linear_tol: float = 1e-10
     gmres_restart: int = 120
@@ -96,13 +111,18 @@ class NewtonOptions:
     # "tighten": eta <- min(eta_ew, 0.5 tol/||R||); "standard": eta <-
     # max(eta_ew, 0.5 tol/||R||) (the classic oversolving safeguard)
     ew_endgame: str = "tighten"  # tighten | standard
+    # preconditioner factor storage: "f32" (the factor dtype), "bf16"
+    # (smoother inverses and the dense coarse inverse in bfloat16) or
+    # "bf16-coarse" (the coarse inverse only); applies upcast to the
+    # Krylov dtype
     precond_dtype: str = "f32"
     # lagged preconditioner: reuse the factor across Newton iterations
     # until the Krylov count grows past the staleness threshold over its
     # post-factor baseline; the Krylov OPERATOR is always fresh
     precond_lag: bool = True
-    # staleness threshold; None -> 45 for "ndlu". Also fires MID-SOLVE:
-    # the solve refactors and continues from its current iterate
+    # staleness threshold; None -> 45 for "ndlu", else 2*gmres_restart.
+    # Also fires MID-SOLVE: the solve refactors and continues from its
+    # current iterate
     precond_stale_its: int | None = None
     recycle_k: int = 0
     # switched-precision prep: while the row-scaled ||R||_2 stays ABOVE
@@ -116,18 +136,8 @@ class NewtonOptions:
 
 def check_slice(opts: NewtonOptions) -> None:
     """Raise NotImplementedError for options outside the ported slice."""
-    if opts.linear_solver not in ("gmres", "tpu_direct"):
-        raise NotImplementedError(
-            f"linear_solver={opts.linear_solver!r}: {_LATER}")
-    if opts.linear_solver == "gmres" and opts.precond != "ndlu":
-        raise NotImplementedError(f"precond={opts.precond!r}: {_LATER}")
     if opts.recycle_k > 0:
         raise NotImplementedError(f"recycle_k > 0 (GCRO-DR): {_LATER}")
-    if opts.precond_dtype != "f32":
-        raise NotImplementedError(
-            f"precond_dtype={opts.precond_dtype!r}: {_LATER}")
-    if not opts.row_scaling:
-        raise NotImplementedError(f"row_scaling=False (unscaled prep): {_LATER}")
 
 
 @dataclass
@@ -155,42 +165,50 @@ _DTYPES = {"float32": torch.float32, "float64": torch.float64}
 class NewtonSolver:
     def __init__(self, problem, options: NewtonOptions | None = None):
         self.problem = problem
-        self.opts = options or NewtonOptions(precond="ndlu")
+        self.opts = options or NewtonOptions()
         check_slice(self.opts)
         self.device = problem.device
-        from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
-        from goma_tpu_torch.solvers.twolevel import _saddle_mask
+        opts = self.opts
+        kind = opts.precond
+        if kind == "auto":
+            # two-level pays off only when the Q1/P1 coarse space is both a
+            # real reduction and small enough for a dense coarse solve
+            from goma_tpu_torch.solvers.twolevel import coarse_dof_count
 
-        self._direct = self.opts.linear_solver == "tpu_direct"
+            nc, n = coarse_dof_count(problem)
+            kind = "twolevel" if nc <= 0.8 * n and nc <= 16000 else "block_jacobi"
+            if getattr(problem, "ovs_sets", None):
+                # multiplier saddles need the constraint-aware Schwarz blocks
+                kind = "vanka"
+        self._precond_kind = kind
+        self._direct = opts.linear_solver == "tpu_direct"
+        self._host_direct = opts.linear_solver == "direct"
         pat = problem.pattern
-        if self._direct:
-            # tpu_direct reads no preconditioner, so none is built (goma_tpu
-            # builds the TwoLevel or BlockJacobi that precond="auto" names
-            # and never applies it). The refinement operator is the CSR (ELL)
-            # matvec of the assembled values, and the multifrontal LU is
-            # built lazily from the first iteration's values (_linsolve_direct)
-            self.precond = None
-            self._ell = EllOperator(pat, device=self.device)
-        else:
-            # near-exact preconditioner: the multifrontal LU, selectively
-            # inverted (applies are batched matvecs; GMRES wraps the apply)
-            self.precond = NDLU(pat,
-                                leaf_max=self.opts.ndlu_leaf_max,
-                                dtype=_DTYPES[self.opts.ndlu_dtype],
-                                defer_dofs=_saddle_mask(problem),
-                                invert=True,
-                                clusters=node_clusters(problem)
-                                if self.opts.ndlu_cluster else None,
-                                device=self.device)
+        # the direct rungs read no preconditioner, so none is built
+        # (goma_tpu builds the one precond names and never applies it)
+        self.precond = (None if self._direct or self._host_direct
+                        else self._build_precond(kind))
+        if self.precond is not None and opts.precond_dtype in ("bf16",
+                                                              "bf16-coarse"):
+            self.precond.store_dtype = torch.bfloat16
+            if opts.precond_dtype == "bf16" and hasattr(self.precond, "bj"):
+                self.precond.bj.store_dtype = torch.bfloat16
+        # the vals-free fast prep (gmres/bicgstab with row scaling); every
+        # other path takes the full prep, whose row sums come from the ELL
+        # gather (and tpu_direct refines through the ELL matvec)
+        self._fast_prep = (opts.row_scaling
+                           and opts.linear_solver in ("gmres", "bicgstab"))
+        self._ell = None if self._fast_prep else EllOperator(pat, device=self.device)
         self._rows = torch.as_tensor(pat.rows.astype(np.int64), device=self.device)
         self._cols = torch.as_tensor(pat.indices.astype(np.int64), device=self.device)
         self._n = problem.dofmap.n_dof
         self._jdt = problem.jacobian_dtype or problem.dtype
         self._cur_x = None
         self._cur_params = None
+        self._cur_ct = 0.0
         self._fac_cache = None
         self._fac_base_its = None
-        #: fresh preconditioner factorizations so far (each one runs the
+        #: fresh preconditioner factorizations so far (an NDLU one runs the
         #: front-LU kernel once per ND level)
         self.n_factor = 0
         self._ndlu = None  # lazy tpu_direct multifrontal LU
@@ -205,6 +223,58 @@ class NewtonSolver:
         #: converged iteration, or before the prep32 endgame re-prep)
         self.n_discarded = 0
 
+    def _build_precond(self, kind):
+        """The preconditioner ``kind`` names, on the Problem's device."""
+        problem, opts = self.problem, self.opts
+        if kind == "vanka":
+            from goma_tpu_torch.solvers.linear import Vanka
+
+            extras = [s.gather for s in getattr(problem, "ovs_sets", [])]
+            return Vanka(problem.pattern, problem.dofmap, problem=problem,
+                         extra_gathers=extras or None)
+        if kind == "fieldsplit":
+            from goma_tpu_torch.solvers.linear import FieldSplit
+
+            return FieldSplit(problem, mu=opts.fieldsplit_mu,
+                              u_sweeps=opts.fieldsplit_sweeps)
+        if kind == "pcd":
+            from goma_tpu_torch.solvers.pcd import PCDFieldSplit
+
+            mat = problem.materials[0] if problem.materials else {}
+            mu, rho = opts.fieldsplit_mu, opts.fieldsplit_rho
+            if mu is None:
+                mu = mat.get("mu") if isinstance(mat.get("mu"), (int, float)) else 1.0
+            if rho is None:
+                rho = mat.get("rho") if isinstance(mat.get("rho"), (int, float)) else 1.0
+            return PCDFieldSplit(problem, mu=mu, rho=rho,
+                                 u_sweeps=opts.fieldsplit_sweeps)
+        if kind == "twolevel":
+            from goma_tpu_torch.solvers.twolevel import TwoLevel
+
+            damp = opts.smooth_damp
+            if damp is None:
+                damp = 1.0 if opts.smoother == "vanka" else 0.7
+            post = (opts.smooth_sweeps if opts.smooth_post_sweeps is None
+                    else opts.smooth_post_sweeps)
+            return TwoLevel(problem, smooth_damp=damp,
+                            pre_sweeps=opts.smooth_sweeps, post_sweeps=post,
+                            smoother=opts.smoother)
+        if kind == "ndlu":
+            # near-exact preconditioner: the multifrontal LU, selectively
+            # inverted (applies are batched matvecs; GMRES wraps the apply)
+            from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
+            from goma_tpu_torch.solvers.twolevel import _saddle_mask
+
+            return NDLU(problem.pattern, leaf_max=opts.ndlu_leaf_max,
+                        dtype=_DTYPES[opts.ndlu_dtype],
+                        defer_dofs=_saddle_mask(problem), invert=True,
+                        clusters=node_clusters(problem)
+                        if opts.ndlu_cluster else None,
+                        device=self.device)
+        from goma_tpu_torch.solvers.linear import BlockJacobi
+
+        return BlockJacobi(problem.pattern, problem.dofmap, device=self.device)
+
     def reset_lagged(self):
         """Drop the lagged factors (preconditioner and tpu_direct NDLU)."""
         self._fac_cache = None
@@ -213,40 +283,54 @@ class NewtonSolver:
 
     # ------------------------------------------------------------ prep
     @staticmethod
-    def _norms(R, rs):
-        """Row-sum-scaled residual norms (L1, L2, Linf) in f32, max-scaled
-        so the sum of squares cannot overflow, plus the symmetric
-        equilibration scale 1/sqrt(rs)."""
-        rs = torch.where(rs > 0, rs, torch.ones_like(rs))
-        Rn32 = (R / rs).to(torch.float32)
+    def _norms(Rn):
+        """Residual norms (L1, L2, Linf) of the (row-scaled) residual in
+        f32, max-scaled so the sum of squares cannot overflow."""
+        Rn32 = Rn.to(torch.float32)
         mx = torch.max(torch.abs(Rn32))
         sc = torch.where(mx > 0, mx, torch.ones_like(mx))
-        norms = torch.stack([torch.sum(torch.abs(Rn32 / sc)) * sc,
-                             torch.linalg.norm(Rn32 / sc) * sc, mx])
-        return norms, 1.0 / torch.sqrt(rs)
+        return torch.stack([torch.sum(torch.abs(Rn32 / sc)) * sc,
+                            torch.linalg.norm(Rn32 / sc) * sc, mx])
+
+    @classmethod
+    def _row_scaled(cls, R, rs):
+        """Norms of the row-sum-scaled residual R / rs and the symmetric
+        equilibration scale 1/sqrt(rs) (rs <= 0 counts as 1)."""
+        rs = torch.where(rs > 0, rs, torch.ones_like(rs))
+        return cls._norms(R / rs), 1.0 / torch.sqrt(rs)
 
     def _prepare_fast(self, x, params):
         """Vals-free prep: (R, norms, scale, aux). Row sums come from the
         element Jacobians (Problem._assemble_fast)."""
         R, rs, aux = self.problem._assemble_fast(x, params)
-        norms, scale = self._norms(R, rs)
-        return R, norms, scale, aux
+        return (R, *self._row_scaled(R, rs), aux)
 
     def _prepare_fast32(self, x, params):
         """Switched-precision prep (opts.prep32_tol): the whole pass,
         residual included, at the Jacobian dtype."""
         R, rs, aux = self.problem._assemble_fast(x, params, rdt=self._jdt)
-        norms, scale = self._norms(R, rs)
-        return R, norms, scale, aux
+        return (R, *self._row_scaled(R, rs), aux)
 
-    def _prepare_direct(self, x, params):
-        """Assembled-vals prep of the direct path: (R, vals, norms, scale)
-        with the CSR values at the Jacobian dtype, row sums from the ELL
-        gather, and the values symmetrically equilibrated."""
-        R, vals, _ = self.problem._assemble_with_elem(x, params)
-        rs = row_sums_ell(vals, self._ell.tables["pos"])
-        norms, scale = self._norms(R, rs)
-        return R, self._equilibrate(vals, scale), norms, scale
+    def _prepare(self, x, params):
+        """The full prep (goma_tpu's ``_prepare``): (R, vals, norms, scale,
+        aux). gmres/bicgstab assemble with the element Jacobians (their
+        operator, ``aux``), ``tpu_direct`` likewise for the Jacobian dtype
+        (aux unused), the host ``direct`` rung with the plain
+        full-precision ``_assemble``. With row scaling the row sums come
+        from the ELL gather and the values are symmetrically equilibrated;
+        without, R is unscaled and the scale is ones."""
+        aux = None
+        if self._host_direct:
+            R, vals = self.problem._assemble(x, params)
+        else:
+            R, vals, aux = self.problem._assemble_with_elem(x, params)
+            if self._direct:
+                aux = None
+        if not self.opts.row_scaling:
+            return (R, vals, self._norms(R),
+                    torch.ones(self._n, dtype=vals.dtype, device=vals.device), aux)
+        norms, scale = self._row_scaled(R, row_sums_ell(vals, self._ell.tables["pos"]))
+        return R, self._equilibrate(vals, scale), norms, scale, aux
 
     def _equilibrate(self, vals, scale):
         """(DAD) values: vals[ij] * scale[i] * scale[j] at the vals dtype."""
@@ -260,18 +344,53 @@ class NewtonSolver:
 
     # ------------------------------------------------------------ linear
     def _factor_num(self, vals):
+        """Numeric preconditioner state for ``_apply_precond_mv``."""
         self.n_factor += 1
+        kind = self._precond_kind
+        if kind == "twolevel":
+            Binv, coarse, _ = self.precond.factor(vals, None)
+            return (Binv, coarse)
+        if kind == "fieldsplit":
+            Binv, _ = self.precond.factor(vals, None)
+            return (Binv,)
+        if kind == "pcd":
+            # state-dependent: the convection of Fp at the current x
+            xp = self._cur_x
+            if xp is None:
+                xp = torch.zeros(self._n, dtype=vals.dtype, device=vals.device)
+            return self.precond.factor(vals, xp, self._cur_ct)
         return (self.precond.factor(vals),)
 
-    def _apply_precond_mv(self, fac_num, r):
-        return self.precond.solve(fac_num[0], r).to(r.dtype)
+    def _apply_precond_mv(self, mv, fac_num, r):
+        kind = self._precond_kind
+        if kind in ("twolevel", "fieldsplit", "pcd"):
+            return self.precond.apply((*fac_num, mv), r)
+        if kind == "ndlu":
+            return self.precond.solve(fac_num[0], r).to(r.dtype)
+        return self.precond.apply(fac_num[0], r)
+
+    def _matvec(self, scale, aux):
+        """The Krylov operator: the element matvec of the equilibrated
+        system, the scale on both sides (the DAD of the CSR values)."""
+        prob = self.problem
+        return lambda v: prob.element_matvec(None, aux, scale, scale * v)
+
+    def _factor_fresh(self, vals, scale):
+        """Factor the preconditioner afresh and make it the lagged one,
+        from the prep's values or (fast prep, ``vals`` None) the
+        equilibrated CSR values at the current Newton state."""
+        if vals is None:
+            vals = self._scaled_vals(self._cur_x, self._cur_params, scale)
+        fac = self._factor_num(vals)
+        self._fac_cache = fac
+        self._fac_base_its = None
+        return fac
 
     def _gmres_cycle(self, scale, aux, fac_num, x, b, tol, extra=()):
         """One restarted-GMRES call of ``gmres_restart`` steps (the restart
         loop lives in _linsolve_gmres)."""
-        prob = self.problem
-        mv = lambda v: prob.element_matvec(None, aux, scale, scale * v)  # noqa: E731
-        M = lambda r: self._apply_precond_mv(fac_num, r)  # noqa: E731
+        mv = self._matvec(scale, aux)
+        M = lambda r: self._apply_precond_mv(mv, fac_num, r)  # noqa: E731
         return gmres(mv, b, precond=M, tol=tol, restart=self.opts.gmres_restart,
                      maxiter=self.opts.gmres_restart, x0=x, extra=extra)
 
@@ -280,25 +399,23 @@ class NewtonSolver:
         a lagged preconditioner factor stale (opts.precond_stale_its)."""
         if self.opts.precond_stale_its is not None:
             return int(self.opts.precond_stale_its)
-        return 45
+        if self._precond_kind == "ndlu":
+            return 45
+        return 2 * self.opts.gmres_restart
 
-    def _linsolve_gmres(self, R, scale, aux, tol=None, extra=None):
+    def _linsolve_gmres(self, R, scale, aux, tol=None, extra=None, vals=None):
         """Solve (DAD) z = D R by restarted GMRES; dx = D z. ``tol`` is a
-        float or a 0-d device tensor (``_eta_device``). ``||b||``, the
-        tolerance and the ``extra`` tensors are read in the first cycle's
-        first sync (the first cycle always runs); with ``extra`` given the
-        return is ``(LinearResult, extra values)``."""
+        float or a 0-d device tensor (``_eta_device``); ``vals`` the prep's
+        values (None on the fast prep: built when a factor needs them).
+        ``||b||``, the tolerance and the ``extra`` tensors are read in the
+        first cycle's first sync (the first cycle always runs); with
+        ``extra`` given the return is ``(LinearResult, extra values)``."""
         opts = self.opts
         lagged = opts.precond_lag and self._fac_cache is not None
-        if lagged:
-            fac = self._fac_cache
-        else:
-            fac = self._factor_num(self._scaled_vals(self._cur_x,
-                                                     self._cur_params, scale))
-            self._fac_cache = fac
-            self._fac_base_its = None
+        fac = self._fac_cache if lagged else self._factor_fresh(vals, scale)
         # symmetric equilibration: solve (DAD) z = D R, then dx = D z
-        b = (scale.to(R.dtype) * R).to(self._jdt)
+        b = (scale.to(R.dtype) * R).to(vals.dtype if vals is not None
+                                       else self._jdt)
         z = torch.zeros_like(b)
         if tol is None:
             tol = opts.linear_tol
@@ -313,10 +430,7 @@ class NewtonSolver:
             if lagged and it >= (base or 0) + stale:
                 # the lagged factor can't carry THIS solve's tolerance:
                 # refactor mid-solve and continue from the current iterate
-                fac = self._factor_num(self._scaled_vals(
-                    self._cur_x, self._cur_params, scale))
-                self._fac_cache = fac
-                self._fac_base_its = None
+                fac = self._factor_fresh(vals, scale)
                 lagged = False
                 it_refac = it
             prev = rn
@@ -353,6 +467,34 @@ class NewtonSolver:
         out = LinearResult(x=scale * z, iters=it, resnorm=rn,
                            converged=rn <= target)
         return (out, extra_vals) if extra is not None else out
+
+    def _linsolve_bicgstab(self, R, scale, aux, tol=None, vals=None):
+        """Solve (DAD) z = D R by right-preconditioned BiCGStab with the
+        lagged preconditioner (refactored only when none is cached: the
+        staleness policy is GMRES's, as in goma_tpu); dx = D z."""
+        opts = self.opts
+        fac = (self._fac_cache if opts.precond_lag and self._fac_cache is not None
+               else self._factor_fresh(vals, scale))
+        mv = self._matvec(scale, aux)
+        b = (scale.to(R.dtype) * R).to(vals.dtype if vals is not None
+                                       else self._jdt)
+        lr = bicgstab(mv, b, precond=lambda r: self._apply_precond_mv(mv, fac, r),
+                      tol=opts.linear_tol if tol is None else tol,
+                      maxiter=opts.linear_maxiter)
+        return LinearResult(x=scale * lr.x, iters=lr.iters, resnorm=lr.resnorm,
+                            converged=lr.converged)
+
+    def _linsolve_host_direct(self, R, vals, scale):
+        """The host ``direct`` step: (DAD) z = D R by SuperLU on the host,
+        dx = D z; None on a ``LinearSolveError`` (the Newton loop then
+        stops unconverged)."""
+        s_h = scale.cpu().numpy().astype(np.float64)
+        try:
+            z = direct_solve_host(self.problem.pattern, vals.cpu().numpy(),
+                                  s_h * R.cpu().numpy().astype(np.float64))
+        except LinearSolveError:
+            return None
+        return torch.as_tensor(s_h * z, dtype=R.dtype, device=R.device)
 
     def _direct_ndlu(self, vals):
         """The tpu_direct multifrontal LU, built on first use from the first
@@ -513,13 +655,20 @@ class NewtonSolver:
         """Newton from ``x0`` (array or tensor) with ``params`` from
         ``problem.base_params()``, routed as goma_tpu routes: ``gmres`` with
         ``tol_update == 0`` on the fast prep runs ``_solve_pipelined``,
-        everything else ``_solve_sequential``. (The port's ``gmres`` always
-        has goma_tpu's fast prep: ``check_slice`` refuses
-        ``row_scaling=False``.)"""
+        everything else ``_solve_sequential``."""
         opts = self.opts
-        if opts.linear_solver == "gmres" and opts.tol_update == 0:
+        if (self._fast_prep and opts.linear_solver == "gmres"
+                and opts.tol_update == 0):
             return self._solve_pipelined(x0, params)
         return self._solve_sequential(x0, params)
+
+    def _set_state(self, x, params):
+        """The current Newton state, read by a (re)factor: the CSR values
+        of the fast prep and PCD's convection (x and the time-derivative
+        coefficient ``ct``)."""
+        self._cur_x = x
+        self._cur_params = params
+        self._cur_ct = params.get("ct", 0.0) if isinstance(params, dict) else 0.0
 
     def _state(self, x0):
         prob = self.problem
@@ -559,8 +708,7 @@ class NewtonSolver:
         prep32 = opts.prep32_tol > 0 and self._jdt != prob.dtype
         boundary = max(opts.prep32_tol, 2.0 * tol)
         for it in range(opts.max_iter):
-            self._cur_x = x
-            self._cur_params = params
+            self._set_state(x, params)
             exp_l2 = np.inf if not res_norms else 10.0 * res_norms[-1][1] ** 2
             cur32 = prep32 and exp_l2 >= boundary
             speculate = exp_l2 >= tol and (not prep32 or exp_l2 >= boundary)
@@ -640,16 +788,15 @@ class NewtonSolver:
         t_asm = t_slv = 0.0
         it = 0
         prev_l2 = None
-        direct = self._direct
-        prep32 = (not direct and opts.prep32_tol > 0
-                  and self._jdt != prob.dtype)
+        fast = self._fast_prep
+        prep32 = fast and opts.prep32_tol > 0 and self._jdt != prob.dtype
         boundary = max(opts.prep32_tol, 2.0 * opts.tol_residual)
+        vals = aux = None
         for it in range(opts.max_iter):
-            self._cur_x = x
-            self._cur_params = params
+            self._set_state(x, params)
             t0 = time.perf_counter()
-            if direct:
-                R, vals, norms, scale = self._prepare_direct(x, params)
+            if not fast:
+                R, vals, norms, scale, aux = self._prepare(x, params)
             elif prep32:
                 R, norms, scale, aux = self._prepare_fast32(x, params)
             else:
@@ -669,16 +816,20 @@ class NewtonSolver:
             eta = self._eta(l2, prev_l2)
             prev_l2 = l2
             t0 = time.perf_counter()
-            if direct:
-                dx = self._linsolve_direct(R, vals, scale)
+            if self._host_direct or self._direct:
+                dx = (self._linsolve_host_direct(R, vals, scale)
+                      if self._host_direct
+                      else self._linsolve_direct(R, vals, scale))
                 if dx is None:
-                    # the refined solve missed its residual guard: stop
-                    # unconverged (direct-path semantics)
+                    # a failed direct solve (singular matrix, or the refined
+                    # solve missed its residual guard): stop unconverged
                     t_slv += time.perf_counter() - t0
                     break
                 lin_iters.append(1)
             else:
-                lr = self._linsolve_gmres(R, scale, aux, tol=eta)
+                solve = (self._linsolve_gmres if opts.linear_solver == "gmres"
+                         else self._linsolve_bicgstab)
+                lr = solve(R, scale, aux, tol=eta, vals=vals)
                 dx = lr.x
                 lin_iters.append(lr.iters)
             x = x - self._select_damp(li) * dx.to(x.dtype)
@@ -690,10 +841,8 @@ class NewtonSolver:
             if opts.tol_update > 0 and float(upd_norms[-1]) < opts.tol_update:
                 # correction-norm convergence (reference Epsilon[2] path)
                 t0 = time.perf_counter()
-                if direct:
-                    norms = self._prepare_direct(x, params)[2]
-                else:
-                    norms = self._prepare_fast(x, params)[1]
+                norms = (self._prepare_fast(x, params)[1] if fast
+                         else self._prepare(x, params)[2])
                 res_norms.append(tuple(norms.tolist()))
                 t_asm += time.perf_counter() - t0
                 converged = True

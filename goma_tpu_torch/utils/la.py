@@ -3,6 +3,77 @@
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
+
+
+def gj_inv(A):
+    """Batched Gauss-Jordan inverse with partial pivoting of (..., k, k),
+    in goma_tpu's one-hot algebra step for step (so its rounding, and the
+    first-maximum pivot choice of ``argmax``, are goma_tpu's). k <= 3 takes
+    the closed form. No library call and no host sync: a singular block
+    gives inf/nan entries, which the callers zero."""
+    k = A.shape[-1]
+    if k <= 3:
+        return det_and_inv(A)[1]
+    dtype, dev = A.dtype, A.device
+    eye = torch.eye(k, dtype=dtype, device=dev).expand(*A.shape[:-2], k, k)
+    M = torch.cat([A, eye], dim=-1)  # (..., k, 2k)
+    rk = torch.arange(k, device=dev)
+    r2k = torch.arange(2 * k, device=dev)
+    for i in range(k):
+        ei = (rk == i).to(dtype)
+        ci = (r2k == i).to(dtype)
+        # partial pivot among rows >= i
+        col = torch.einsum("j,...kj->...k", ci, M)
+        cand = torch.where(rk >= i, torch.abs(col), -1.0)
+        ep = F.one_hot(torch.argmax(cand, dim=-1), k).to(dtype)
+        row_i = torch.einsum("k,...kj->...j", ei, M)
+        row_p = torch.einsum("...k,...kj->...j", ep, M)
+        # swap rows i <-> p
+        M = (M + ei[:, None] * (row_p - row_i)[..., None, :]
+             + ep[..., :, None] * (row_i - row_p)[..., None, :])
+        piv = torch.einsum("j,...j->...", ci, row_p)
+        piv = torch.where(torch.abs(piv) > 1e-300, piv, 1.0)
+        rowi_n = row_p / piv[..., None]
+        M = M + ei[:, None] * (rowi_n - row_p)[..., None, :]
+        f = torch.einsum("j,...kj->...k", ci, M) * (1.0 - ei)
+        M = M - f[..., None] * rowi_n[..., None, :]
+    return M[..., :, k:]
+
+
+def _schur_glue(A, B, C, D, inv):
+    """inv([[A, B], [C, D]]) from inv(A) and inv(S), S = D - C inv(A) B."""
+    Ai = inv(A)
+    AiB = Ai @ B
+    Si = inv(D - C @ AiB)
+    CAi = C @ Ai
+    return torch.cat([torch.cat([Ai + AiB @ (Si @ CAi), -(AiB @ Si)], dim=1),
+                      torch.cat([-(Si @ CAi), Si], dim=1)], dim=0)
+
+
+def blocked_inv(M, max_block: int = 8192):
+    """Dense inverse by recursive 2x2 block (Schur-complement) splits at a
+    128-aligned midpoint, leaves up to ``max_block`` rows inverted by
+    ``torch.linalg.inv_ex`` (no error check, so no host sync; a singular
+    leaf gives non-finite entries). goma_tpu's split points."""
+    n = M.shape[0]
+    if n <= max_block:
+        return torch.linalg.inv_ex(M).inverse
+    k = min(((n + 1) // 2 + 127) // 128 * 128, n - 1)
+    return _schur_glue(M[:k, :k], M[:k, k:], M[k:, :k], M[k:, k:],
+                       lambda X: blocked_inv(X, max_block))
+
+
+def saddle_split_inv(M, k, max_block: int = 8192):
+    """Dense inverse of a saddle-point matrix [[A, B], [C, D]] whose first
+    split is pinned to the elliptic/saddle boundary ``k`` (A elliptic, D
+    the zero-diagonal block): A's principal minors are safe for further
+    unpivoted splits and S = D - C A^-1 B is dense and well conditioned."""
+    n = M.shape[0]
+    if k <= 0 or k >= n:
+        return blocked_inv(M, max_block)
+    return _schur_glue(M[:k, :k], M[:k, k:], M[k:, :k], M[k:, k:],
+                       lambda X: blocked_inv(X, max_block))
 
 
 def lstsq_small(H, b):

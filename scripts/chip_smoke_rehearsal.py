@@ -6,6 +6,7 @@ shapes before a run on the card.
     python3 scripts/chip_smoke_rehearsal.py [--only-viscoelastic]
                                             [--only-two-phase]
                                             [--only-slot-coater]
+                                            [--only-two-level]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -57,6 +58,7 @@ def _fake_cuda():
     torch.cuda.device_count = lambda: 1
     torch.cuda.empty_cache = lambda: None
     torch.cuda.set_sync_debug_mode = lambda mode: None
+    torch.cuda.reset_peak_memory_stats = lambda *a: None
     torch.cuda.mem_get_info = lambda *a: (0, 1)
     torch.cuda.memory_allocated = torch.cuda.memory_reserved = \
         torch.cuda.max_memory_allocated = lambda *a: 0
@@ -82,6 +84,10 @@ VE_LINEAR_4 = [1, 4, 11, 13]
 SC_REF_NEWTON_16 = {
     "gmres_ndlu": {"warm": [8, 7, 7, 6, 6, 7, 7, 6], "timed": [6, 5, 5, 6]},
     "tpu_direct": {"warm": [8, 7, 7, 6, 5, 6, 6, 5], "timed": [6, 5, 5, 5]}}
+# goma_tpu's two-level records of the cut decks (scripts/twolevel_reference.py
+# --n 8, CPU, float32 Jacobian)
+TWOLEVEL_REF_8 = {"cavity": {"newton": 4, "linear": [16, 39, 40, 31]},
+                  "buoyant": {"newton": 6, "linear": [60, 92, 75, 72, 72, 69]}}
 SC_REF_HEIGHTS_16 = [(1.5, 1.0), (1.75, 0.8769404440331855),
                      (2.0, 0.7523322375211594), (2.375, 0.5868910113006314),
                      (2.625, 0.5227634074595855), (2.875, 0.49500209319838806),
@@ -125,6 +131,7 @@ def load_smoke():
     cs.SC_NX, cs.SC_NY = 16, 4
     cs.SC_REF_NEWTON = SC_REF_NEWTON_16
     cs.SC_REF_HEIGHTS = SC_REF_HEIGHTS_16
+    cs.TWOLEVEL_REF = TWOLEVEL_REF_8
     return cs
 
 
@@ -136,6 +143,8 @@ def main() -> int:
                     help="run phases 18-21 only")
     ap.add_argument("--only-slot-coater", action="store_true",
                     help="run phases 22-25 only")
+    ap.add_argument("--only-two-level", action="store_true",
+                    help="run phases 26-29 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -167,6 +176,22 @@ def main() -> int:
         bx = NewtonSolver(bprob, cs.buoyant_opts()).solve(
             np.zeros(bprob.dofmap.n_dof), bprob.base_params()).x
         cs.buoyant_direct_phase(bprob, bx)
+    elif args.only_two_level:
+        from goma_tpu_torch.solvers import NewtonSolver
+
+        dev = torch.device("cpu")
+        cs.small_options_phase()
+        prob = cs.cavity_problem(cs.N_MAIN, dev)
+        x = NewtonSolver(prob, cs.cavity_opts()).solve(
+            np.zeros(prob.dofmap.n_dof), prob.base_params()).x
+        cs.twolevel_phase(prob, "cavity twolevel", "cavity", x,
+                          cs.TWOLEVEL_X_TOL, relative=False)
+        bprob = cs.buoyant_problem(cs.N_BUOY, dev)
+        bx = NewtonSolver(bprob, cs.buoyant_opts()).solve(
+            np.zeros(bprob.dofmap.n_dof), bprob.base_params()).x
+        cs.twolevel_phase(bprob, "buoyant twolevel", "buoyant", bx,
+                          cs.BUOY_TWOLEVEL_X_TOL, relative=True, warm_up=False)
+        cs.bubble_host_direct_phase(dev, cs.bubble_gmres_phase(dev))
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")
