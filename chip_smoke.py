@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Thirteen main paths of the three
+failure and when CUDA is unavailable. Fifteen main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -14,11 +14,13 @@ level-set static bubble's ``gmres_ndlu`` (phase 19) and ``tpu_direct``
 sequential Newton loops (phase 21), the ALE slot coater's ``gmres_ndlu``
 (phase 23) and ``tpu_direct`` (phase 24) rungs on the quality-guarded
 adaptive driver, and the buoyant deck's ``tpu_direct`` rung (phase 25);
-then goma_tpu's other preconditioners and linear solvers, which run no
-hand kernel (their stages are torch ops): every option on the 8x8 cavity
-(phase 26), the two-level preconditioner on the 64x64 cavity (phase 27)
-and the 48x48 buoyant deck (phase 28), and the host ``direct`` rung on the
-48x48 static bubble (phase 29). Every ``gmres`` deck with
+the axisymmetric die deck's ``gmres_ndlu`` (phase 30) and ``tpu_direct``
+(phase 31) rungs; then goma_tpu's other preconditioners and linear
+solvers, which run no hand kernel (their stages are torch ops): every
+option on the 8x8 cavity (phase 26), the two-level preconditioner on the
+64x64 cavity (phase 27) and the 48x48 buoyant deck (phase 28), and the
+host ``direct`` rung on the 48x48 static bubble (phase 29); small axisymmetric, property-model and
+post-processing decks on cuda and cpu (phase 32). Every ``gmres`` deck with
 ``tol_update == 0`` runs the pipelined Newton loop, as in goma_tpu; the
 buoyant, viscoelastic and cavity phases hold goma_tpu's linear iteration
 counts under it. Phases:
@@ -214,7 +216,34 @@ counts under it. Phases:
     (bench.bench_two_phase("direct"): float64 prep, SuperLU on the host),
     phase 19's legs: 2 converged steps a leg with phase 19's Newton count
     +-1 each, the Laplace jump within 8% of 2, the end state within a
-    stated bound of phase 19's; s/iteration printed.
+    stated bound of phase 19's; s/iteration printed;
+30. the axisymmetric die deck (examples/axisym_die_swirl.py::run restated:
+    Momentum, SwirlMomentum, Continuity and Energy in swirling
+    coordinates, 40 local dofs) at 64x32 (35,685 dof) on ``gmres_ndlu``
+    (float32 Jacobian, leaf 192, tol 1e-9): the front LU on its real
+    fronts at x = 0 and at the converged state, random boosted fronts at
+    its 9 level shapes (kernel, twin, ``lu_factor_ex``, bound), the
+    factorization split, the gather exact and timed; one warm-up solve,
+    ``reset_lagged()``, one timed solve; require goma_tpu's Newton count
+    +-1 (``AX_REF_NEWTON``, from scripts/axisym_reference.py), the
+    centre-line u_z within ``AX_UZ_TOL`` and the wall heat flux and the
+    outlet flow rate (``post.sideset_integral``) within ``AX_INT_RTOL`` of
+    goma_tpu's, and front-LU and front-gather launches = levels x
+    factorizations; print s/iteration, the linear counts beside goma_tpu's,
+    asm/slv, the launches by kind and where an iteration's time goes;
+31. its ``tpu_direct`` rung (leaf 192, ``ndlu_refine=1``): the
+    substitution kernel as in phase 8 on the 18 substitutions of one solve
+    (against ``solve_triangular`` by graph replay), the front LU on the
+    real fronts, the gather exact; the same solves, prints and gates as
+    phase 30, substitution launches = 2 x levels x solves, and x within
+    ``AX_PATHS_TOL`` of phase 30's;
+32. on cuda and on cpu, the same Newton count and x within ``AX_X_TOL``:
+    the 12x10 die deck on both rungs, the axisymmetric Oldroyd-B pipe of
+    tests/test_axisym_ve.py (``AxisymHoopStress``), the power-law channel
+    of tests/test_more_physics.py, the axisymmetric linear-elastic
+    dilation of tests/test_axisym.py (each also against its exact
+    solution) and the 8x8 cavity; ``post.stream_function`` of the cavity's
+    cpu velocity on both devices, psi within 1e-9.
 
 The last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
@@ -427,6 +456,36 @@ BUOY_TWOLEVEL_X_TOL = 2.2e-3
 # the static bubble's host direct rung (bench.bench_two_phase("direct")):
 # the end state against phase 19's gmres_ndlu state, max |dx| / (1 + |x|)
 BUBBLE_DIRECT_TOL = 1e-5
+# the axisymmetric die deck (examples/axisym_die_swirl.py::run: Momentum,
+# SwirlMomentum, Continuity and Energy, coord="swirling"; L = 2, R = 1,
+# G = 4, Re = 10, Omega = 0.5), float32 Jacobian, 64x32 QUAD9
+AX_NZ, AX_NR, AX_TOL = 64, 32, 1e-9
+# goma_tpu's record of phases 30/31 (scripts/axisym_reference.py --nz 64
+# --nr 32: float64 state, float32 Jacobian, CPU, jax 0.9.0): Newton and
+# linear iterations, the centre-line u_z (max over the axis nodes), the
+# wall heat flux (heat_flux over "top") and the outlet flow rate
+# (flow_rate over "right"), each per radian
+AX_REF_NEWTON = {"gmres_ndlu": 4, "tpu_direct": 4}
+AX_REF_LINEAR = {"gmres_ndlu": [1, 61, 3, 3], "tpu_direct": [1, 1, 1, 1]}
+AX_REF_UZ = {"gmres_ndlu": 10.291610481451187,
+             "tpu_direct": 10.291610481242259}
+AX_REF_HEAT = {"gmres_ndlu": -4.508528485741448,
+               "tpu_direct": -4.508528485763462}
+AX_REF_FLOW = {"gmres_ndlu": 2.556064207900879,
+               "tpu_direct": 2.556064207868944}
+# |u_z - goma_tpu's|: both stop at ||R||_2 <= 1e-9 after inexact float32
+# steps; goma_tpu's two rungs read 2.1e-10 apart
+AX_UZ_TOL = 1e-6
+# |integral - goma_tpu's| / |goma_tpu's| for the heat flux and the flow
+# rate: goma_tpu's two rungs read 5e-12 and 1.2e-11 apart; a state error of
+# 1e-9 moves either by ~1e-9
+AX_INT_RTOL = 1e-6
+# max |x_tpu_direct - x_gmres| / (1 + |x_gmres|) over the 64x32 die
+AX_PATHS_TOL = 1e-6
+# max |x_cuda - x_cpu| / (1 + |x_cpu|) on phase 32's small decks: each
+# stops at ||R||_2 <= 1e-9 (the 12x10 die's float32 steps, the others'
+# float64 host direct solves), x of order 10
+AX_X_TOL = 1e-7
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -2539,6 +2598,357 @@ def bubble_host_direct_phase(dev, ref):
                            f"gmres_ndlu's (limit {BUBBLE_DIRECT_TOL:.0e})")
 
 
+def die_problem(nz, nr, device):
+    """examples/axisym_die_swirl.py::run's deck restated (the example
+    imports jax): a (z, r) pipe [0, 2] x [0, 1] in swirling coordinates,
+    Momentum, SwirlMomentum and Energy on Q2, Continuity on Q1 (40 local
+    dofs), the body force G e_z, a rotating hot wall, a cold inlet and its
+    Dirichlet specs in its order (the wall's temperature and the inlet's
+    meet at one corner node: the first spec, the wall's, is kept, with a
+    warning); float32 Jacobian as on the main paths."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import (Continuity, Energy, Momentum,
+                                        SwirlMomentum)
+
+    R, omega = 1.0, 0.5
+    mesh = rectangle_mesh(nz, nr, elem="QUAD9", xlim=(0, 2.0), ylim=(0, R))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(
+        mesh,
+        [Momentum(dim=2, interp="Q2", transient=False),
+         SwirlMomentum(interp="Q2", transient=False),
+         Continuity(interp="Q1"),
+         Energy(interp="Q2", transient=False)],
+        {"rho": 1.0, "mu": 0.1, "k": 1.0, "Cp": 1.0, "body_force": (4.0, 0.0)},
+        coord="swirling", device=device)
+    prob.add_dirichlet("top", "velocity", 0, 0.0)
+    prob.add_dirichlet("top", "swirl", 0, omega * R)
+    prob.add_dirichlet("top", "temperature", 0, 1.0)
+    prob.add_dirichlet("bottom", "velocity", 1, 0.0)
+    prob.add_dirichlet("bottom", "swirl", 0, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("top", "velocity", 1, 0.0)
+    prob.add_dirichlet("left", "temperature", 0, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    prob.jacobian_dtype = torch.float32
+    return prob
+
+
+def die_opts(rung):
+    """Phase 30's (gmres_ndlu) and 31's (tpu_direct) Newton options."""
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    if rung == "gmres_ndlu":
+        return NewtonOptions(max_iter=12, tol_residual=AX_TOL,
+                             linear_solver="gmres", precond="ndlu",
+                             linear_tol=1e-4, gmres_restart=60,
+                             linear_maxiter=240, ndlu_leaf_max=192)
+    return NewtonOptions(max_iter=12, tol_residual=AX_TOL,
+                         linear_solver="tpu_direct", ndlu_leaf_max=192,
+                         ndlu_refine=1)
+
+
+def die_outputs(prob, x):
+    """The centre-line u_z (max over the axis nodes, as the example reports
+    it), and through ``sideset_integral`` the wall heat flux over "top" and
+    the outlet flow rate over "right", each per radian."""
+    from goma_tpu_torch.post import flow_rate, heat_flux, sideset_integral
+
+    uz = prob.get_nodal_field(x, "velocity", 0)
+    axis = np.abs(prob.mesh.coords[:, 1]) < 1e-12
+    params = prob.base_params()
+    return (float(np.nanmax(uz[axis])),
+            float(sideset_integral(prob, "top", heat_flux)(x, params)),
+            float(sideset_integral(prob, "right", flow_rate)(x, params)))
+
+
+def check_die_result(prob, res, rung, label):
+    """Phase 30/31's gates against goma_tpu's record: convergence to
+    AX_TOL in goma_tpu's Newton count +-1, u_z within AX_UZ_TOL, the heat
+    flux and the flow rate within AX_INT_RTOL; the linear counts printed
+    beside goma_tpu's."""
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: the solution has the wrong shape or "
+                           "non-finite values")
+    if not res.converged or res.res_norms[-1][1] > AX_TOL:
+        raise RuntimeError(f"{label} did not converge to {AX_TOL}")
+    if abs(res.iters - AX_REF_NEWTON[rung]) > 1:
+        raise RuntimeError(f"{label} took {res.iters} Newton iterations, not "
+                           f"goma_tpu's {AX_REF_NEWTON[rung]} +- 1")
+    uz, q, f = die_outputs(prob, x)
+    du = abs(uz - AX_REF_UZ[rung])
+    dq = abs(q - AX_REF_HEAT[rung]) / abs(AX_REF_HEAT[rung])
+    df = abs(f - AX_REF_FLOW[rung]) / abs(AX_REF_FLOW[rung])
+    log(f"{label}: linear {res.linear_iters} (goma_tpu "
+        f"{AX_REF_LINEAR[rung]}); centre-line u_z {uz!r} (goma_tpu "
+        f"{AX_REF_UZ[rung]!r}, |diff| {du:.2e}); wall heat flux {q!r} "
+        f"(rel diff {dq:.2e}); outlet flow rate {f!r} (rel diff {df:.2e})")
+    if du > AX_UZ_TOL:
+        raise RuntimeError(f"{label}: u_z {uz!r} is {du:.2e} from goma_tpu's "
+                           f"> {AX_UZ_TOL:.0e}")
+    if dq > AX_INT_RTOL or df > AX_INT_RTOL:
+        raise RuntimeError(f"{label}: heat flux / flow rate {dq:.2e} / "
+                           f"{df:.2e} from goma_tpu's > {AX_INT_RTOL:.0e}")
+
+
+def die_gmres_phase(dev):
+    """Phase 30: the axisymmetric die deck's gmres_ndlu rung at 64x32 and
+    the kernels on its tree. Returns the numbers the kernel summary
+    reads."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    t0 = time.perf_counter()
+    prob = die_problem(AX_NZ, AX_NR, dev)
+    solver = NewtonSolver(prob, die_opts("gmres_ndlu"))
+    nd = solver.precond
+    levels = nd_levels(nd)
+    slots = sum(nn * (m + b) ** 2 for nn, m, b in levels)
+    log(f"die setup: {AX_NZ}x{AX_NR}, {prob.dofmap.n_dof} dof, "
+        f"{prob.pattern.nnz} nnz, {prob.dofmap.blocks[0].n_ldof} local dofs, "
+        f"leaf {solver.opts.ndlu_leaf_max}, {len(levels)} ND levels (nn, s, "
+        f"b) = {levels}, {slots} front slots, "
+        f"{time.perf_counter() - t0:.1f} s")
+    params = prob.base_params()
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+
+    def scaled(x):
+        """The CSR values the main path factors at ``x``."""
+        return solver._scaled_vals(x, params, solver._prepare_fast(x, params)[2])
+
+    vals = scaled(x0)
+    max_abs = check_real_fronts(nd, vals, "die x=0")
+    shapes = [(nn, m) for nn, m, _ in levels]
+    lu_abs, lu_ms = lu_shapes(shapes, "die", time_twin=True)
+    factor_split_ms(nd, vals, "die tree")
+    gather_abs = check_gathers(nd, vals, "die tree")
+    g_times, g_bound = gather_times(nd, vals, "die tree")
+
+    res, _, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof), params,
+                                 "die gmres_ndlu")
+    check_die_result(prob, res, "gmres_ndlu", "die gmres_ndlu")
+    nf = solver.n_factor
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"die front-LU launches {ln['lu']} / front-gather "
+                           f"launches {ln['gather']} != {len(levels)} levels "
+                           f"x {nf} factorizations")
+    xc = torch.as_tensor(res.x, dtype=prob.dtype, device=dev)
+    max_abs = max(max_abs, lu_abs,
+                  check_real_fronts(nd, scaled(xc), "die converged"))
+    where_time_goes(prob, nd, vals, x0, params, "die")
+    return {"prob": prob, "x": res.x, "launches": ln, "max_abs": max_abs,
+            "lu_ms": lu_ms, "lu_bound": lu_bound(shapes),
+            "gather_abs": gather_abs, "g_times": g_times, "g_bound": g_bound}
+
+
+def die_direct_phase(dev, prob, x_gmres):
+    """Phase 31: the die deck's tpu_direct rung at 64x32 and the
+    substitution kernel on its tree. Returns the numbers the kernel summary
+    reads."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    t0 = time.perf_counter()
+    solver = NewtonSolver(prob, die_opts("tpu_direct"))
+    params = prob.base_params()
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+    R, vals, _, scale, _ = solver._prepare(x0, params)
+    nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
+    levels = nd_levels(nd)
+    log(f"die tpu_direct setup: {len(levels)} ND levels (nn, s, b) = "
+        f"{levels}, {time.perf_counter() - t0:.1f} s")
+    max_abs = check_real_fronts(nd, vals, "die tpu_direct x=0")
+    calls = []
+    nd.solve(nd.factor(vals), scale * R, trace=calls)
+    if len(calls) != 2 * len(levels):
+        raise RuntimeError(f"one die solve made {len(calls)} substitutions, "
+                           f"not 2 x {len(levels)} levels")
+    trsv = check_substitutions(calls, "die")
+    step_ns = {}
+    for li in (len(levels) - 2, len(levels) - 1):
+        t = [1e6 * k / m for lv, nn, m, _, k, _ in trsv["levels"] if lv == li]
+        nn, m, _ = levels[li]
+        step_ns[f"({nn}, {m})"] = sum(t) / len(t)
+    log("trsv die: device ns per dependent step (level device time / m, "
+        "both sweeps averaged): " + ", ".join(
+            f"level {k} {v:.1f} ns" for k, v in step_ns.items()))
+    gather_abs = check_gathers(nd, vals, "die tpu_direct tree")
+
+    res, _, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof), params,
+                                 "die tpu_direct")
+    check_die_result(prob, res, "tpu_direct", "die tpu_direct")
+    solves, nf = nd.n_solve, solver._ndlu_nfactor
+    if solves < 1 or ln["trsv"] != 2 * len(levels) * solves:
+        raise RuntimeError(f"die substitution launches {ln['trsv']} != 2 x "
+                           f"{len(levels)} levels x {solves} solves")
+    if nf < 1 or ln["lu"] != len(levels) * nf or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"die tpu_direct front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != "
+                           f"{len(levels)} levels x {nf} factorizations")
+    dx = rel_dx(res.x, x_gmres)
+    log(f"die tpu_direct vs gmres_ndlu: max |x_direct - x_gmres| / "
+        f"(1 + |x_gmres|) = {dx:.3e}")
+    if dx > AX_PATHS_TOL:
+        raise RuntimeError(f"die tpu_direct and gmres_ndlu solutions differ "
+                           f"by {dx:.3e} > {AX_PATHS_TOL:.0e}")
+    factor_split_ms(nd, vals, "die tpu_direct tree")
+    return {"launches": ln, "max_abs": max_abs, "trsv": trsv,
+            "bound": trsv_bound(calls), "step_ns": step_ns,
+            "gather_abs": gather_abs}
+
+
+def axisym_small_decks(device):
+    """Phase 32's decks on ``device``: ({name: (Newton count, x)}, the 8x8
+    cavity's Problem). The 12x10 die on both rungs; the axisymmetric
+    Oldroyd-B pipe of tests/test_axisym_ve.py (3x10, AxisymHoopStress)
+    against its exact viscometric solution; the power-law channel of
+    tests/test_more_physics.py against its analytic profile; the
+    axisymmetric linear-elastic dilation of tests/test_axisym.py (exact
+    d_r = 0.1 r); the 8x8 cavity, whose stream function the phase takes."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.fem.fields import MESH_VAR
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import (AxisymHoopStress, Continuity,
+                                        LinearElasticMesh, Momentum,
+                                        VelocityGradientProjection, VEStress)
+    from goma_tpu_torch.physics.materials import PowerLawViscosity
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+
+    out = {}
+
+    def solve(name, prob, opts, x0=None):
+        x0 = np.zeros(prob.dofmap.n_dof) if x0 is None else x0
+        r = NewtonSolver(prob, opts).solve(x0, prob.base_params())
+        if not r.converged or not np.all(np.isfinite(r.x)):
+            raise RuntimeError(f"{name} on {device} did not converge:\n"
+                               f"{r.summary()}")
+        out[name] = (r.iters, r.x)
+        return r.x
+
+    for rung in ("gmres_ndlu", "tpu_direct"):
+        solve(f"die 12x10 {rung}", die_problem(12, 10, device), die_opts(rung))
+
+    direct = NewtonOptions(max_iter=12, linear_solver="direct")
+    G, mu_s, mu_p, lam = 4.0, 0.5, 0.5, 0.2
+    mesh = rectangle_mesh(3, 10, elem="QUAD9", xlim=(0, 1), ylim=(0, 1.0))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(
+        mesh,
+        [Momentum(dim=2, interp="Q2", transient=False, convection=False,
+                  ve_stress_modes=1, devss_mu=mu_p),
+         Continuity(interp="Q1"),
+         VEStress(0, dim=2, lam=lam, mu_p=mu_p, interp="Q2", transient=False,
+                  supg=0.0),
+         AxisymHoopStress(0, lam=lam, mu_p=mu_p, interp="Q2",
+                          transient=False, supg=0.0),
+         VelocityGradientProjection(dim=2, interp="Q1")],
+        {"rho": 1.0, "mu": mu_s, "body_force": (G, 0.0)},
+        coord="cylindrical", device=device)
+    prof = lambda c: G * (1.0 - c[:, 1] ** 2) / (4 * (mu_s + mu_p))  # noqa: E731
+    for ns in ("top", "left", "right"):
+        prob.add_dirichlet(ns, "velocity", 0, prof)
+    for ns in ("top", "bottom", "left", "right"):
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    x = solve("Oldroyd-B pipe 3x10", prob, direct)
+    uz = prob.get_nodal_field(x, "velocity", 0)
+    stt = prob.get_nodal_field(x, "stress0_tt")
+    ok, okt = ~np.isnan(uz), ~np.isnan(stt)
+    e_u = float(np.abs(uz[ok] - prof(mesh.coords[ok])).max())
+    e_t = float(np.abs(stt[okt]).max())
+    if e_u > 1e-8 or e_t > 1e-8:
+        raise RuntimeError(f"Oldroyd-B pipe on {device}: u_z {e_u:.2e} from "
+                           f"the viscometric profile, S_tt {e_t:.2e} from 0")
+
+    m_c, n_c, Gp, H = 1.0, 0.6, 2.0, 1.0
+    mesh = rectangle_mesh(4, 24, elem="QUAD9", xlim=(0, 0.25), ylim=(0, H))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+
+    def uex(c):
+        r = (n_c / (n_c + 1.0)) * (Gp / m_c) ** (1.0 / n_c)
+        return r * ((H / 2) ** ((n_c + 1) / n_c)
+                    - np.abs(c[:, 1] - H / 2) ** ((n_c + 1) / n_c))
+
+    prob = Problem(mesh, [Momentum(dim=2, transient=False, convection=False),
+                          Continuity()],
+                   {"rho": 1.0, "mu": PowerLawViscosity(m=m_c, n=n_c),
+                    "body_force": np.array([Gp, 0.0])}, device=device)
+    for ns in ("top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "velocity", 0, uex)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    x = solve("power-law channel 4x24", prob,
+              NewtonOptions(max_iter=20, tol_residual=1e-9,
+                            linear_solver="direct"),
+              prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "velocity", 0,
+                                   uex))
+    u = prob.get_nodal_field(x, "velocity", 0)
+    ok = ~np.isnan(u)
+    err = np.abs(u[ok] - uex(mesh.coords[ok])).max() / uex(mesh.coords[ok]).max()
+    if err > 0.01:
+        raise RuntimeError(f"power-law channel on {device}: {err:.2e} from "
+                           "the analytic profile (goma_tpu's bound 0.01)")
+
+    mesh = rectangle_mesh(5, 5, elem="QUAD9", xlim=(0, 1), ylim=(0.5, 1.5))
+    prob = Problem(mesh, [LinearElasticMesh(dim=2, interp="Q2")],
+                   {"mesh_shear_modulus": 1.0, "mesh_lambda": 2.0},
+                   coord="cylindrical", device=device)
+    for ns in ("left", "right", "top", "bottom"):
+        prob.add_dirichlet(ns, MESH_VAR, 0, 0.0)
+        prob.add_dirichlet(ns, MESH_VAR, 1, lambda X: 0.1 * X[:, 1])
+    prob.finalize()
+    x = solve("elastic dilation 5x5", prob,
+              NewtonOptions(max_iter=5, linear_solver="direct"))
+    d = prob.get_nodal_field(x, MESH_VAR, 1)
+    if np.abs(d - 0.1 * mesh.coords[:, 1]).max() > 1e-10:
+        raise RuntimeError(f"elastic dilation on {device}: d_r is not 0.1 r")
+
+    cav = cavity_problem(8, device)
+    solve("cavity 8x8", cav, cavity_opts())
+    return out, cav
+
+
+def axisym_small_phase():
+    """Phase 32: phase 32's decks (``axisym_small_decks``) on cuda and on
+    cpu: the same Newton count and x within AX_X_TOL (the cavity within
+    phase 4's 1e-5: it stops at 1e-6 after inexact float32 steps); then
+    ``post.stream_function`` on each device from the cpu cavity's velocity:
+    psi within 1e-9 of max |psi| and its minimum printed."""
+    from goma_tpu_torch.post import stream_function
+
+    got, cav = {}, {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[d], cav[d] = axisym_small_decks(torch.device(d))
+        log(f"phase 32 decks on {d}: {time.perf_counter() - t0:.1f} s")
+    for name, (it_c, x_c) in got["cuda"].items():
+        it_p, x_p = got["cpu"][name]
+        dx = rel_dx(x_c, x_p)
+        tol = 1e-5 if name == "cavity 8x8" else AX_X_TOL
+        log(f"{name}: Newton cuda {it_c} cpu {it_p}, max |dx| / (1 + |x|) "
+            f"{dx:.2e}")
+        if it_c != it_p or not dx <= tol:
+            raise RuntimeError(f"{name}: cuda and cpu differ (Newton {it_c} / "
+                               f"{it_p}, x {dx:.2e} > {tol:.0e})")
+    x_in = got["cpu"]["cavity 8x8"][1]
+    psi = {d: stream_function(cav[d], x_in) for d in ("cuda", "cpu")}
+    dpsi = float(np.abs(psi["cuda"] - psi["cpu"]).max()
+                 / np.abs(psi["cpu"]).max())
+    log(f"stream function of the 8x8 cavity: min psi cuda "
+        f"{psi['cuda'].min():.6f} cpu {psi['cpu'].min():.6f}, max |dpsi| / "
+        f"max |psi| {dpsi:.2e}")
+    if not np.all(np.isfinite(psi["cuda"])) or not dpsi <= 1e-9:
+        raise RuntimeError(f"stream function: cuda and cpu differ by "
+                           f"{dpsi:.2e} > 1e-9")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -2821,6 +3231,14 @@ def main() -> int:
     # ---- 29. the 48x48 static bubble on the host direct rung
     bubble_host_direct_phase(dev, tp)
 
+    # ---- 30.-31. the axisymmetric die deck's two rungs (64x32)
+    dg = die_gmres_phase(dev)
+    dd = die_direct_phase(dev, dg.pop("prob"), dg["x"])
+    log(f"after the die phases: {mem_line()}")
+
+    # ---- 32. small axisymmetric, property-model and post-processing decks
+    axisym_small_phase()
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -2832,7 +3250,9 @@ def main() -> int:
                 "cavity sequential": pipe["sequential"],
                 "slot coater gmres_ndlu": sc["launches"],
                 "slot coater tpu_direct": sd["launches"],
-                "buoyant tpu_direct": bd_ln}
+                "buoyant tpu_direct": bd_ln,
+                "die gmres_ndlu": dg["launches"],
+                "die tpu_direct": dd["launches"]}
 
     def path_launches(kind):
         return {k: ln[kind] for k, ln in more_paths.items()}
@@ -2845,7 +3265,8 @@ def main() -> int:
         "launches_by_path": {"gmres+ndlu": launches, "tpu_direct": d_lu,
                              "buoyant gmres+ndlu": b_lu, **path_launches("lu")},
         "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"],
-                           tp["max_abs"], sc["max_abs"], sd["max_abs"]),
+                           tp["max_abs"], sc["max_abs"], sd["max_abs"],
+                           dg["max_abs"], dd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -2866,6 +3287,10 @@ def main() -> int:
         "slot_coater_plain_ms": sc["lu_ms"][torch.float32][1],
         "slot_coater_library_ms": sc["lu_ms"][torch.float32][2],
         "slot_coater_bound_ms": sc["lu_bound"][0],
+        "die_ms": dg["lu_ms"][torch.float32][0],
+        "die_plain_ms": dg["lu_ms"][torch.float32][1],
+        "die_library_ms": dg["lu_ms"][torch.float32][2],
+        "die_bound_ms": dg["lu_bound"][0],
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -2875,7 +3300,7 @@ def main() -> int:
         "launches_by_path": {"tpu_direct": d_trsv, **path_launches("trsv")},
         "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
                            vd["trsv"]["max_abs"], td["trsv"]["max_abs"],
-                           sd["trsv"]["max_abs"]),
+                           sd["trsv"]["max_abs"], dd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -2915,6 +3340,13 @@ def main() -> int:
         "slot_coater_library_device_ms":
             sd["trsv"]["device_ms"]["solve_triangular"],
         "slot_coater_step_ns": sd["step_ns"],
+        "die_ms": dd["trsv"]["ms"][torch.float32][0],
+        "die_plain_ms": dd["trsv"]["ms"][torch.float32][1],
+        "die_library_ms": dd["trsv"]["ms"][torch.float32][2],
+        "die_bound_ms": dd["bound"][0],
+        "die_device_ms": dd["trsv"]["device_ms"]["kernel"],
+        "die_library_device_ms": dd["trsv"]["device_ms"]["solve_triangular"],
+        "die_step_ns": dd["step_ns"],
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -2926,7 +3358,8 @@ def main() -> int:
                              "buoyant gmres+ndlu": b_gather,
                              **path_launches("gather")},
         "max_abs_err": max(gather_abs, ve["gather_abs"], tp["gather_abs"],
-                           sc["gather_abs"], sd["gather_abs"]),
+                           sc["gather_abs"], sd["gather_abs"],
+                           dg["gather_abs"], dd["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -2944,6 +3377,10 @@ def main() -> int:
         "slot_coater_plain_ms": sc["g_times"]["plain"][0],
         "slot_coater_library_ms": sc["g_times"]["index_select"][0],
         "slot_coater_bound_ms": sc["g_bound"][0],
+        "die_ms": dg["g_times"]["kernel"][0],
+        "die_plain_ms": dg["g_times"]["plain"][0],
+        "die_library_ms": dg["g_times"]["index_select"][0],
+        "die_bound_ms": dg["g_bound"][0],
     }]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Global residual + Jacobian assembly (counterpart of
 ``goma_tpu/fem/assembly.py``), cut to the slices the BASELINE decks run
 (cavity, buoyant convection, viscoelastic channel, level-set bubble, ALE
-slot coater).
+slot coater) and the axisymmetric die deck.
 
 Two element paths, chosen per block at ``finalize``:
 
@@ -19,6 +19,12 @@ of the face residual over the set's faces, with per-face basis tables
 coordinates under ALE). Their element Jacobians (``faceJ``) enter the CSR
 values, the row sums and the element matvec beside the blocks' (``blockJ``).
 
+Axisymmetric coordinates (``coord="cylindrical"``/``"swirling"``) weight
+volume and face integrals by r; external fields
+(``Problem(external_fields=...)``) are per-node arrays
+``params["ext_<name>"]``, gathered per element and mapped with the element
+dofs, never closed over.
+
 Per-element results are combined into global arrays by GATHERS through
 precomputed transpose-gather maps — ``tg`` for dof-indexed vectors (R, row
 sums, the element matvec) and ``nnztg`` for CSR values, each over the
@@ -31,9 +37,9 @@ constrained rows, identity rows in the CSR values and in the matvec.
 
 Everything else goma_tpu's Problem supports (edge / interface / overset
 kernels, face kernels on bar-endpoint faces, rotated and pointwise
-conditions, point loads, row injection, periodicity, external fields,
-axisymmetric coordinates, shell and Nedelec blocks, the residual-only pass)
-raises ``NotImplementedError`` at ``finalize``: later slices (see ROADMAP).
+conditions, point loads, row injection, periodicity, shell and Nedelec
+blocks, the residual-only pass) raises ``NotImplementedError`` at
+``finalize``: later slices (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -53,8 +59,9 @@ from goma_tpu_torch.elements import (element_type, eval_basis, face_rule,
                                      geom_interp)
 from goma_tpu_torch.elements import faces as elem_faces
 from goma_tpu_torch.fem.equations import Equation, FaceKernel, SurfaceVars
-from goma_tpu_torch.fem.fields import (MESH_VAR, BlockTables, _unpack,
-                                       build_block_tables, eval_fieldvars)
+from goma_tpu_torch.fem.fields import (MESH_VAR, BlockTables, _guard_r,
+                                       _unpack, build_block_tables,
+                                       eval_fieldvars)
 from goma_tpu_torch.fem.sparsity import CSRPattern, build_pattern, nnz_map_for_gather
 from goma_tpu_torch.mesh.mesh import Mesh
 from goma_tpu_torch.utils.la import det_and_inv
@@ -63,17 +70,18 @@ _LATER = "later slice of the port, see ROADMAP"
 
 
 def eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, slots, dim,
-                     dtype) -> SurfaceVars:
+                     dtype, coord: str = "cartesian") -> SurfaceVars:
     """FieldVars at the quadrature points of one face of one element.
 
     ``ftab`` holds the face's basis tables: "Ng"/"dNg" geometric, per
     interpolation "N:<interp>"/"dN:<interp>", and "refjac" (dim, dim-1),
     the face's tangent map in the element's reference coordinates. Under
     ALE the coordinates are displaced (``X_e + d``), so AD sees the normal's
-    and the measure's mesh sensitivities. Cut to this slice: the planar-face
-    branch for dim 2 and 3 in cartesian coordinates; goma_tpu's
-    bar-endpoint ("psign") faces and the axisymmetric r factor are refused
-    at ``Problem.finalize``.
+    and the measure's mesh sensitivities. With an axisymmetric ``coord``
+    ``wdA`` carries the raw r = x[:, 1] (dA = r ds: a face on the axis gets
+    zero area), while ``fv.r`` is the guarded radius, as in goma_tpu. Cut
+    to this slice: the planar-face branch for dim 2 and 3; goma_tpu's
+    bar-endpoint ("psign") faces are refused at ``Problem.finalize``.
     """
     u = _unpack(q_e, slots)
     udot = _unpack(qdot_e, slots)
@@ -99,6 +107,10 @@ def eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, slots, dim,
     fv.x = torch.einsum("qn,nk->qk", ftab["Ng"], Xc)
     fv.detJ = detJ
     fv.h_elem = 2.0 * torch.abs(fv.detJ) ** (1.0 / dim)
+    if coord in ("cylindrical", "swirling"):
+        fv.coord = coord
+        fv.r = _guard_r(fv.x[:, 1])
+        fv.wdA = fv.wdA * fv.x[:, 1]
 
     gphi_cache = {}
     for s in slots:
@@ -225,10 +237,6 @@ class Problem:
         if self._unported:
             raise NotImplementedError(
                 f"{', '.join(sorted(set(self._unported)))}: {_LATER}")
-        if self.external_fields:
-            raise NotImplementedError(f"external fields: {_LATER}")
-        if self.coord != "cartesian":
-            raise NotImplementedError(f"coord={self.coord!r}: {_LATER}")
         mesh = self.mesh
         block_vars = [
             [(eq.var, eq.ncomp, eq.interp) for eq in eqs] for eqs in self.equations
@@ -405,8 +413,10 @@ class Problem:
         for bi, (bd, blk) in enumerate(zip(self.dofmap.blocks, self.mesh.blocks)):
             T[f"g{bi}"] = put(bd.gather.astype(np.int64))
             if bi not in self._fast_meta:
-                # generic block: element node coordinates
+                # generic block: element node coordinates and connectivity
+                # (the external fields' gather)
                 T[f"x{bi}"] = put(self.mesh.coords[blk.conn], dt)
+                T[f"c{bi}"] = put(blk.conn.astype(np.int64))
                 continue
             tabs, static = fastns.build_tables(self, bi)
             self._fast_static[bi] = static
@@ -437,8 +447,10 @@ class Problem:
 
     def base_params(self, **extra) -> dict:
         """Default parameters on the problem's device: steady state,
-        registered Dirichlet values. (goma_tpu also carries its device
-        tables here as ``_tables``; the port keeps them on the Problem.)"""
+        registered Dirichlet values, a per-node ``ext_<name>`` array for
+        each external field (zero unless given in ``extra``, numpy or
+        tensor). (goma_tpu also carries its device tables
+        here as ``_tables``; the port keeps them on the Problem.)"""
         dt, dev = self.dtype, self.device
         p = {
             "ct": torch.zeros((), dtype=dt, device=dev),  # d(qdot)/d(q)
@@ -447,7 +459,12 @@ class Problem:
                                              device=dev),
             "time": torch.zeros((), dtype=dt, device=dev),
         }
-        p.update(extra)
+        for name in self.external_fields:
+            p[f"ext_{name}"] = torch.zeros(self.mesh.n_nodes, dtype=dt,
+                                           device=dev)
+        # external fields may come in as host numpy (per-node arrays)
+        p.update({k: torch.as_tensor(v, dtype=dt, device=dev)
+                  if k.startswith("ext_") else v for k, v in extra.items()})
         return p
 
     def set_nodal_field(self, x, var: str, comp: int, values) -> np.ndarray:
@@ -486,8 +503,9 @@ class Problem:
 
     def _elem_residual_fn(self, bi: int, dtype=None):
         """The generic element residual of block ``bi`` at ``dtype``:
-        ``elem_res(q_e, hist_e, X_e, params) -> (r, r)`` for ONE element
-        (local dofs, history, node coordinates), the residual doubled as
+        ``elem_res(q_e, hist_e, X_e, ext_e, params) -> (r, r)`` for ONE
+        element (local dofs, history, node coordinates, external fields at
+        the nodes), the residual doubled as
         the aux output of ``jacfwd(..., has_aux=True)``. Each equation's
         integrand is contracted with its measure, and ``r`` is built out of
         place in slot order (an in-place add into a fresh tensor does not
@@ -497,10 +515,12 @@ class Problem:
         eqs = self.equations[bi]
         mat = self.materials[bi]
         dtype = dtype or self.dtype
+        ext_names, coord = self.external_fields, self.coord
 
-        def elem_res(q_e, hist_e, X_e, params):
+        def elem_res(q_e, hist_e, X_e, ext_e, params):
             qdot_e = params["ct"] * q_e + hist_e
-            fv = eval_fieldvars(q_e, qdot_e, X_e, tables, bd.slots, dtype)
+            fv = eval_fieldvars(q_e, qdot_e, X_e, tables, bd.slots, dtype,
+                                ext_e, ext_names, coord)
             acc = {}
             for eq in eqs:
                 contrib = eq.residual(fv, mat, params)  # (nq, ncomp, nbf)
@@ -529,7 +549,7 @@ class Problem:
         def face_res(q_e, hist_e, X_e, ftab, params):
             qdot_e = params["ct"] * q_e + hist_e
             sfv = eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, bd.slots,
-                                   dim, dtype)
+                                   dim, dtype, self.coord)
             acc = {}
             for k in fs.kernels:
                 contrib = k.residual(sfv, mat, params)  # (nqf, ncomp, nbf)
@@ -611,24 +631,35 @@ class Problem:
         """Block ``bi``'s element node coordinates at ``dtype``."""
         return T[f"x{bi}"].to(dtype)
 
+    def _ext_gather(self, params, conn):
+        """The external fields at each element's nodes, (ne, n_geom_nodes,
+        n_ext): an empty last axis without external fields."""
+        if self.external_fields:
+            ext = torch.stack([params[f"ext_{n}"]
+                               for n in self.external_fields], dim=-1)
+            return ext[conn]
+        return torch.zeros((conn.shape[0], conn.shape[1], 0),
+                           dtype=self.dtype, device=conn.device)
+
     def _generic_rj(self, bi, T, g, x, hist, params, dtype, mixed):
         """(r (ne, nl), J (ne, nl, nl)) of a generic block: ``vmap`` over
         the elements of ``jacfwd`` of the element residual. ``mixed``:
         (x, hist, params, dtype) of a separate Jacobian pass, or None."""
         from torch.func import jacfwd, vmap
 
-        axes = (0, 0, 0, None)
+        axes = (0, 0, 0, 0, None)
         elem_res = self._elem_residual_fn(bi, dtype)
         Xref = self._coords(T, bi, dtype)
+        ext = self._ext_gather(params, T[f"c{bi}"]).to(dtype)
         if mixed is None:
             J, r = vmap(jacfwd(elem_res, argnums=0, has_aux=True),
-                        in_dims=axes)(x[g], hist[g], Xref, params)
+                        in_dims=axes)(x[g], hist[g], Xref, ext, params)
             return r, J
-        r, _ = vmap(elem_res, in_dims=axes)(x[g], hist[g], Xref, params)
+        r, _ = vmap(elem_res, in_dims=axes)(x[g], hist[g], Xref, ext, params)
         xj, histj, params_j, jdt = mixed
         J, _ = vmap(jacfwd(self._elem_residual_fn(bi, jdt), argnums=0,
                            has_aux=True), in_dims=axes)(
-            xj[g], histj[g], self._coords(T, bi, jdt), params_j)
+            xj[g], histj[g], self._coords(T, bi, jdt), ext.to(jdt), params_j)
         return r, J
 
     def _face_rj(self, j, T, x, hist, params, dtype, mixed):

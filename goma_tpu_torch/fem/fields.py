@@ -14,11 +14,15 @@ reference hand-codes them in ``load_fv_mesh_derivs``); the reference
 configuration (``X0``, ``wdetJ0``, ``gphi0``, ``grad0``) and the
 deformation gradient ``F`` come with it.
 
-Cut to this slice: volume elements with Lagrange interpolations, cartesian
-coordinates, no external fields. The N1 (Nedelec) and H3 (Hermite) tables
-raise ``NotImplementedError`` here; ``Problem.finalize`` refuses
-axisymmetric coordinates, external fields and shell/curve blocks (later
-slices, see ROADMAP).
+Axisymmetric coordinates (``coord="cylindrical"``/``"swirling"``, q =
+[z, r]) multiply ``wdetJ`` (and ``wdetJ0`` under ALE) by the guarded
+radius ``fv.r``; frozen external nodal fields (``ext_e``) are interpolated
+with the geometric basis into ``fv.ext``/``fv.ext_grad``.
+
+Cut to this slice: volume elements with Lagrange interpolations. The N1
+(Nedelec) and H3 (Hermite) tables raise ``NotImplementedError`` here;
+``Problem.finalize`` refuses shell/curve blocks (later slices, see
+ROADMAP).
 """
 
 from __future__ import annotations
@@ -108,9 +112,18 @@ class FieldVars:
 
     Without mesh motion the reference configuration is the current one:
     ``X0``, ``wdetJ0``, ``gphi0`` and ``grad0`` alias their current
-    counterparts and ``F`` stays None, as in goma_tpu. (goma_tpu's
-    axisymmetric, external-field and node-anchored attributes belong to
-    branches this slice does not carry.)
+    counterparts and ``F`` stays None, as in goma_tpu.
+
+    Coordinate system (reference ``load_coordinate_scales``,
+    src/mm_fill_aux.c:127): ``coord`` is "cartesian", "cylindrical" or
+    "swirling"; the last two are axisymmetric with q = [z, r], h3 = r, and
+      r        (nq,)            radial coordinate, 1 where |r| < 1e-30
+    External (frozen) nodal fields (reference External_Field_Variables,
+    include/mm_as_structs.h:1046):
+      ext[name]      (nq,)
+      ext_grad[name] (nq, dim)
+    (goma_tpu's node-anchored ``q_nodal``/``lnodes`` and the Nedelec
+    attributes belong to branches this slice does not carry.)
     """
 
     def __init__(self):
@@ -125,11 +138,15 @@ class FieldVars:
         self.h_elem = None
         self.dim = None
         self.invJ = None
+        self.coord = "cartesian"
+        self.r = None
         self.X0 = None
         self.wdetJ0 = None
         self.gphi0: dict[str, Any] = {}
         self.grad0: dict[str, Any] = {}
         self.F = None
+        self.ext: dict[str, Any] = {}
+        self.ext_grad: dict[str, Any] = {}
 
 
 def _unpack(q_e, slots: list[LocalSlot]):
@@ -137,10 +154,21 @@ def _unpack(q_e, slots: list[LocalSlot]):
             for s in slots}
 
 
+def _guard_r(r):
+    """The radius with the reference's r = 0 kludge
+    (src/mm_fill_aux.c:211-228): 1 where |r| < 1e-30. ``where`` selects on
+    r itself, so no 1/0 reaches the forward derivative of a hoop term."""
+    return torch.where(torch.abs(r) < 1e-30, torch.ones_like(r), r)
+
+
 def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
-                   slots: list[LocalSlot], dtype) -> FieldVars:
+                   slots: list[LocalSlot], dtype, ext_e=None,
+                   ext_names: tuple[str, ...] = (),
+                   coord: str = "cartesian") -> FieldVars:
     """FieldVars of one element: local dofs ``q_e``/``qdot_e`` (n_ldof,),
-    node coordinates ``X_e`` (n_geom_nodes, dim), tables at ``dtype``."""
+    node coordinates ``X_e`` (n_geom_nodes, dim), tables at ``dtype``;
+    ``ext_e`` (n_geom_nodes, len(ext_names)) the element's external nodal
+    fields, ``coord`` the coordinate system."""
     u = _unpack(q_e, slots)
     udot = _unpack(qdot_e, slots)
     tb = tables.on(dtype, q_e.device)
@@ -159,11 +187,20 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
     fv.detJ = detJ
     fv.wdetJ = tb["qwts"] * detJ
     fv.h_elem = 2.0 * torch.abs(detJ) ** (1.0 / tables.dim)
+    axisym = coord in ("cylindrical", "swirling")
+    if axisym:
+        # dV = r dr dz (h3 = r)
+        fv.coord = coord
+        fv.r = _guard_r(fv.x[:, 1])
+        fv.wdetJ = fv.wdetJ * fv.r
     if ale:
         Jmat0 = torch.einsum("qnd,nk->qkd", tb["dNg"], X_e)
         detJ0, invJ0 = det_and_inv(Jmat0)
         fv.X0 = torch.einsum("qn,nk->qk", tb["Ng"], X_e)
         fv.wdetJ0 = tb["qwts"] * detJ0
+        if axisym:
+            # the reference measure carries the undisplaced radius
+            fv.wdetJ0 = fv.wdetJ0 * _guard_r(fv.X0[:, 1])
         # F[k,m] = dx_k/dxi_d dxi_d/dX0_m
         fv.F = torch.einsum("qkd,qdm->qkm", Jmat, invJ0)
     else:
@@ -191,4 +228,12 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
         else:
             fv.gphi0[s.var] = gp
             fv.grad0[s.var] = fv.grad[s.var]
+
+    if ext_names:
+        # frozen external nodal fields, interpolated with the geometric basis
+        gphi_g = torch.einsum("qnd,qdk->qnk", tb["dNg"], invJ)
+        for k, name in enumerate(ext_names):
+            e = ext_e[:, k]  # (n_geom_nodes,)
+            fv.ext[name] = torch.einsum("qn,n->q", tb["Ng"], e)
+            fv.ext_grad[name] = torch.einsum("qnk,n->qk", gphi_g, e)
     return fv

@@ -17,11 +17,13 @@ _KEYS = ("ct", "hist", "dirichlet_val", "time")
 
 def params_from_numpy(params: dict, device=None, dtype=torch.float64) -> dict:
     """A goma_tpu ``Problem.base_params()`` dict (values as numpy arrays or
-    scalars) -> the port's params on ``device``. goma_tpu's device tables
+    scalars) -> the port's params on ``device``: the time-scheme keys and
+    every external field ``ext_<name>``. goma_tpu's device tables
     (``_tables``) are dropped: the port's Problem builds its own."""
     dev = config.resolve_device(device)
+    keys = _KEYS + tuple(k for k in params if k.startswith("ext_"))
     return {k: torch.as_tensor(np.asarray(params[k]), dtype=dtype, device=dev)
-            for k in _KEYS}
+            for k in keys}
 
 
 def state_from_numpy(x, device=None, dtype=torch.float64) -> torch.Tensor:

@@ -1,4 +1,4 @@
-from goma_tpu_torch.physics.fluid import Continuity, Momentum
+from goma_tpu_torch.physics.fluid import Continuity, Momentum, SwirlMomentum
 from goma_tpu_torch.physics.scalar_transport import Energy, Species
 from goma_tpu_torch.physics import materials
 from goma_tpu_torch.physics.mesh_motion import (EllipticMesh, LinearElasticMesh,

@@ -16,12 +16,16 @@ the log- and square-root-conformation modes (``physics/viscoelastic.py``)
 and the DEVSS stabilization 2 mu_d (D(u) - sym G) with G the projected
 velocity gradient.
 
-The Q2/Q1 Galerkin block with constant rho/mu is assembled by the fused
-kernel in ``fem/fastns.py``; every other block (any polymer term included)
-runs ``residual`` through the generic AD path. Cut to this slice: cartesian
-coordinates; the swirl and axisymmetric hoop terms need
-``coord="cylindrical"``/``"swirling"``, which ``Problem.finalize`` refuses
-(later slices, see ROADMAP).
+In axisymmetric coordinates (``coord="cylindrical"``/``"swirling"``, q =
+[z, r]) the momentum r rows gain the hoop stress sigma_tt / r (the polymer
+``stress{m}_tt`` of ``AxisymHoopStress`` included) and, with a swirl field,
+the centrifugal -rho w^2 / r; continuity gains u_r / r; ``SwirlMomentum``
+is the azimuthal momentum of swirling flow.
+
+The Q2/Q1 Galerkin block with constant rho/mu in cartesian coordinates is
+assembled by the fused kernel in ``fem/fastns.py``; every other block (any
+polymer or axisymmetric term included) runs ``residual`` through the
+generic AD path.
 """
 
 from __future__ import annotations
@@ -96,12 +100,19 @@ class Momentum(Equation):
         mu = _as_nq(prop(mat, "mu", fv, params), nq, x)
         phi = fv.phi["velocity"]  # (nq, nbf)
         gphi = fv.gphi["velocity"]  # (nq, nbf, dim)
+        axisym = fv.coord in ("cylindrical", "swirling") and dim == 2
 
         inert = torch.zeros((nq, dim), dtype=x.dtype, device=x.device)
         if self.transient:
             inert = inert + fv.dot["velocity"]
         if self.convection:
             inert = inert + torch.einsum("qk,qak->qa", advective_velocity(fv), gu)
+        if axisym and "swirl" in fv.val and self.convection:
+            # centrifugal -rho w^2 / r in the r-momentum (reference: the
+            # hq[2][1] curvature terms of assemble_momentum in SWIRLING)
+            w = fv.val["swirl"][:, 0]
+            inert = inert - torch.stack([torch.zeros_like(w), w * w / fv.r],
+                                        dim=1)
         f = mat.get("body_force", None)
         if f is not None:
             fval = f(fv, mat, params) if callable(f) else torch.as_tensor(
@@ -129,6 +140,22 @@ class Momentum(Equation):
             Du = 0.5 * (gu + gu.transpose(1, 2))
             sigma = sigma + 2.0 * self.devss_mu * (Du - Dg)
         contrib = contrib + torch.einsum("qak,qik->qai", sigma, gphi)
+
+        if axisym:
+            # hoop stress sigma_tt = -p + 2 mu u_r / r: the theta-theta entry
+            # of grad(v) for v = phi e_r is phi / r, so the weak form gains
+            # int sigma_tt (phi / r) r dOmega on the r rows (reference: the
+            # scale-factor terms of load_coordinate_scales inside
+            # assemble_momentum); the polymer hoop stress of each mode comes
+            # from its AxisymHoopStress companion
+            sig_tt = -p + 2.0 * mu * fv.val["velocity"][:, 1] / fv.r
+            for m in range(self.ve_stress_modes):
+                tt = f"stress{m}_tt"
+                if tt in fv.val:
+                    sig_tt = sig_tt + fv.val[tt][:, 0]
+            hoop = torch.einsum("q,qi->qi", sig_tt / fv.r, phi)
+            contrib = contrib + torch.stack([torch.zeros_like(hoop), hoop],
+                                            dim=1)
 
         if self.supg > 0.0:
             # streamline stabilization with the strong inertial + pressure
@@ -172,6 +199,9 @@ class Continuity(Equation):
         nq = x.shape[0]
         gu = fv.grad["velocity"]
         divu = torch.diagonal(gu, dim1=1, dim2=2).sum(dim=1)  # (nq,)
+        if fv.coord in ("cylindrical", "swirling"):
+            # div u = du_z/dz + (1/r) d(r u_r)/dr = the 2D div + u_r / r
+            divu = divu + fv.val["velocity"][:, 1] / fv.r
         S = mat.get("mass_source", None)
         if S is not None:
             divu = divu - _as_nq(S(fv, mat, params) if callable(S) else S, nq, x)
@@ -191,3 +221,52 @@ class Continuity(Equation):
                 "q,qa,qia->qi", tau / torch.clamp(rho, min=1e-30), rm,
                 fv.gphi["pressure"])[:, None, :]
         return contrib
+
+
+class SwirlMomentum(Equation):
+    """Azimuthal (theta) momentum for axisymmetric SWIRLING flow: scalar
+    swirl velocity w = v_theta(z, r) on a 2D (z, r) mesh.
+
+    Weak form (test function phi e_theta, axisymmetric):
+
+        int rho (wdot + u.grad w + u_r w / r) phi  r dOmega
+      + int [ tau_tz dphi/dz + tau_tr (dphi/dr - phi/r) ]  r dOmega
+
+    with the physical shear stresses tau_tz = mu dw/dz and
+    tau_tr = mu (dw/dr - w/r). Reference: the VELOCITY3 swirl component of
+    assemble_momentum in SWIRLING coordinates (src/mm_fill_momentum.c +
+    the src/mm_fill_aux.c scale factors).
+    """
+
+    def __init__(self, interp: str = "Q2", transient: bool = True,
+                 convection: bool = True):
+        super().__init__("swirl", 1, interp)
+        self.transient = transient
+        self.convection = convection
+
+    def residual(self, fv, mat, params):
+        if fv.coord != "swirling":
+            raise ValueError("SwirlMomentum requires Problem(coord='swirling')")
+        x = fv.x
+        nq = x.shape[0]
+        rho = _as_nq(prop(mat, "rho", fv, params, 1.0), nq, x)
+        mu = _as_nq(prop(mat, "mu", fv, params), nq, x)
+        w = fv.val["swirl"][:, 0]
+        gw = fv.grad["swirl"][:, 0, :]  # (nq, 2): [dw/dz, dw/dr]
+        r = fv.r
+        phi = fv.phi["swirl"]
+        gphi = fv.gphi["swirl"]  # (nq, nbf, 2)
+
+        inert = torch.zeros((nq,), dtype=x.dtype, device=x.device)
+        if self.transient:
+            inert = inert + fv.dot["swirl"][:, 0]
+        if self.convection and "velocity" in fv.val:
+            u = advective_velocity(fv)
+            inert = inert + torch.einsum("qk,qk->q", u, gw) + u[:, 1] * w / r
+        contrib = torch.einsum("q,qi->qi", rho * inert, phi)
+        tau_tz = mu * gw[:, 0]
+        tau_tr = mu * (gw[:, 1] - w / r)
+        contrib = contrib + torch.einsum("q,qi->qi", tau_tz, gphi[:, :, 0])
+        contrib = contrib + torch.einsum("q,qi->qi", tau_tr,
+                                         gphi[:, :, 1] - phi / r[:, None])
+        return contrib[:, None, :]

@@ -12,9 +12,10 @@ the assembler weights it by ``wdetJ0``.
 The mesh-position sensitivities that the reference hand-codes through
 ``load_fv_mesh_derivs`` (src/load_field_variables.c:3754) arrive via AD:
 every other equation's residual depends on x = X0 + d, so ``jacfwd``
-produces the coupled Jacobian blocks. Cut to this slice: cartesian
-coordinates (goma_tpu's axisymmetric hoop terms need ``coord=
-"cylindrical"``, which ``Problem.finalize`` refuses).
+produces the coupled Jacobian blocks. In axisymmetric coordinates the
+pseudo-solid and linear-elastic equations gain their hoop terms, measured
+on the reference configuration (r0 = X0[:, 1], guarded at the axis as
+``fv.r`` is).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from goma_tpu_torch.fem.equations import Equation
-from goma_tpu_torch.fem.fields import MESH_VAR
+from goma_tpu_torch.fem.fields import MESH_VAR, _guard_r
 from goma_tpu_torch.physics.materials import prop
 from goma_tpu_torch.utils.la import det_and_inv
 
@@ -61,9 +62,21 @@ class PseudoSolidMesh(Equation):
         G = prop(mat, "mesh_shear_modulus", fv, params, 1.0)
         lam = prop(mat, "mesh_lambda", fv, params, 1.0)
         J, Finv = det_and_inv(F)
+        axisym = fv.coord in ("cylindrical", "swirling") and F.shape[-1] == 2
+        if axisym:
+            # F_tt = r / r0 = 1 + d_r / r0; J3 = det(F2) F_tt, and P_tt
+            # tests against phi / r0 on the r rows
+            r0 = _guard_r(fv.X0[:, 1])
+            Ftt = 1.0 + fv.val[MESH_VAR][:, 1] / r0
+            J = J * Ftt
         FinvT = Finv.transpose(1, 2)
         P = G * (F - FinvT) + (lam * torch.log(J))[:, None, None] * FinvT
-        return torch.einsum("qak,qik->qai", P, fv.gphi0[MESH_VAR])
+        out = torch.einsum("qak,qik->qai", P, fv.gphi0[MESH_VAR])
+        if axisym:
+            Ptt = G * (Ftt - 1.0 / Ftt) + lam * torch.log(J) / Ftt
+            hoop = torch.einsum("q,qi->qi", Ptt / r0, fv.phi[MESH_VAR])
+            out = out + torch.stack([torch.zeros_like(hoop), hoop], dim=1)
+        return out
 
 
 class LinearElasticMesh(Equation):
@@ -83,6 +96,18 @@ class LinearElasticMesh(Equation):
         eps = 0.5 * (gd + gd.transpose(1, 2))
         tr = torch.diagonal(eps, dim1=1, dim2=2).sum(dim=1)
         dim = eps.shape[-1]
+        axisym = fv.coord in ("cylindrical", "swirling") and dim == 2
+        if axisym:
+            # the hoop strain eps_tt = d_r / r0 enters tr(eps) and adds the
+            # sigma_tt (phi / r0) weak term on the r rows
+            r0 = _guard_r(fv.X0[:, 1])
+            eps_tt = fv.val[MESH_VAR][:, 1] / r0
+            tr = tr + eps_tt
         eye = torch.eye(dim, dtype=gd.dtype, device=gd.device)
         sig = 2.0 * G * eps + lam * tr[:, None, None] * eye[None]
-        return torch.einsum("qak,qik->qai", sig, fv.gphi0[MESH_VAR])
+        out = torch.einsum("qak,qik->qai", sig, fv.gphi0[MESH_VAR])
+        if axisym:
+            sig_tt = 2.0 * G * eps_tt + lam * tr
+            hoop = torch.einsum("q,qi->qi", sig_tt / r0, fv.phi[MESH_VAR])
+            out = out + torch.stack([torch.zeros_like(hoop), hoop], dim=1)
+        return out

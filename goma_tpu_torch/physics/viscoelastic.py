@@ -27,9 +27,10 @@ differentiates it as goma_tpu's ``jax.vmap(jax.jacfwd(...))`` does. The
 trick: each branch of a ``torch.where`` gets a safe input, so neither the
 value nor its forward derivative is NaN at the degenerate point.
 
-Cut to this slice: ``DGStressUpwind`` and ``DGStressInflow`` need interface
-and face kernels, ``AxisymHoopStress`` axisymmetric coordinates; all three
-raise ``NotImplementedError`` at construction (later slices, see ROADMAP).
+``AxisymHoopStress`` carries the hoop (theta-theta) component of
+axisymmetric problems. Cut to this slice: ``DGStressUpwind`` and
+``DGStressInflow`` need interface kernels; both raise
+``NotImplementedError`` at construction (later slices, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -401,14 +402,63 @@ class DGStressInflow:
         raise NotImplementedError(f"DGStressInflow (face kernels): {_LATER}")
 
 
-class AxisymHoopStress:
-    """Hoop (theta-theta) polymer stress of axisymmetric problems: needs
-    ``coord="cylindrical"``, which ``Problem.finalize`` refuses in this
-    slice."""
+class AxisymHoopStress(Equation):
+    """Hoop (theta-theta) viscoelastic stress component S_tt for
+    axisymmetric problems: the reference's s33 polymer-stress slot kept in
+    2D (``include/rf_fem_const.h`` POLYMER_STRESS33*, assembled by
+    ``assemble_stress_fortin`` with the cylindrical grad(e) terms).
+
+    Without swirl the upper-convected derivative of the tt component
+    decouples from the in-plane block, since L_tt = u_r / r:
+
+        lam (S_tt_dot + u.grad S_tt - 2 (u_r/r) S_tt) + S_tt + g(S)
+            = 2 mu_p (u_r/r)
+
+    Pair with ``VEStress`` for the in-plane components and ``Momentum``
+    (axisymmetric), whose hoop term reads ``fv.val["stress{m}_tt"]``. The
+    Giesekus and PTT closures use the full 3D invariants (tt enters S.S
+    and tr S).
+    """
 
     def __init__(self, mode: int, lam: float, mu_p: float,
                  model: str = "oldroyd_b", alpha: float = 0.0,
                  eps_ptt: float = 0.0, interp: str = "Q1",
                  supg: float = 0.5, transient: bool = True):
-        raise NotImplementedError(
-            f"AxisymHoopStress (axisymmetric coordinates): {_LATER}")
+        super().__init__(f"{stress_var(mode)}_tt", 1, interp)
+        self.mode = mode
+        self.lam = lam
+        self.mu_p = mu_p
+        self.model = model
+        self.alpha = alpha
+        self.eps_ptt = eps_ptt
+        self.supg = supg
+        self.transient = transient
+
+    def residual(self, fv, mat, params):
+        if fv.coord not in ("cylindrical", "swirling"):
+            raise ValueError("AxisymHoopStress requires an axisymmetric "
+                             "Problem(coord=...)")
+        var = self.var
+        Stt = fv.val[var][:, 0]
+        u = advective_velocity(fv)
+        Ltt = u[:, 1] / fv.r  # u_r / r
+
+        core = Stt - 2.0 * self.mu_p * Ltt
+        if self.lam > 0:
+            upper = (torch.einsum("qk,qk->q", u, fv.grad[var][:, 0, :])
+                     - 2.0 * Ltt * Stt)
+            if self.transient:
+                upper = upper + fv.dot[var][:, 0]
+            core = core + self.lam * upper
+            if self.model == "giesekus" and self.alpha != 0.0:
+                core = core + (self.alpha * self.lam / self.mu_p) * Stt * Stt
+            elif self.model in ("ptt", "ptt_linear") and self.eps_ptt != 0.0:
+                trS = Stt
+                if stress_var(self.mode) in fv.val:
+                    Sip = _sym_expand(fv.val[stress_var(self.mode)], 2)
+                    trS = trS + torch.diagonal(Sip, dim1=1, dim2=2).sum(dim=1)
+                z = self.eps_ptt * self.lam / self.mu_p * trS
+                fac = torch.exp(z) - 1.0 if self.model == "ptt" else z
+                core = core + fac * Stt
+        w = _supg_weight(fv, var, u, self.supg)
+        return torch.einsum("q,qi->qi", core, w)[:, None, :]

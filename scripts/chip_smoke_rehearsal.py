@@ -7,6 +7,7 @@ shapes before a run on the card.
                                             [--only-two-phase]
                                             [--only-slot-coater]
                                             [--only-two-level]
+                                            [--only-axisym]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -15,11 +16,11 @@ launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
 ``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
 syncs).
 The decks are cut to 8x8 (cavity, buoyant, static bubble), 8x4
-(viscoelastic) and 16x4 (slot coater), the checks that need the full size
+(viscoelastic), 16x4 (slot coater) and 16x8 (axisymmetric die), the checks that need the full size
 (Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump) are
 widened, and the linear iteration counts, the slot coater's accepted steps
-and free-surface heights the script requires are those of the cut decks
-(goma_tpu's at 16x4, CPU). Every time it prints is a CPU time, not a device
+and free-surface heights and the die's record the script requires are those
+of the cut decks (goma_tpu's at 16x4 and 16x8, CPU). Every time it prints is a CPU time, not a device
 number.
 """
 
@@ -94,6 +95,18 @@ SC_REF_HEIGHTS_16 = [(1.5, 1.0), (1.75, 0.8769404440331855),
                      (3.125, 0.4865396035429377), (3.5, 0.48471373107941396),
                      (3.75, 0.4868615787472427), (4.0, 0.49554009287321155)]
 
+# goma_tpu's record of the 16x8 die (scripts/axisym_reference.py --nz 16
+# --nr 8, CPU)
+AX_REF_16 = {
+    "AX_REF_NEWTON": {"gmres_ndlu": 4, "tpu_direct": 4},
+    "AX_REF_LINEAR": {"gmres_ndlu": [1, 61, 3, 3], "tpu_direct": [1, 1, 1, 1]},
+    "AX_REF_UZ": {"gmres_ndlu": 10.29112337678157,
+                  "tpu_direct": 10.291123377755389},
+    "AX_REF_HEAT": {"gmres_ndlu": -3.647123003207391,
+                    "tpu_direct": -3.6471230032569126},
+    "AX_REF_FLOW": {"gmres_ndlu": 2.556044900422992,
+                    "tpu_direct": 2.5560449005584793}}
+
 
 def _counted(plain):
     """``plain`` with a launch counter, as the kernel wrappers carry."""
@@ -132,6 +145,9 @@ def load_smoke():
     cs.SC_REF_NEWTON = SC_REF_NEWTON_16
     cs.SC_REF_HEIGHTS = SC_REF_HEIGHTS_16
     cs.TWOLEVEL_REF = TWOLEVEL_REF_8
+    cs.AX_NZ, cs.AX_NR = 16, 8
+    for k, v in AX_REF_16.items():
+        setattr(cs, k, v)
     return cs
 
 
@@ -145,6 +161,8 @@ def main() -> int:
                     help="run phases 22-25 only")
     ap.add_argument("--only-two-level", action="store_true",
                     help="run phases 26-29 only")
+    ap.add_argument("--only-axisym", action="store_true",
+                    help="run phases 30-32 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -192,6 +210,11 @@ def main() -> int:
         cs.twolevel_phase(bprob, "buoyant twolevel", "buoyant", bx,
                           cs.BUOY_TWOLEVEL_X_TOL, relative=True, warm_up=False)
         cs.bubble_host_direct_phase(dev, cs.bubble_gmres_phase(dev))
+    elif args.only_axisym:
+        dev = torch.device("cpu")
+        dg = cs.die_gmres_phase(dev)
+        cs.die_direct_phase(dev, dg.pop("prob"), dg["x"])
+        cs.axisym_small_phase()
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

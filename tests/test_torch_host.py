@@ -351,19 +351,22 @@ def test_newton_options_outside_slice_raise(kw):
         NewtonOptions(**kw)
 
 
-@pytest.mark.parametrize("feature", ["point_load", "periodic", "coord",
+@pytest.mark.parametrize("feature", ["point_load", "periodic", "edge",
                                      "interface"])
 def test_problem_outside_slice_raises(feature):
+    """Problem features outside the port's slices refuse at ``finalize``
+    (axisymmetric coordinates, refused before, are held against goma_tpu
+    in tests/test_torch_axisym.py)."""
     mesh_m, fem, phys = TORCH_PKG
     mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
     eqs = [phys.Momentum(dim=2), phys.Continuity()]
-    prob = fem.Problem(mesh, eqs, {"rho": 1.0, "mu": 1.0},
-                       coord="cylindrical" if feature == "coord" else "cartesian",
-                       device="cpu")
+    prob = fem.Problem(mesh, eqs, {"rho": 1.0, "mu": 1.0}, device="cpu")
     if feature == "point_load":
         prob.add_point_load("top", "velocity", lambda q, X, p: q)
     if feature == "periodic":
         prob.add_periodic("left", "right")
+    if feature == "edge":
+        prob.add_edge_kernel("left", "top", object())
     if feature == "interface":
         prob.add_interface_kernel(np.zeros((1, 2), dtype=np.int64), object())
     with pytest.raises(NotImplementedError):
@@ -385,15 +388,27 @@ def test_slot_coater_rotation_still_raises():
 @pytest.mark.parametrize("name,args", [
     ("DGStressUpwind", (0, 1.0)),
     ("DGStressInflow", (0, 1.0, [0.0, 0.0, 0.0])),
-    ("AxisymHoopStress", (0, 1.0, 1.0)),
 ])
 def test_viscoelastic_pieces_outside_slice_raise(name, args):
-    """The discontinuous-stress face/interface kernels and the axisymmetric
-    hoop stress exist under goma_tpu's names and refuse construction."""
+    """The discontinuous-stress face/interface kernels exist under
+    goma_tpu's names and refuse construction (the axisymmetric hoop stress,
+    refused before, is held against goma_tpu in
+    tests/test_torch_axisym.py)."""
     cls = getattr(goma_tpu_torch.physics, name)
     assert getattr(goma_tpu.physics, name).__name__ == name
     with pytest.raises(NotImplementedError, match="later slice"):
         cls(*args)
+
+
+def test_flux_sensitivity_outside_slice_raises():
+    """goma_tpu's ``flux_sensitivity`` waits for continuation: the port's
+    exists under its name and refuses a call."""
+    import goma_tpu.post.postproc as jpost
+    from goma_tpu_torch.post import postproc
+
+    assert jpost.flux_sensitivity.__name__ == postproc.flux_sensitivity.__name__
+    with pytest.raises(NotImplementedError, match="later slice"):
+        postproc.flux_sensitivity(None, None, None, {}, "mu")
 
 
 @pytest.mark.parametrize("name", [
