@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Fifteen main paths of the three
+failure and when CUDA is unavailable. Nineteen main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -15,12 +15,16 @@ sequential Newton loops (phase 21), the ALE slot coater's ``gmres_ndlu``
 (phase 23) and ``tpu_direct`` (phase 24) rungs on the quality-guarded
 adaptive driver, and the buoyant deck's ``tpu_direct`` rung (phase 25);
 the axisymmetric die deck's ``gmres_ndlu`` (phase 30) and ``tpu_direct``
-(phase 31) rungs; then goma_tpu's other preconditioners and linear
+(phase 31) rungs; the tilted cavity's (phases 33-34) and the periodic
+channel's (phases 36-37) two rungs; then goma_tpu's other preconditioners and linear
 solvers, which run no hand kernel (their stages are torch ops): every
 option on the 8x8 cavity (phase 26), the two-level preconditioner on the
 64x64 cavity (phase 27) and the 48x48 buoyant deck (phase 28), and the
 host ``direct`` rung on the 48x48 static bubble (phase 29); small axisymmetric, property-model and
-post-processing decks on cuda and cpu (phase 32). Every ``gmres`` deck with
+post-processing decks on cuda and cpu (phase 32); ``Problem.residual``
+against ``Problem.assemble`` and the numerical-Jacobian check on the card
+(phase 35); small decks of the strong conditions on cuda and cpu (phase
+38). Every ``gmres`` deck with
 ``tol_update == 0`` runs the pipelined Newton loop, as in goma_tpu; the
 buoyant, viscoelastic and cavity phases hold goma_tpu's linear iteration
 counts under it. Phases:
@@ -243,7 +247,52 @@ counts under it. Phases:
     of tests/test_more_physics.py, the axisymmetric linear-elastic
     dilation of tests/test_axisym.py (each also against its exact
     solution) and the 8x8 cavity; ``post.stream_function`` of the cavity's
-    cpu velocity on both devices, psi within 1e-9.
+    cpu velocity on both devices, psi within 1e-9;
+33. the 64x64 cavity tilted by 30 degrees (tests/test_rotation.py's deck:
+    every wall a rotated normal/tangent constraint, the lid's tangent
+    velocity -1; 512 rotated nodes, 1,024 constraint rows, the cavity's
+    own pattern and tree) on phase 5's ``gmres_ndlu`` options: the front
+    LU on its real fronts at x = 0 and at the converged state, random
+    boosted fronts at its 9 level shapes (kernel, twin, ``lu_factor_ex``,
+    bound), the factorization split, the gather exact and timed; one
+    warm-up solve, ``reset_lagged()``, one timed solve and two more
+    (s/iteration over three calls); require goma_tpu's record
+    (``TILT_REF``, from scripts/rotation_reference.py: Newton +-1, each
+    step's linear iterations within REF_LIN_TOL, x at 24 sampled dofs
+    within REF_X_TOL), front-LU and front-gather launches = levels x
+    factorizations, and phase 5's solution rotated into the tilted frame
+    within TILT_AXIS_TOL (Newton within 1 of phase 5's); print where an
+    iteration's time goes (kernels a prep);
+34. its ``tpu_direct`` rung (phase 10's options): the substitution kernel
+    as in phase 8 on the 18 substitutions of one solve, the front LU on
+    the real fronts, the gather exact, the factorization split; the same
+    solves and gates as phase 33 with substitution launches = 2 x levels
+    x solves, and x within BC_PATHS_TOL of phase 33's;
+35. ``Problem.residual`` (the residual-only pass) against ``assemble``'s R
+    and the vals-free prep's R, float64, at x = 0 and at the converged
+    state of the 64x64 cavity and the tilted cavity: within RESID_RTOL,
+    the three timed; a prep's and a matvec's kernels on each deck (what
+    the rotated rows add); ``utils.numjac`` on a 16x16 tilted cavity on
+    the card: ``ok``;
+36. the 64x32 x-periodic Poiseuille channel (tests/test_periodic.py's
+    deck: body force, convection on, 65 slave nodes sharing their roots'
+    dofs, an 8-level aliased tree) on ``gmres_ndlu``: the level shapes
+    (every separator 1 < s <= 1000) and the kernels on the tree as in
+    phase 33; the same solves; goma_tpu's record (``PER_REF``: Newton
+    +-1 and x; the linear counts printed beside goma_tpu's [240, 2], not
+    gated: the first GMRES solve stagnates in every run and stops where
+    the stagnation test fires), u within PER_U_TOL of G y (1 - y) /
+    (2 mu), v within PER_V_TOL;
+37. its ``tpu_direct`` rung, as phase 34 runs the tilted cavity's, with
+    the profile checks;
+38. on cuda and on cpu, float64, the same Newton count and x within
+    BC_X_TOL: the slip-wall channel, the two mesh-sliding point-constraint
+    decks (the plane also on ``gmres`` + NDLU), a point-load deck (host
+    direct and ``gmres``), a row-injection deck on ``gmres`` (its solver
+    takes the ELL operator, never the element matvec), a
+    parametric-Dirichlet deck, the doubly periodic corner chain, the 3-D
+    HEX27 manufactured Navier-Stokes deck and a transient conduction run
+    with ``variable_stats=True``.
 
 The last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
@@ -486,6 +535,89 @@ AX_PATHS_TOL = 1e-6
 # stops at ||R||_2 <= 1e-9 (the 12x10 die's float32 steps, the others'
 # float64 host direct solves), x of order 10
 AX_X_TOL = 1e-7
+# phases 33-38: rotated conditions, point conditions, row injection,
+# parametric Dirichlet and periodicity. The tilted cavity: the 64x64
+# Re = 100 cavity's mesh rotated by 30 degrees, every wall a rotated
+# constraint (tests/test_rotation.py's deck at 64x64), float32 Jacobian
+TILT_N, TILT_THETA = 64, np.pi / 6
+# the periodic channel: [0, 2] x [0, 1], 64x32 QUAD9, x-periodic, body
+# force G = 2, mu 0.5, rho 1, convection on (tests/test_periodic.py's
+# Poiseuille deck at 64x32), float32 Jacobian
+PER_NX, PER_NY, PER_G, PER_MU = 64, 32, 2.0, 0.5
+# goma_tpu's record of phases 33-34 and 36-37 (scripts/rotation_reference.py
+# --deck tilted --n 64 / --deck periodic --n 32: float64 state, float32
+# Jacobian, bench._cavity_opts' options, CPU, jax 0.9.0): Newton and linear
+# iterations, x at 24 evenly spaced dofs
+REF_SAMPLES = 24
+TILT_REF = {
+    "gmres_ndlu": {"newton": 4, "linear": [1, 12, 12, 10], "x_samples": [
+        0.0, -0.01374232886109894, 0.0007563980568079387, -0.03149763359760982,
+        -0.03255463481036713, 0.01271526843720494, -0.10782967449631542,
+        -0.09415838667700882, -0.01171185589464585, -0.05963329243240878,
+        -0.08494397353933891, -0.09702294047019677, -0.18432500006747432,
+        0.055750828512827866, -0.1683876026559119, -0.15485236219228682,
+        0.04220053876633756, 0.16967524879873963, 0.06623744600074133,
+        0.16386254519602517, -0.05116800901305396, -0.05717987874231767,
+        0.3632431227961206, 9.001291368054808]},
+    "tpu_direct": {"newton": 4, "linear": [1, 1, 1, 1], "x_samples": [
+        0.0, -0.013742255846021902, 0.0007563128795268472, -0.03149742319907261,
+        -0.032554388854155465, 0.01271512422819531, -0.10782893869925642,
+        -0.09415770211722586, -0.011711807323921646, -0.05963287573428631,
+        -0.08494350374382598, -0.09702272157279387, -0.18432420646940612,
+        0.0557504947789364, -0.16838808810527084, -0.15485209434514732,
+        0.04219945399946276, 0.16967395200724436, 0.06627884957906749,
+        0.16386120380393826, -0.051127072859950905, -0.05717999303618027,
+        0.36324272457506523, 9.001331503363462]}}
+PER_REF = {
+    "gmres_ndlu": {"newton": 2, "linear": [240, 2], "x_samples": [
+        0.0, 3.033229223348144e-11, 0.1440429688549898,
+        1.3326229009180679e-11, -2.0468782224725146e-10,
+        -3.7988456824677996e-10, 0.3750000007927383, 0.417480469760676,
+        -8.072902346611954e-10, 3.629878619904048e-10, 0.4921875002600018,
+        1.2305179097893415e-09, 1.8429773263051175e-09, 0.4921874995966391,
+        -1.1689564871630864e-09, 2.584420144557953e-08, 0.4174804686324478,
+        0.37500000053921667, 2.3099921975244797e-10, -2.156106404527236e-10,
+        2.0954757928848267e-08, 0.14404296900269742, 9.36140054363932e-12,
+        0.0]},
+    "tpu_direct": {"newton": 2, "linear": [1, 1], "x_samples": [
+        0.0, 3.787264973516987e-11, 0.14404296874835695,
+        -1.6230971154447626e-11, 2.2179429710705745e-13,
+        -1.578634088897497e-11, 0.37499999996430844, 0.4174804685856642,
+        5.817817968099e-11, -7.506672084990006e-11, 0.49218749995734984,
+        7.824200431532862e-11, -5.478927210108738e-11, 0.49218749996207706,
+        3.0750064364526665e-11, 7.381809066136016e-09, 0.41748046878299816,
+        0.37499999998544586, -2.192817115433276e-10, -1.3947896316191768e-11,
+        7.226659439482988e-09, 0.14404296878821574, 8.722103099789236e-12,
+        0.0]}}
+# GMRES iterations a Newton step: within this many of goma_tpu's (the die
+# read one more on one step on the card, PR 10)
+REF_LIN_TOL = 2
+# x at the sampled dofs against goma_tpu's, max |dx| / (1 + |x|): both stop
+# at ||R||_2 <= 1e-6 after inexact float32 steps; goma_tpu's own two rungs
+# read 4.1e-5 apart on the tilted deck (the pressure)
+REF_X_TOL = 1e-4
+# the tilted solution against phase 5's axis-aligned one rotated into the
+# tilted frame, max |dx| / (1 + |x|) over velocity and pressure: the two
+# decks stop at ||R||_2 <= 1e-6 after inexact float32 steps on different
+# rounding paths (H100 reading: velocity 1.15e-5, pressure 5.41e-5;
+# goma_tpu's own two rungs read 4.1e-5 apart in the pressure)
+TILT_AXIS_TOL = 2e-4
+# a deck's tpu_direct solution against its gmres_ndlu one, max |dx| /
+# (1 + |x|), on the tilted cavity and the periodic channel: both stop at
+# ||R||_2 <= 1e-6, gmres_ndlu after inexact float32 steps (H100 reading on
+# the tilted cavity 5.7e-5; goma_tpu's own two rungs 4.1e-5)
+BC_PATHS_TOL = 2e-4
+# the periodic channel against u = G y (1 - y) / (2 mu) and v = 0, max
+# abs over the nodes: u is O(0.5); the float32-Jacobian path stops at
+# ||R||_2 <= 1e-6
+PER_U_TOL, PER_V_TOL = 1e-5, 1e-5
+# Problem.residual against assemble's R and the vals-free prep's R on the
+# card, float64: max |diff| / max |R| (the same operations; readings 0 on
+# the CPU)
+RESID_RTOL = 1e-12
+# phase 38's small decks, cuda against cpu, max |dx| / (1 + |x|): float64
+# Jacobians, host direct or GMRES to 1e-12
+BC_X_TOL = 1e-11
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -2949,6 +3081,647 @@ def axisym_small_phase():
                            f"{dpsi:.2e} > 1e-9")
 
 
+def tilted_problem(n, device, theta=TILT_THETA, jacobian_dtype=torch.float32):
+    """tests/test_rotation.py's tilted cavity at n x n: the Re = 100
+    lid-driven cavity's mesh rotated by ``theta``; walls first (rotated
+    normal and tangent constraints of 0 on left, right and bottom), then
+    the lid (normal 0, tangent -1: the frame tangent of the lid is -Rot e_x);
+    pressure pinned at node 0. The lid's end nodes repeat the walls'
+    tangent constraint: the first claim, the wall's, is kept (goma_tpu's
+    warning). Float32 Jacobian as on the main paths."""
+    import warnings
+
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import Continuity, Momentum
+
+    c, s = np.cos(theta), np.sin(theta)
+    mesh = rectangle_mesh(n, n, elem="QUAD9")
+    mesh.coords = mesh.coords @ np.array([[c, -s], [s, c]]).T
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(mesh, [Momentum(dim=2, interp="Q2", transient=False),
+                          Continuity(interp="Q1")],
+                   {"rho": 1.0, "mu": 1.0 / RE}, device=device)
+    for d in ("normal", "tangent"):
+        prob.add_rotated_dirichlet(("left", "right", "bottom"), "velocity", d, 0.0)
+    prob.add_rotated_dirichlet(("top",), "velocity", "normal", 0.0)
+    prob.add_rotated_dirichlet(("top",), "velocity", "tangent", -1.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        prob.finalize()
+    prob.jacobian_dtype = jacobian_dtype
+    return prob
+
+
+def periodic_problem(nx, ny, device):
+    """tests/test_periodic.py's Poiseuille channel at nx x ny: [0, 2] x
+    [0, 1], "right" identified with "left" (translation (2, 0)), no-slip
+    walls at y = 0 and 1, the body force (G, 0) drives it, convection on;
+    pressure pinned at node 0; float32 Jacobian."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import Continuity, Momentum
+
+    mesh = rectangle_mesh(nx, ny, elem="QUAD9", xlim=(0, 2.0), ylim=(0, 1.0))
+    prob = Problem(mesh, [Momentum(dim=2, transient=False), Continuity()],
+                   {"rho": 1.0, "mu": PER_MU, "body_force": [PER_G, 0.0]},
+                   device=device)
+    prob.add_periodic("left", "right", translation=[2.0, 0.0])
+    for ns in ("top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    prob.jacobian_dtype = torch.float32
+    return prob
+
+
+def check_record(prob, res, ref, label, tol, linear=True):
+    """A main path's result against goma_tpu's record ``ref``: converged
+    to ``tol``, finite, goma_tpu's Newton count +-1, each step's linear
+    iterations within REF_LIN_TOL (``linear``; printed beside goma_tpu's
+    either way), x at the record's sampled dofs within REF_X_TOL (max
+    |dx| / (1 + |x|)). Returns that reading."""
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: the solution has the wrong shape or "
+                           "non-finite values")
+    if not res.converged or res.res_norms[-1][1] > tol:
+        raise RuntimeError(f"{label} did not converge to {tol}")
+    samples = np.linspace(0, prob.dofmap.n_dof - 1, REF_SAMPLES).astype(np.int64)
+    dx = rel_dx(x[samples], np.asarray(ref["x_samples"]))
+    lin_ok = (len(res.linear_iters) == len(ref["linear"]) and all(
+        abs(a - b) <= REF_LIN_TOL for a, b in zip(res.linear_iters, ref["linear"])))
+    log(f"{label}: Newton {res.iters} (goma_tpu {ref['newton']}), linear "
+        f"{res.linear_iters} (goma_tpu {ref['linear']}); x at "
+        f"{REF_SAMPLES} sampled dofs {dx:.2e} from goma_tpu's "
+        f"(max |dx| / (1 + |x|))")
+    if abs(res.iters - ref["newton"]) > 1:
+        raise RuntimeError(f"{label} took {res.iters} Newton iterations, not "
+                           f"goma_tpu's {ref['newton']} +- 1")
+    if linear and not lin_ok and len(res.linear_iters) == len(ref["linear"]):
+        raise RuntimeError(f"{label}: linear iterations {res.linear_iters} "
+                           f"not within {REF_LIN_TOL} of goma_tpu's "
+                           f"{ref['linear']}")
+    if dx > REF_X_TOL:
+        raise RuntimeError(f"{label}: x is {dx:.2e} from goma_tpu's at the "
+                           f"sampled dofs > {REF_X_TOL:.0e}")
+    return dx
+
+
+def more_calls(solver, x_init, params, label, n=2):
+    """``n`` further timed solves after ``warm_then_timed``'s, each from
+    ``reset_lagged()`` (the s/iteration spread over three calls). Returns
+    the s/iteration of each."""
+    out = []
+    for _ in range(n):
+        solver.reset_lagged()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver.solve(x_init, params)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        it = max(res.iters, 1)
+        out.append(sec / it)
+        log(f"{label} again: iters={res.iters} lin={res.linear_iters}, asm "
+            f"{res.assembly_time / it * 1000:.1f} ms + slv "
+            f"{res.solve_time / it * 1000:.1f} ms per iteration, "
+            f"{sec / it:.4f} s/iter")
+    return out
+
+
+def gmres_tree_phase(prob, solver, label):
+    """The kernels on a ``gmres_ndlu`` deck's tree, as phases 15 and 30
+    hold them: the front LU on its real fronts at x = 0 and on random
+    boosted fronts at its level shapes (kernel, twin, ``lu_factor_ex``,
+    bound), the factorization split, the gather exact and timed. Returns
+    the numbers the kernel summary reads, and the x = 0 values."""
+    nd = solver.precond
+    levels = nd_levels(nd)
+    params = prob.base_params()
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+    vals = solver._scaled_vals(x0, params,
+                               solver._prepare_fast32(x0, params)[2])
+    max_abs = check_real_fronts(nd, vals, f"{label} x=0")
+    shapes = [(nn, m) for nn, m, _ in levels]
+    lu_abs, lu_ms = lu_shapes(shapes, label, time_twin=True)
+    factor_split_ms(nd, vals, f"{label} tree")
+    gather_abs = check_gathers(nd, vals, f"{label} tree")
+    g_times, g_bound = gather_times(nd, vals, f"{label} tree")
+    return {"max_abs": max(max_abs, lu_abs), "lu_ms": lu_ms,
+            "lu_bound": lu_bound(shapes), "gather_abs": gather_abs,
+            "g_times": g_times, "g_bound": g_bound, "vals": vals}
+
+
+def direct_tree_phase(prob, solver, label):
+    """The kernels on a ``tpu_direct`` deck's tree, as phases 16 and 31
+    hold them: the front LU on its real fronts at x = 0, the substitution
+    kernel on the substitutions of one solve (against ``solve_triangular``
+    by graph replay), the device ns per dependent step at the two top
+    levels, the gather exact. Returns the numbers the summary reads."""
+    params = prob.base_params()
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+    R, vals, _, scale, _ = solver._prepare(x0, params)
+    nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
+    levels = nd_levels(nd)
+    log(f"{label} setup: {len(levels)} ND levels (nn, s, b) = {levels}, "
+        f"{sum(nn * (m + b) ** 2 for nn, m, b in levels)} front slots")
+    max_abs = check_real_fronts(nd, vals, f"{label} x=0")
+    calls = []
+    nd.solve(nd.factor(vals), scale * R, trace=calls)
+    if len(calls) != 2 * len(levels):
+        raise RuntimeError(f"one {label} solve made {len(calls)} "
+                           f"substitutions, not 2 x {len(levels)} levels")
+    trsv = check_substitutions(calls, label)
+    step_ns = {}
+    for li in (len(levels) - 2, len(levels) - 1):
+        t = [1e6 * k / m for lv, nn, m, _, k, _ in trsv["levels"] if lv == li]
+        nn, m, _ = levels[li]
+        step_ns[f"({nn}, {m})"] = sum(t) / len(t)
+    log(f"trsv {label}: device ns per dependent step (level device time / "
+        "m, both sweeps averaged): " + ", ".join(
+            f"level {k} {v:.1f} ns" for k, v in step_ns.items()))
+    gather_abs = check_gathers(nd, vals, f"{label} tree")
+    factor_split_ms(nd, vals, f"{label} tree")
+    return {"nd": nd, "levels": levels, "max_abs": max_abs, "trsv": trsv,
+            "bound": trsv_bound(calls), "step_ns": step_ns,
+            "gather_abs": gather_abs}
+
+
+def check_launches(solver, ln, levels, label, direct=False):
+    """Front-LU and front-gather launches = levels x factorizations (and,
+    ``direct``, substitution launches = 2 x levels x NDLU solves) in the
+    main path's timed solve."""
+    nf = solver._ndlu_nfactor if direct else solver.n_factor
+    if nf < 1 or ln["lu"] != levels * nf or ln["gather"] != levels * nf:
+        raise RuntimeError(f"{label}: front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != {levels} "
+                           f"levels x {nf} factorizations")
+    if direct:
+        solves = solver._ndlu.n_solve
+        if solves < 1 or ln["trsv"] != 2 * levels * solves:
+            raise RuntimeError(f"{label}: substitution launches {ln['trsv']} "
+                               f"!= 2 x {levels} levels x {solves} solves")
+
+
+def tilted_gmres_phase(dev, x_axis, axis_iters):
+    """Phase 33: the 64x64 tilted cavity on ``gmres_ndlu`` (phase 5's
+    options): the kernels on its tree; one warm-up solve,
+    ``reset_lagged()``, one timed solve and two more; goma_tpu's record
+    (``check_record``); the solution against phase 5's axis-aligned
+    ``x_axis`` rotated into the tilted frame (Newton within 1 of its
+    ``axis_iters``, TILT_AXIS_TOL); the front LU on the real fronts at the
+    converged state; where an iteration's time goes."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    t0 = time.perf_counter()
+    prob = tilted_problem(TILT_N, dev)
+    solver = NewtonSolver(prob, cavity_opts())
+    rd = prob._rotation
+    levels = nd_levels(solver.precond)
+    log(f"tilted setup: {TILT_N}x{TILT_N} cavity rotated by "
+        f"{np.degrees(TILT_THETA):.0f} degrees, {prob.dofmap.n_dof} dof, "
+        f"{prob.pattern.nnz} nnz, {rd.dofs.shape[0]} rotated nodes, "
+        f"{rd.con_rows.size} constraint rows, {len(levels)} ND levels (nn, "
+        f"s, b) = {levels}, {sum(nn * (m + b) ** 2 for nn, m, b in levels)} "
+        f"front slots, {time.perf_counter() - t0:.1f} s")
+    tree = gmres_tree_phase(prob, solver, "tilted")
+    params = prob.base_params()
+    x_init = np.zeros(prob.dofmap.n_dof)
+    res, sec, ln = warm_then_timed(solver, x_init, params, "tilted gmres_ndlu")
+    check_launches(solver, ln, len(levels), "tilted gmres_ndlu")
+    check_record(prob, res, TILT_REF["gmres_ndlu"], "tilted gmres_ndlu", 1e-6)
+    s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
+                                                    "tilted gmres_ndlu")
+    log(f"tilted gmres_ndlu: s/iter over three calls {s_iter}")
+    # the axis-aligned solution rotated into the tilted frame: the decks
+    # share the mesh's numbering, so node k of one is node k of the other
+    c, s = np.cos(TILT_THETA), np.sin(TILT_THETA)
+    ua = np.stack([prob.get_nodal_field(x_axis, "velocity", k) for k in (0, 1)])
+    ut = np.stack([prob.get_nodal_field(res.x, "velocity", k) for k in (0, 1)])
+    du = rel_dx(ut, np.array([[c, -s], [s, c]]) @ ua)
+    pa = prob.get_nodal_field(x_axis, "pressure")
+    pt = prob.get_nodal_field(res.x, "pressure")
+    ok = ~np.isnan(pa)
+    dp = rel_dx(pt[ok], pa[ok])
+    log(f"tilted vs the axis-aligned cavity rotated: Newton {res.iters} vs "
+        f"{axis_iters}; velocity {du:.2e}, pressure {dp:.2e} (max |dx| / "
+        "(1 + |x|))")
+    if abs(res.iters - axis_iters) > 1 or max(du, dp) > TILT_AXIS_TOL:
+        raise RuntimeError(f"tilted cavity vs the axis-aligned one rotated: "
+                           f"Newton {res.iters} / {axis_iters}, velocity "
+                           f"{du:.2e}, pressure {dp:.2e} > {TILT_AXIS_TOL:.0e}")
+    xc = torch.as_tensor(res.x, dtype=prob.dtype, device=dev)
+    nd = solver.precond
+    tree["max_abs"] = max(tree["max_abs"], check_real_fronts(
+        nd, solver._scaled_vals(xc, params, solver._prepare_fast32(
+            xc, params)[2]), "tilted converged"))
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+    where_time_goes(prob, nd, tree.pop("vals"), x0, params, "tilted")
+    return {"prob": prob, "x": res.x, "launches": ln, **tree}
+
+
+def tilted_direct_phase(dev, prob, x_gmres):
+    """Phase 34: the tilted cavity on ``tpu_direct`` (phase 10's options):
+    the kernels on its tree (``direct_tree_phase``); one warm-up solve,
+    ``reset_lagged()``, one timed solve and two more; goma_tpu's record;
+    x within BC_PATHS_TOL of phase 33's."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    solver = NewtonSolver(prob, direct_opts())
+    tree = direct_tree_phase(prob, solver, "tilted tpu_direct")
+    params = prob.base_params()
+    x_init = np.zeros(prob.dofmap.n_dof)
+    res, sec, ln = warm_then_timed(solver, x_init, params, "tilted tpu_direct")
+    check_launches(solver, ln, len(tree["levels"]), "tilted tpu_direct",
+                   direct=True)
+    check_record(prob, res, TILT_REF["tpu_direct"], "tilted tpu_direct", 1e-6)
+    s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
+                                                    "tilted tpu_direct")
+    log(f"tilted tpu_direct: s/iter over three calls {s_iter}")
+    dx = rel_dx(res.x, x_gmres)
+    log(f"tilted tpu_direct vs gmres_ndlu: max |dx| / (1 + |x|) {dx:.3e}")
+    if dx > BC_PATHS_TOL:
+        raise RuntimeError(f"tilted tpu_direct and gmres_ndlu solutions "
+                           f"differ by {dx:.3e} > {BC_PATHS_TOL:.0e}")
+    tree.pop("nd")
+    return {"launches": ln, **tree}
+
+
+def residual_phase(decks):
+    """Phase 35: ``Problem.residual`` (the residual-only pass) against
+    ``Problem.assemble``'s R and the vals-free prep's R on the card, in
+    float64, at x = 0 and at each deck's converged state, within RESID_RTOL
+    of max |R|; the three timed by CUDA events; the kernels of a prep and
+    of an element matvec on each deck, and how many more the second deck's
+    rows take. Then
+    ``utils.numjac.numerical_jacobian_check`` on a 16x16 tilted cavity on
+    the card (float64, 20 columns): ``ok``."""
+    from goma_tpu_torch.utils.numjac import numerical_jacobian_check
+
+    kern = {}
+    for label, prob, x in decks:
+        params = prob.base_params()
+        for state, xs in (("x=0", np.zeros(prob.dofmap.n_dof)),
+                          ("converged", x)):
+            xt = torch.as_tensor(xs, dtype=prob.dtype, device="cuda")
+            r = prob.residual(xt, params)
+            R, vals = prob.assemble(xt, params)
+            Rf = prob._assemble_fast(xt, params)[0]
+            sc = max(float(R.abs().max()), 1e-300)
+            e1 = float((r - R).abs().max()) / sc
+            e2 = float((r - Rf).abs().max()) / sc
+            if r.dtype != torch.float64 or vals.shape[0] != prob.pattern.nnz:
+                raise RuntimeError(f"{label}: residual/assemble dtype or shape")
+            log(f"residual vs assemble {label} {state}: max |r - R| / max |R| "
+                f"{e1:.2e}, vs the vals-free prep's R {e2:.2e}")
+            if not (e1 <= RESID_RTOL and e2 <= RESID_RTOL):
+                raise RuntimeError(f"{label} {state}: residual differs from "
+                                   f"assemble's R by {e1:.2e} / the prep's by "
+                                   f"{e2:.2e} > {RESID_RTOL:.0e}")
+        xt = torch.as_tensor(x, dtype=prob.dtype, device="cuda")
+        t = {name: median_ms(fn, 5) for name, fn in (
+            ("residual", lambda: prob.residual(xt, params)),
+            ("assemble", lambda: prob.assemble(xt, params)),
+            ("_assemble_fast", lambda: prob._assemble_fast(xt, params)))}
+        log(f"residual vs assemble {label}: CUDA-event ms " + ", ".join(
+            f"{k} {v:.3f}" for k, v in t.items()))
+        # what the row surgery costs a prep and a Krylov matvec: the
+        # kernels of each (the decks differ in their strong conditions only)
+        _, rs, aux = prob._assemble_fast(xt, params)
+        scale = 1.0 / torch.sqrt(rs)
+        v = torch.ones_like(scale)
+        for name, fn in (("prep", lambda: prob._assemble_fast(xt, params)),
+                         ("matvec", lambda: prob.element_matvec(None, aux,
+                                                                scale, v))):
+            dv, n_k = device_ms(fn, 5, required=False)
+            kern[(label, name)] = n_k
+            log(f"row surgery {label}: one {name} {median_ms(fn, 10):.3f} ms "
+                f"(CUDA events), {dv:.3f} ms device time in {n_k} kernels")
+    (a, _, _), (b, _, _) = decks
+    log("row surgery: the " + b + " deck's rotated and constraint rows add "
+        + ", ".join(f"{kern[(b, k)] - kern[(a, k)]} kernels to a {k}"
+                    for k in ("prep", "matvec")) + f" of the {a} deck's")
+    p16 = tilted_problem(16, torch.device("cuda", 0), jacobian_dtype=None)
+    x16 = 0.1 * np.random.default_rng(16).standard_normal(p16.dofmap.n_dof)
+    chk = numerical_jacobian_check(p16, x16, p16.base_params(), n_columns=20)
+    log(f"numjac 16x16 tilted cavity on the card: {chk.report()}")
+    if not chk.ok:
+        raise RuntimeError("numerical Jacobian check failed on the card")
+
+
+def check_periodic(prob, res, label):
+    """The periodic channel's exact solution: u = G y (1 - y) / (2 mu)
+    within PER_U_TOL, v within PER_V_TOL."""
+    y = prob.mesh.coords[:, 1]
+    u = prob.get_nodal_field(res.x, "velocity", 0)
+    v = prob.get_nodal_field(res.x, "velocity", 1)
+    eu = float(np.nanmax(np.abs(u - PER_G * y * (1 - y) / (2 * PER_MU))))
+    ev = float(np.nanmax(np.abs(v)))
+    log(f"{label}: max |u - u_Poiseuille| {eu:.2e}, max |v| {ev:.2e}")
+    if eu > PER_U_TOL or ev > PER_V_TOL:
+        raise RuntimeError(f"{label}: {eu:.2e} from the Poiseuille profile "
+                           f"(> {PER_U_TOL:.0e}) or |v| {ev:.2e} > "
+                           f"{PER_V_TOL:.0e}")
+
+
+def periodic_gmres_phase(dev):
+    """Phase 36: the 64x32 periodic channel on ``gmres_ndlu`` (phase 5's
+    options): the aliased tree's level shapes (every separator 1 < s <=
+    1000) and the kernels on it (``gmres_tree_phase``); the warm-up,
+    reset, timed solve and two more; goma_tpu's record; the Poiseuille
+    profile."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    t0 = time.perf_counter()
+    prob = periodic_problem(PER_NX, PER_NY, dev)
+    solver = NewtonSolver(prob, cavity_opts())
+    alias = prob.dofmap.node_alias
+    levels = nd_levels(solver.precond)
+    log(f"periodic setup: {PER_NX}x{PER_NY} channel, "
+        f"{int((alias != np.arange(alias.size)).sum())} slave nodes, "
+        f"{prob.dofmap.n_dof} dof, {prob.pattern.nnz} nnz, "
+        f"{prob.dofmap.blocks[0].n_ldof} local dofs, {len(levels)} ND levels "
+        f"(nn, s, b) = {levels} (every separator 1 < s <= 1000), "
+        f"{sum(nn * (m + b) ** 2 for nn, m, b in levels)} front slots, "
+        f"{time.perf_counter() - t0:.1f} s")
+    tree = gmres_tree_phase(prob, solver, "periodic")
+    tree.pop("vals")
+    params = prob.base_params()
+    x_init = np.zeros(prob.dofmap.n_dof)
+    res, sec, ln = warm_then_timed(solver, x_init, params,
+                                   "periodic gmres_ndlu")
+    check_launches(solver, ln, len(levels), "periodic gmres_ndlu")
+    # the first GMRES solve stagnates in every run (goma_tpu's CPU run at
+    # its 240 cap, the port's CPU run 120, the H100 180): where the 0.999
+    # stagnation test fires is rounding's choice, so the linear counts are
+    # printed, not gated; the Newton count and x are
+    check_record(prob, res, PER_REF["gmres_ndlu"], "periodic gmres_ndlu", 1e-6,
+                 linear=False)
+    check_periodic(prob, res, "periodic gmres_ndlu")
+    s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
+                                                    "periodic gmres_ndlu")
+    log(f"periodic gmres_ndlu: s/iter over three calls {s_iter}")
+    return {"prob": prob, "x": res.x, "launches": ln, **tree}
+
+
+def periodic_direct_phase(dev, prob, x_gmres):
+    """Phase 37: the periodic channel on ``tpu_direct`` (phase 10's
+    options), as phase 34 runs the tilted cavity's, with the profile."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    solver = NewtonSolver(prob, direct_opts())
+    tree = direct_tree_phase(prob, solver, "periodic tpu_direct")
+    params = prob.base_params()
+    x_init = np.zeros(prob.dofmap.n_dof)
+    res, sec, ln = warm_then_timed(solver, x_init, params,
+                                   "periodic tpu_direct")
+    check_launches(solver, ln, len(tree["levels"]), "periodic tpu_direct",
+                   direct=True)
+    check_record(prob, res, PER_REF["tpu_direct"], "periodic tpu_direct", 1e-6)
+    check_periodic(prob, res, "periodic tpu_direct")
+    s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
+                                                    "periodic tpu_direct")
+    log(f"periodic tpu_direct: s/iter over three calls {s_iter}")
+    dx = rel_dx(res.x, x_gmres)
+    log(f"periodic tpu_direct vs gmres_ndlu: max |dx| / (1 + |x|) {dx:.3e}")
+    if dx > BC_PATHS_TOL:
+        raise RuntimeError(f"periodic tpu_direct and gmres_ndlu solutions "
+                           f"differ by {dx:.3e} > {BC_PATHS_TOL:.0e}")
+    tree.pop("nd")
+    return {"launches": ln, **tree}
+
+
+def bc_small_decks(device):
+    """Phase 38's decks on ``device``, float64 throughout: {name: (Newton
+    count, x)}. The slip-wall channel (tests/test_rotation.py:71) against
+    its analytic profile; mesh nodes sliding on a plane and on a parabola
+    (tests/test_pointwise.py:16, :48; the plane deck also on ``gmres`` +
+    NDLU through the element matvec's point-constraint rows); a
+    conduction deck with a nonlinear point load (host direct and
+    ``gmres``); a row-injection deck on ``gmres``, whose solver must take
+    the ELL operator and never the element matvec; a parametric-Dirichlet
+    deck (T = lam x on the bottom, lam from params); the doubly periodic
+    corner chain (tests/test_periodic.py:105, the four corners one dof);
+    the 3-D HEX27 manufactured Navier-Stokes deck (tests/test_3d.py:50,
+    ``box_mesh(3, 3, 3)``, its body force by ``torch.func``); a transient
+    conduction run with ``variable_stats=True`` (its tables printed)."""
+    from torch.func import hessian, jacfwd, vmap
+
+    from goma_tpu_torch.bc.pointwise import plane, surface
+    from goma_tpu_torch.fem import Equation, Problem
+    from goma_tpu_torch.mesh import box_mesh, rectangle_mesh
+    from goma_tpu_torch.physics import (Continuity, EllipticMesh, Energy,
+                                        Momentum, Species)
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+    from goma_tpu_torch.solvers.transient import TimeOptions, TransientSolver
+
+    out = {}
+    direct = NewtonOptions(max_iter=10, tol_residual=1e-11,
+                           linear_solver="direct")
+    gmres = lambda pc: NewtonOptions(max_iter=10, tol_residual=1e-11,  # noqa: E731
+                                     linear_solver="gmres", precond=pc,
+                                     linear_tol=1e-12)
+
+    def solve(name, prob, opts, params=None, check=None):
+        solver = NewtonSolver(prob, opts)
+        if check is not None:
+            check(solver)
+        r = solver.solve(np.zeros(prob.dofmap.n_dof),
+                         prob.base_params() if params is None else params)
+        if not r.converged or not np.all(np.isfinite(r.x)):
+            raise RuntimeError(f"{name} on {device} did not converge:\n"
+                               f"{r.summary()}")
+        out[name] = (r.iters, r.x)
+        return r.x
+
+    # the slip-wall channel
+    mesh = rectangle_mesh(4, 6, elem="QUAD9", xlim=(0, 0.5), ylim=(0, 1.0))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(mesh, [Momentum(dim=2, interp="Q2", transient=False,
+                                   convection=False), Continuity(interp="Q1")],
+                   {"rho": 1.0, "mu": 0.5, "body_force": np.array([1.0, 0.0])},
+                   device=device)
+    uex = lambda c: (c[:, 1] - 0.5 * c[:, 1] ** 2) / 0.5  # noqa: E731
+    prob.add_dirichlet("bottom", "velocity", 0, 0.0)
+    prob.add_dirichlet("bottom", "velocity", 1, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "velocity", 0, uex)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_rotated_dirichlet(("top",), "velocity", "normal", 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    x = solve("slip-wall channel", prob, direct)
+    if np.abs(prob.get_nodal_field(x, "velocity", 0) - uex(mesh.coords)).max() > 1e-9:
+        raise RuntimeError(f"slip-wall channel on {device}: not the profile")
+
+    # mesh nodes sliding on a plane / a parabola
+    for shape, g in (("plane", plane([-0.2, 1.0], 0.0)),
+                     ("parabola", surface(lambda x: x[1] - 0.1 * x[0] * (1 - x[0])))):
+        mesh = rectangle_mesh(6, 6, elem="QUAD9")
+        prob = Problem(mesh, [EllipticMesh(2)], {}, device=device)
+        for ns, k in (("top", 0), ("top", 1), ("left", 0), ("right", 0)):
+            prob.add_dirichlet(ns, "mesh_displacement", k, 0.0)
+        prob.add_point_constraint("bottom", "mesh_displacement", 1, g)
+        prob.finalize()
+        solve(f"sliding mesh ({shape})", prob, direct)
+        if shape == "plane":
+            solve("sliding mesh (plane) gmres", prob, gmres("ndlu"))
+
+    # a nonlinear point load on a conduction deck
+    def heat():
+        return Problem(rectangle_mesh(4, 4, elem="QUAD9"),
+                       [Energy(interp="Q2", transient=False, convection=False)],
+                       {"k": 1.0}, device=device)
+
+    prob = heat()
+    prob.add_dirichlet("left", "temperature", 0, 1.0)
+    prob.add_point_load("right", "temperature",
+                        lambda q, X, p: 0.5 * q + 0.2 * q ** 3 - 0.3 * (1.0 + X[1]))
+    prob.finalize()
+    solve("point load", prob, direct)
+    solve("point load gmres", prob, gmres("ndlu"))
+
+    # row injection: the species row of the right wall into the temperature
+    # row, the species row replaced by the tie c - T = 0
+    prob = Problem(rectangle_mesh(4, 4, elem="QUAD9"),
+                   [Energy(interp="Q2", transient=False, convection=False),
+                    Species(n_species=1, interp="Q2", transient=False,
+                            convection=False)],
+                   {"k": 1.0, "diffusivity": 0.5}, device=device)
+    prob.add_dirichlet("left", "temperature", 0, 1.0)
+    prob.add_dirichlet("top", "species", 0, 0.0)
+    prob.add_row_inject("right", "species", "temperature")
+    prob.add_point_constraint("right", ["species", "temperature"], 0,
+                              lambda q, X, p: q[0] - q[1])
+    prob.finalize()
+    calls = []
+
+    def ell_operator(solver):
+        if solver._use_elem_mv or solver._fast_prep or solver._ell is None:
+            raise RuntimeError("row injection: the solver did not take the "
+                               "ELL operator")
+        real = prob.element_matvec
+        prob.element_matvec = lambda *a: calls.append(1) or real(*a)
+
+    solve("row injection gmres", prob, gmres("block_jacobi"), check=ell_operator)
+    if calls:
+        raise RuntimeError("row injection: the element matvec ran")
+
+    # parametric Dirichlet
+    prob = heat()
+    prob.add_dirichlet("left", "temperature", 0, 0.25)
+    prob.add_dirichlet("bottom", "temperature", 0, lambda c, p: p["lam"] * c[:, 0])
+    prob.add_dirichlet("top", "temperature", 0, 0.0)
+    prob.finalize()
+    lam = torch.tensor(1.7, dtype=torch.float64, device=device)
+    x = solve("parametric Dirichlet", prob, direct, prob.base_params(lam=lam))
+    m = prob.mesh
+    bot = np.setdiff1d(m.nodesets["bottom"], m.nodesets["left"])
+    if np.abs(prob.get_nodal_field(x, "temperature")[bot]
+              - 1.7 * m.coords[bot, 0]).max() > 1e-12:
+        raise RuntimeError(f"parametric Dirichlet on {device}: T != lam x")
+
+    # the doubly periodic corner chain
+    class PoissonMMS(Equation):
+        def __init__(self):
+            super().__init__("temperature", 1, "Q1")
+
+        def residual(self, fv, mat, params):
+            gT = fv.grad["temperature"][:, 0, :]
+            f = (2 * np.pi) ** 2 * torch.sin(2 * np.pi * fv.x[:, 0])
+            return (torch.einsum("qk,qik->qi", gT, fv.gphi["temperature"])
+                    - f[:, None] * fv.phi["temperature"])[:, None, :]
+
+    mesh = rectangle_mesh(4, 4, elem="QUAD4")
+    prob = Problem(mesh, [[PoissonMMS()]], [{}], device=device)
+    prob.add_periodic("left", "right")
+    prob.add_periodic("bottom", "top")
+    mesh.nodesets["pin"] = np.array([5], dtype=np.int32)
+    prob.add_dirichlet("pin", "temperature", 0, 0.0)
+    prob.finalize()
+    corners = [np.argmin(np.sum(np.abs(mesh.coords - np.array(c)), axis=1))
+               for c in ((0, 0), (1, 0), (0, 1), (1, 1))]
+    if len({int(prob.dofmap.dof_of_node_svar[c, 0]) for c in corners}) != 1:
+        raise RuntimeError("doubly periodic chain: the corners are not one dof")
+    solve("doubly periodic chain", prob, direct)
+
+    # the 3-D manufactured Navier-Stokes deck
+    def u_exact(x):
+        X, Y, Z = x[0], x[1], x[2]
+        return torch.stack([torch.sin(np.pi * Y) * Z * (1 - Z),
+                            torch.sin(np.pi * Z) * X * (1 - X),
+                            torch.sin(np.pi * X) * Y * (1 - Y)]) * 0.1
+
+    def p_exact(x):
+        return torch.cos(np.pi * x[0]) * x[1] + x[2]
+
+    def f_point(x):
+        lap = torch.stack([torch.trace(hessian(lambda y, a=a: u_exact(y)[a])(x))
+                           for a in range(3)])
+        return jacfwd(u_exact)(x) @ u_exact(x) - 0.7 * lap + jacfwd(p_exact)(x)
+
+    mesh = box_mesh(3, 3, 3, elem="HEX27")
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(mesh, [Momentum(dim=3, interp="Q2", transient=False),
+                          Continuity(interp="Q1")],
+                   {"rho": 1.0, "mu": 0.7,
+                    "body_force": lambda fv, mat, p: vmap(f_point)(fv.x)},
+                   device=device)
+    exact = lambda c: vmap(u_exact)(torch.as_tensor(c)).numpy()  # noqa: E731
+
+    def wall(k):  # a one-argument value: evaluated once, at finalize
+        return lambda c: exact(c)[:, k]
+
+    for ns in ("left", "right", "top", "bottom", "front", "back"):
+        for k in range(3):
+            prob.add_dirichlet(ns, "velocity", k, wall(k))
+    prob.add_dirichlet("pin", "pressure", 0,
+                       float(p_exact(torch.as_tensor(mesh.coords[0]))))
+    prob.finalize()
+    x = solve("3-D manufactured Navier-Stokes", prob, direct)
+    U = np.stack([prob.get_nodal_field(x, "velocity", k) for k in range(3)], 1)
+    if np.abs(U - exact(mesh.coords)).max() > 1.5e-3:
+        raise RuntimeError(f"3-D Navier-Stokes on {device}: velocity error "
+                           "above goma_tpu's 1.5e-3")
+
+    # a transient run with variable_stats
+    mesh = rectangle_mesh(4, 4, elem="QUAD9")
+    prob = Problem(mesh, [Energy(interp="Q2", transient=True, convection=False)],
+                   {"rho": 1.0, "Cp": 1.0, "k": 1.0}, device=device)
+    for ns in ("left", "right", "top", "bottom"):
+        prob.add_dirichlet(ns, "temperature", 0, 0.0)
+    prob.finalize()
+    x0 = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "temperature", 0,
+                              lambda c: np.sin(np.pi * c[:, 0])
+                              * np.sin(np.pi * c[:, 1]))
+    ts = TransientSolver(prob, direct, TimeOptions(
+        dt0=0.01, t_end=0.02, adapt=False, verbose=True, variable_stats=True))
+    r = ts.run(x0, prob.base_params())
+    out["transient variable_stats"] = (sum(s.newton_iters for s in r.steps), r.x)
+    return out
+
+
+def bc_small_phase():
+    """Phase 38: phase 38's decks (``bc_small_decks``) on cuda and on cpu:
+    the same Newton count and x within BC_X_TOL."""
+    got = {}
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        got[d] = bc_small_decks(torch.device(d))
+        log(f"phase 38 decks on {d}: {time.perf_counter() - t0:.1f} s")
+    for name, (it_c, x_c) in got["cuda"].items():
+        it_p, x_p = got["cpu"][name]
+        dx = rel_dx(x_c, x_p)
+        log(f"{name}: Newton cuda {it_c} cpu {it_p}, max |dx| / (1 + |x|) "
+            f"{dx:.2e}")
+        if it_c != it_p or not dx <= BC_X_TOL:
+            raise RuntimeError(f"{name}: cuda and cpu differ (Newton {it_c} / "
+                               f"{it_p}, x {dx:.2e} > {BC_X_TOL:.0e})")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -3239,6 +4012,23 @@ def main() -> int:
     # ---- 32. small axisymmetric, property-model and post-processing decks
     axisym_small_phase()
 
+    # ---- 33.-34. the tilted cavity's two rungs (64x64)
+    tg = tilted_gmres_phase(dev, x, res.iters)
+    tdr = tilted_direct_phase(dev, tg["prob"], tg["x"])
+
+    # ---- 35. residual against assemble on the card, numjac
+    residual_phase([("cavity 64x64", prob, x),
+                    ("tilted 64x64", tg.pop("prob"), tg["x"])])
+    log(f"after the tilted phases: {mem_line()}")
+
+    # ---- 36.-37. the periodic channel's two rungs (64x32)
+    pg = periodic_gmres_phase(dev)
+    pdr = periodic_direct_phase(dev, pg.pop("prob"), pg["x"])
+    log(f"after the periodic phases: {mem_line()}")
+
+    # ---- 38. small decks of this slice's conditions, cuda vs cpu
+    bc_small_phase()
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -3252,7 +4042,32 @@ def main() -> int:
                 "slot coater tpu_direct": sd["launches"],
                 "buoyant tpu_direct": bd_ln,
                 "die gmres_ndlu": dg["launches"],
-                "die tpu_direct": dd["launches"]}
+                "die tpu_direct": dd["launches"],
+                "tilted gmres_ndlu": tg["launches"],
+                "tilted tpu_direct": tdr["launches"],
+                "periodic gmres_ndlu": pg["launches"],
+                "periodic tpu_direct": pdr["launches"]}
+
+    def deck_keys(prefix, rec, kind):
+        """A deck's numbers of one kernel for the summary line."""
+        if kind == "lu":
+            t, b = rec["lu_ms"][torch.float32], rec["lu_bound"]
+            return {f"{prefix}_ms": t[0], f"{prefix}_plain_ms": t[1],
+                    f"{prefix}_library_ms": t[2], f"{prefix}_bound_ms": b[0]}
+        if kind == "gather":
+            t = rec["g_times"]
+            return {f"{prefix}_ms": t["kernel"][0],
+                    f"{prefix}_plain_ms": t["plain"][0],
+                    f"{prefix}_library_ms": t["index_select"][0],
+                    f"{prefix}_bound_ms": rec["g_bound"][0]}
+        t = rec["trsv"]
+        return {f"{prefix}_ms": t["ms"][torch.float32][0],
+                f"{prefix}_plain_ms": t["ms"][torch.float32][1],
+                f"{prefix}_library_ms": t["ms"][torch.float32][2],
+                f"{prefix}_bound_ms": rec["bound"][0],
+                f"{prefix}_device_ms": t["device_ms"]["kernel"],
+                f"{prefix}_library_device_ms": t["device_ms"]["solve_triangular"],
+                f"{prefix}_step_ns": rec["step_ns"]}
 
     def path_launches(kind):
         return {k: ln[kind] for k, ln in more_paths.items()}
@@ -3266,7 +4081,8 @@ def main() -> int:
                              "buoyant gmres+ndlu": b_lu, **path_launches("lu")},
         "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"],
                            tp["max_abs"], sc["max_abs"], sd["max_abs"],
-                           dg["max_abs"], dd["max_abs"]),
+                           dg["max_abs"], dd["max_abs"], tg["max_abs"],
+                           tdr["max_abs"], pg["max_abs"], pdr["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -3291,6 +4107,8 @@ def main() -> int:
         "die_plain_ms": dg["lu_ms"][torch.float32][1],
         "die_library_ms": dg["lu_ms"][torch.float32][2],
         "die_bound_ms": dg["lu_bound"][0],
+        **deck_keys("tilted", tg, "lu"),
+        **deck_keys("periodic", pg, "lu"),
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -3300,7 +4118,8 @@ def main() -> int:
         "launches_by_path": {"tpu_direct": d_trsv, **path_launches("trsv")},
         "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
                            vd["trsv"]["max_abs"], td["trsv"]["max_abs"],
-                           sd["trsv"]["max_abs"], dd["trsv"]["max_abs"]),
+                           sd["trsv"]["max_abs"], dd["trsv"]["max_abs"],
+                           tdr["trsv"]["max_abs"], pdr["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -3347,6 +4166,8 @@ def main() -> int:
         "die_device_ms": dd["trsv"]["device_ms"]["kernel"],
         "die_library_device_ms": dd["trsv"]["device_ms"]["solve_triangular"],
         "die_step_ns": dd["step_ns"],
+        **deck_keys("tilted", tdr, "trsv"),
+        **deck_keys("periodic", pdr, "trsv"),
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -3359,7 +4180,9 @@ def main() -> int:
                              **path_launches("gather")},
         "max_abs_err": max(gather_abs, ve["gather_abs"], tp["gather_abs"],
                            sc["gather_abs"], sd["gather_abs"],
-                           dg["gather_abs"], dd["gather_abs"]),
+                           dg["gather_abs"], dd["gather_abs"],
+                           tg["gather_abs"], tdr["gather_abs"],
+                           pg["gather_abs"], pdr["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -3381,6 +4204,8 @@ def main() -> int:
         "die_plain_ms": dg["g_times"]["plain"][0],
         "die_library_ms": dg["g_times"]["index_select"][0],
         "die_bound_ms": dg["g_bound"][0],
+        **deck_keys("tilted", tg, "gather"),
+        **deck_keys("periodic", pg, "gather"),
     }]}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

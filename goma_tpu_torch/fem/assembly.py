@@ -32,14 +32,26 @@ block parts followed by the face parts, in goma_tpu's order. A gather + sum
 is deterministic on the GPU; a scatter-add would need atomics, whose
 summation order changes from run to run.
 
-Dirichlet conditions are masked row surgery: ``R = x - x_bc`` on
-constrained rows, identity rows in the CSR values and in the matvec.
+Strong conditions are row surgery on the assembled system, in goma_tpu's
+order: row injection (``add_row_inject``: R[to] += s R[from], with the
+pattern widened so the to-row holds the from-row's columns), point loads
+(``add_point_load``: a nodal term added to rows), rotation
+(``add_rotation``/``add_rotated_dirichlet``: the rows of a vector variable
+rotated into normal-tangent frames, a frame row replaced by a constraint
+n.u = g), point constraints (``add_point_constraint``: a row replaced by
+g(q, X0, params) = 0) and Dirichlet (``R = x - x_bc``, identity rows; a
+value may be parametric, f(coords, params), evaluated at assembly). Every
+write is out of place (``index_put``); sums into rows that may repeat go
+through host-built gather plans (``fem.sparsity.add_plan``), never an
+atomic scatter. Periodicity (``add_periodic``) aliases node pairs in the
+dofmap, so the pair shares its dofs and adds no rows.
 
-Everything else goma_tpu's Problem supports (edge / interface / overset
-kernels, face kernels on bar-endpoint faces, rotated and pointwise
-conditions, point loads, row injection, periodicity, shell and Nedelec
-blocks, the residual-only pass) raises ``NotImplementedError`` at
-``finalize``: later slices (see ROADMAP).
+The public entry points are goma_tpu's: ``assemble(x, params) -> (R,
+vals)``, ``residual(x, params) -> R`` (the residual-only pass) and
+``bc_dup_report()``. Everything else goma_tpu's Problem supports (edge /
+interface / overset kernels, face kernels on bar-endpoint faces, shell and
+Nedelec blocks) raises ``NotImplementedError`` at ``finalize``: later
+slices (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -62,7 +74,9 @@ from goma_tpu_torch.fem.equations import Equation, FaceKernel, SurfaceVars
 from goma_tpu_torch.fem.fields import (MESH_VAR, BlockTables, _guard_r,
                                        _unpack, build_block_tables,
                                        eval_fieldvars)
-from goma_tpu_torch.fem.sparsity import CSRPattern, build_pattern, nnz_map_for_gather
+from goma_tpu_torch.fem.sparsity import (CSRPattern, add_at, add_plan,
+                                         build_pattern, nnz_map_for_gather)
+from goma_tpu_torch.fem.sparsity import transpose_gather as _transpose_gather
 from goma_tpu_torch.mesh.mesh import Mesh
 from goma_tpu_torch.utils.la import det_and_inv
 
@@ -152,7 +166,7 @@ class Problem:
                        "mu": 0.01})
         prob.add_dirichlet("top", "velocity", 0, 1.0)
         prob.finalize()
-        R, rs, aux = prob._assemble_fast(x, prob.base_params())
+        R, vals = prob.assemble(x, prob.base_params())
     """
 
     def __init__(
@@ -184,6 +198,13 @@ class Problem:
         self.device = config.resolve_device(device)
         self._dirichlet: list[tuple[str, str, int, Any]] = []
         self._face_sets: list[tuple[str, FaceKernel]] = []
+        self._rot_specs: list = []
+        self._rot_constraints: list = []
+        self._point_specs: list = []
+        self._periodic_specs: list = []
+        self._point_load_specs: list = []
+        self._inject_specs: list = []
+        self._inject = None
         # registrations of features outside this slice; finalize raises
         self._unported: list[str] = []
         # optional lower-precision Jacobian (mixed-precision Newton-Krylov);
@@ -196,8 +217,11 @@ class Problem:
 
     # ------------------------------------------------------------- specs
     def add_dirichlet(self, nodeset: str, var: str, comp: int, value):
-        """Strong Dirichlet on a node set. ``value``: scalar or callable
-        f(coords (n, dim)) -> (n,)."""
+        """Strong Dirichlet on a node set. ``value``: scalar, callable
+        f(coords (n, dim)) -> (n,) evaluated once at ``finalize``, or
+        parametric f(coords, params) evaluated at every assembly on the
+        coordinates as a tensor (reference: update_parameterAC BC path,
+        src/ac_update_parameter.c)."""
         self._dirichlet.append((nodeset, var, comp, value))
 
     def add_face_kernel(self, sideset: str, kernel: FaceKernel):
@@ -211,26 +235,124 @@ class Problem:
     def add_edge_kernel(self, sideset_a, sideset_b, kernel):
         self._unported.append("edge kernels")
 
-    def add_rotation(self, sidesets, var, *args, **kwargs):
-        self._unported.append("rotated conditions")
+    def add_rotation(self, sidesets, var: str):
+        """Rotate the nodal equations of ``var`` into normal-tangent frames
+        on the given sideset(s) (reference: auto-rotation,
+        src/bc/rotate_coordinates.c:707)."""
+        if isinstance(sidesets, str):
+            sidesets = (sidesets,)
+        self._rot_specs.append((tuple(sidesets), var))
 
-    def add_rotated_dirichlet(self, sidesets, var, *args, **kwargs):
-        self._unported.append("rotated conditions")
+    def add_rotated_dirichlet(self, sidesets, var: str, direction: str = "normal",
+                              value=0.0):
+        """Replace the rotated equation in ``direction`` ("normal",
+        "tangent", "tangent2") with the strong constraint q.x = value, where
+        q is the corresponding frame row (e.g. n.u = 0 slip).
+        Implies rotation of var on those sidesets."""
+        if isinstance(sidesets, str):
+            sidesets = (sidesets,)
+        d = {"normal": 0, "tangent": 1, "tangent2": 2}[direction]
+        self._rot_constraints.append((tuple(sidesets), var, d, value))
 
-    def add_point_constraint(self, nodeset, var, replace_comp, g):
-        self._unported.append("point constraints")
+    def add_point_constraint(self, nodeset, var: str, replace_comp: int, g):
+        """Collocated nodal constraint g(q, X0, params)=0 replacing the
+        ``replace_comp`` equation row of ``var`` at each node (reference
+        bc_colloc.c; geometry helpers in goma_tpu_torch.bc.pointwise)."""
+        self._point_specs.append((nodeset, var, replace_comp, g))
 
-    def add_row_inject(self, nodeset, from_var, to_var, *args, **kwargs):
-        self._unported.append("row injection")
+    def add_row_inject(self, nodeset, from_var: str, to_var: str,
+                       from_comp: int = 0, to_comp: int = 0,
+                       sign: float = 1.0):
+        """Add ``sign`` times the assembled residual/Jacobian row of
+        ``from_var`` into the row of ``to_var`` at each node of ``nodeset``
+        — the reference's cross-equation row moves
+        (``src/mm_shell_bc.c:1743 put_lub_flux_in_film``,
+        ``src/bc_colloc.c put_liquid_stress_in_solid``). Injection happens
+        before rotations/point constraints/Dirichlet; the Newton solver
+        then uses the CSR (ELL) operator, not the element matvec."""
+        self._inject_specs.append(
+            (nodeset, from_var, to_var, from_comp, to_comp, sign))
 
     def add_overset(self, bar_block, fluid_block, kernel, *args, **kwargs):
         self._unported.append("overset coupling")
 
-    def add_periodic(self, nodeset_a, nodeset_b, *args, **kwargs):
-        self._unported.append("periodic conditions")
+    def add_periodic(self, nodeset_a: str, nodeset_b: str, translation=None,
+                     tol: float = 1e-8):
+        """PERIODIC_BC (reference ``include/rf_bc_const.h`` PERIODIC_BC):
+        identify every node of ``nodeset_b`` with its image in
+        ``nodeset_a`` under ``x_b = x_a + translation``. The paired nodes
+        SHARE dofs, so periodicity is exact, conservative, and adds no
+        constraint rows or sparsity. ``translation`` (dim,) defaults to the
+        mean offset between the two sets. Pairs are matched by nearest
+        image point; a mismatch beyond ``tol`` (relative to the mesh
+        extent) raises."""
+        self._periodic_specs.append((nodeset_a, nodeset_b, translation, tol))
 
-    def add_point_load(self, nodeset, var, f, source_vars=None):
-        self._unported.append("point loads")
+    def _periodic_alias(self):
+        """Root-node map from the registered periodic identifications
+        (union-find so doubly-periodic corners chain correctly)."""
+        if not self._periodic_specs:
+            return None
+        from scipy.spatial import cKDTree
+
+        mesh = self.mesh
+        root = np.arange(mesh.n_nodes, dtype=np.int64)
+
+        def find(i):
+            while root[i] != i:
+                root[i] = root[root[i]]
+                i = root[i]
+            return i
+
+        scale = float(np.max(np.ptp(mesh.coords, axis=0)))
+        for ns_a, ns_b, tr, tol in self._periodic_specs:
+            a = np.asarray(mesh.nodesets[ns_a], dtype=np.int64)
+            b = np.asarray(mesh.nodesets[ns_b], dtype=np.int64)
+            if a.size != b.size:
+                raise ValueError(
+                    f"periodic sets '{ns_a}' ({a.size}) and '{ns_b}' "
+                    f"({b.size}) differ in size")
+            ca, cb = mesh.coords[a], mesh.coords[b]
+            t = (np.mean(cb, axis=0) - np.mean(ca, axis=0)
+                 if tr is None else np.asarray(tr, dtype=float))
+            d, j = cKDTree(cb).query(ca + t[None, :])
+            if np.max(d) > tol * max(scale, 1.0) or \
+                    len(np.unique(j)) != a.size:
+                raise ValueError(
+                    f"periodic match '{ns_a}'->'{ns_b}' failed: max image "
+                    f"distance {np.max(d):.3e} (tol {tol * max(scale, 1.0):.1e})"
+                    " or non-bijective pairing; pass an explicit translation")
+            for m, s in zip(a, b[j]):
+                rm, rs = find(int(m)), find(int(s))
+                if rm != rs:
+                    root[max(rm, rs)] = min(rm, rs)
+        for i in range(mesh.n_nodes):
+            find(i)
+        return root
+
+    def add_point_load(self, nodeset, var: str, f, source_vars=None):
+        """Additive weak nodal term (reference "special" BCs,
+        ``src/bc_special.c:77``): ``f(q, X0, params) -> (ncomp(var),)`` is
+        ADDED to the residual rows of ``var`` at each node of the set, with
+        its row Jacobian from AD. ``q`` concatenates the components of
+        ``source_vars`` (default ``[var]``) at the node."""
+        self._point_load_specs.append((nodeset, var, source_vars, f))
+
+    def bc_dup_report(self) -> str:
+        """Human-readable table of every BC duplicate/conflict resolution
+        made at finalize — the analog of the reference's ``-bc_dup``
+        diagnostic file (``src/mm_bc_conflict.c`` writes bc_dup.txt listing
+        which condition was kept/discarded at each contested node)."""
+        log = getattr(self, "bc_dup_log", [])
+        if not log:
+            return "bc_dup: no duplicate boundary conditions detected"
+        lines = [f"bc_dup: {len(log)} resolution(s)",
+                 "  row      node   kept -> dropped   [rule]"]
+        for e in log:
+            node = e.get("node", "-")
+            lines.append(f"  {e['row']:<8} {node:<6} {e['kept']} -> "
+                         f"{e['dropped']}   [{e['rule']}]")
+        return "\n".join(lines)
 
     # ------------------------------------------------------------- finalize
     def finalize(self):
@@ -241,7 +363,8 @@ class Problem:
         block_vars = [
             [(eq.var, eq.ncomp, eq.interp) for eq in eqs] for eqs in self.equations
         ]
-        self.dofmap: DofMap = build_dofmap(mesh, block_vars)
+        self.dofmap: DofMap = build_dofmap(
+            mesh, block_vars, node_alias=self._periodic_alias())
         # fused fast-path recognition (fem/fastns.py); every other block
         # takes the generic AD path
         self._fast_meta = {}
@@ -261,7 +384,7 @@ class Problem:
                                self.quad_order)
             for bd, blk in zip(self.dofmap.blocks, mesh.blocks)]
         gathers = [b.gather for b in self.dofmap.blocks]
-        self.pattern: CSRPattern = build_pattern(self.dofmap.n_dof, gathers)
+        self.pattern: CSRPattern = self._build_pattern_with_inject(gathers)
         self._nnz_maps = [nnz_map_for_gather(self.pattern, g) for g in gathers]
 
         # face sets: the registered kernels grouped by side set (in the
@@ -273,11 +396,14 @@ class Problem:
         for name, kernels in bysset.items():
             self.face_sets.extend(self._build_face_set(name, kernels))
 
-        # Dirichlet arrays: duplicate resolution keeps the FIRST spec in the
+        # Dirichlet arrays. Duplicate resolution keeps the FIRST spec in the
         # deck, with a warning when a later spec carries a conflicting value
-        # (the reference's dup rule, src/mm_bc_conflict.c:832-851)
+        # (the reference's dup rule, src/mm_bc_conflict.c:832-851); a
+        # parametric value (f(coords, params)) is a NaN placeholder here,
+        # takes part in the precedence only and is evaluated at assembly
         self.bc_dup_log: list[dict] = []
         dofs, vals = [], []
+        param_specs = []  # (spec slice start, dofs, coords, fn) before dedup
         for nodeset, var, comp, value in self._dirichlet:
             if nodeset.startswith("sideset:"):
                 nodes = mesh.sideset_nodes(nodeset.split(":", 1)[1])
@@ -287,15 +413,15 @@ class Problem:
             ok = d >= 0
             d = d[ok]
             x = mesh.coords[nodes[ok]]
-            if callable(value):
-                if len(inspect.signature(value).parameters) >= 2:
-                    raise NotImplementedError(
-                        f"parametric Dirichlet values: {_LATER}")
-                v = value(x)
+            if callable(value) and len(inspect.signature(value).parameters) >= 2:
+                start = sum(a.shape[0] for a in dofs)
+                param_specs.append((start, d.astype(np.int64), x, value))
+                v = np.full(d.shape, np.nan)
             else:
-                v = np.full(d.shape, float(value))
+                v = value(x) if callable(value) else np.full(d.shape, float(value))
             dofs.append(d)
             vals.append(np.asarray(v, dtype=np.float64))
+        self._param_dirichlet: list[tuple[np.ndarray, np.ndarray, Any]] = []
         if dofs:
             dd = np.concatenate(dofs).astype(np.int64)
             vv = np.concatenate(vals)
@@ -305,6 +431,8 @@ class Problem:
             owner_val = vv[first][np.searchsorted(uniq, dd)]
             conf = (
                 ~keep_mask
+                & np.isfinite(vv)
+                & np.isfinite(owner_val)
                 & (np.abs(vv - owner_val)
                    > 1e-8 * np.maximum(1.0, np.maximum(np.abs(vv), np.abs(owner_val))))
             )
@@ -322,7 +450,12 @@ class Problem:
                     "rule": "first occurrence kept "
                             "(mm_bc_conflict.c:832)"})
             self.dirichlet_dofs = dd[keep_mask]
-            self.dirichlet_vals = vv[keep_mask]
+            self.dirichlet_vals = np.nan_to_num(vv[keep_mask])
+            # parametric specs keep only the entries they own
+            for start, d, x, fn in param_specs:
+                own = keep_mask[start:start + d.shape[0]]
+                if own.any():
+                    self._param_dirichlet.append((d[own], x[own], fn))
         else:
             self.dirichlet_dofs = np.empty(0, dtype=np.int64)
             self.dirichlet_vals = np.empty(0, dtype=np.float64)
@@ -331,6 +464,17 @@ class Problem:
         self._dir_mask = dmask
         self._dir_nnz_keep = (~dmask[self.pattern.rows]).astype(np.float64)
         self._dir_diag_pos = self.pattern.diag[self.dirichlet_dofs]
+
+        # rotated conditions, then collocated point constraints (which
+        # yield to the rotated constraint rows), then additive point loads
+        from goma_tpu_torch.bc.pointwise import (build_point_constraints,
+                                                 build_point_loads)
+        from goma_tpu_torch.bc.rotation import build_rotation
+
+        self._rotation = build_rotation(self, self._rot_specs,
+                                        self._rot_constraints)
+        self._point_sets = build_point_constraints(self, self._point_specs)
+        self._point_loads = build_point_loads(self, self._point_load_specs)
 
         # transpose-gather map: for every dof, the positions of its
         # contributions in the concatenated (blocks..., faces...)
@@ -350,6 +494,59 @@ class Problem:
 
         self._fast_static: dict[int, dict] = {}
         self._build_tables()
+
+    def _build_pattern_with_inject(self, gathers) -> CSRPattern:
+        """The CSR pattern of the blocks' gathers, widened for the row
+        injections (``add_row_inject``) so each to-row holds every column of
+        its from-row plus the mutual (to, from) and (from, to) entries; sets
+        ``_inject`` (rows, CSR positions and signs of each pair) or None.
+        Chained injections (a to-row that is also a from-row) raise."""
+        mesh, dm = self.mesh, self.dofmap
+        inj_pairs: list[tuple[int, int, float]] = []
+        for (nodeset, fvar, tvar, fc, tc, sg) in self._inject_specs:
+            nodes = mesh.nodesets[nodeset] if isinstance(nodeset, str) \
+                else np.asarray(nodeset)
+            for node in np.sort(np.asarray(nodes)):
+                fr = int(dm.dof_of_node_svar[node, dm.svar(fvar, fc)])
+                tr = int(dm.dof_of_node_svar[node, dm.svar(tvar, tc)])
+                if fr < 0 or tr < 0:
+                    continue
+                inj_pairs.append((fr, tr, float(sg)))
+        self._inject = None
+        if not inj_pairs:
+            return build_pattern(dm.n_dof, gathers)
+        if {p[0] for p in inj_pairs} & {p[1] for p in inj_pairs}:
+            raise NotImplementedError(
+                "chained row injections (a to-row is also a from-row) "
+                "are not supported")
+        pat0 = build_pattern(dm.n_dof, gathers)
+        n64 = np.int64(dm.n_dof)
+        keys = []
+        for fr, tr, _ in inj_pairs:
+            cols = pat0.indices[pat0.indptr[fr]:pat0.indptr[fr + 1]]
+            keys.append(np.int64(tr) * n64 + cols.astype(np.int64))
+            keys.append(np.array([np.int64(tr) * n64 + fr,
+                                  np.int64(fr) * n64 + tr]))
+        pat = build_pattern(dm.n_dof, gathers, extra_keys=np.concatenate(keys))
+        fp_l, tp_l, ps_l = [], [], []
+        for fr, tr, sg in inj_pairs:
+            p0, p1 = int(pat.indptr[fr]), int(pat.indptr[fr + 1])
+            cols = pat.indices[p0:p1]
+            tp = pat.find(np.full(cols.shape, tr), cols)
+            if np.any(tp < 0):
+                raise RuntimeError("row-inject target entries missing")
+            fp_l.append(np.arange(p0, p1, dtype=np.int64))
+            tp_l.append(tp)
+            ps_l.append(np.full(cols.shape, sg))
+        self._inject = {
+            "from_rows": np.array([p[0] for p in inj_pairs]),
+            "to_rows": np.array([p[1] for p in inj_pairs]),
+            "sign_rows": np.array([p[2] for p in inj_pairs]),
+            "from_pos": np.concatenate(fp_l),
+            "to_pos": np.concatenate(tp_l),
+            "sign_pos": np.concatenate(ps_l),
+        }
+        return pat
 
     def _build_face_set(self, sideset_name: str,
                         kernels: list[FaceKernel]) -> list[_FaceSet]:
@@ -443,6 +640,44 @@ class Problem:
         T["dirdofs"] = put(self.dirichlet_dofs.astype(np.int64))
         T["dirkeep"] = put(self._dir_nnz_keep, dt)
         T["dirdiag"] = put(self._dir_diag_pos.astype(np.int64))
+        for k, (d, xc, _) in enumerate(self._param_dirichlet):
+            T[f"pd{k}:dofs"] = put(d)
+            T[f"pd{k}:coords"] = put(xc, dt)
+        rd = self._rotation
+        if rd is not None:
+            T["rQ"] = put(rd.Q, dt)
+            T["rpos"] = put(rd.pos.astype(np.int64))
+            T["rnode"] = put(rd.entry_node.astype(np.int64))
+            T["rdofs"] = put(rd.dofs.astype(np.int64))
+            if rd.con_rows.size:
+                T["rcrow"] = put(rd.con_rows)
+                T["rcoef"] = put(rd.con_coeff, dt)
+                T["rcdofs"] = put(rd.con_dofs)
+                T["rczero"] = put(np.concatenate(rd.con_row_mask_pos))
+                T["rcepos"] = put(rd.con_entry_pos)
+                T["rcval"] = put(rd.con_value, dt)
+        for k, pc in enumerate(self._point_sets):
+            T[f"pc{k}:rows"] = put(pc.rows)
+            T[f"pc{k}:dofs"] = put(pc.dofs.astype(np.int64))
+            T[f"pc{k}:coords"] = put(pc.coords, dt)
+            T[f"pc{k}:epos"] = put(pc.entry_pos.astype(np.int64))
+            T[f"pc{k}:zero"] = put(pc.zero_pos.astype(np.int64))
+        for k, pl in enumerate(self._point_loads):
+            T[f"pld{k}:rows"] = put(pl.rows)
+            T[f"pld{k}:dofs"] = put(pl.dofs.astype(np.int64))
+            T[f"pld{k}:coords"] = put(pl.coords, dt)
+            for key, tgt in (("r", pl.rows), ("e", pl.entry_pos)):
+                uniq, pos = add_plan(tgt)
+                T[f"pld{k}:{key}u"], T[f"pld{k}:{key}p"] = put(uniq), put(pos)
+        inj = self._inject
+        if inj is not None:
+            for key, tgt in (("r", inj["to_rows"]), ("e", inj["to_pos"])):
+                uniq, pos = add_plan(tgt)
+                T[f"inj:{key}u"], T[f"inj:{key}p"] = put(uniq), put(pos)
+            T["inj:from_rows"] = put(inj["from_rows"].astype(np.int64))
+            T["inj:sign_rows"] = put(inj["sign_rows"], dt)
+            T["inj:from_pos"] = put(inj["from_pos"])
+            T["inj:sign_pos"] = put(inj["sign_pos"], dt)
         self._tables = T
 
     def base_params(self, **extra) -> dict:
@@ -490,16 +725,82 @@ class Problem:
         return out
 
     # ------------------------------------------------------------- assembly
+    def _apply_inject(self, R, vals):
+        """Cross-equation row injection (``add_row_inject``): R[to] +=
+        s R[from] and the matching CSR row entries. Runs on the raw
+        assembled system, before point loads, rotation, point constraints
+        and Dirichlet."""
+        if self._inject is None:
+            return R, vals
+        T = self._tables
+        R = add_at(R, T["inj:ru"], T["inj:rp"],
+                   T["inj:sign_rows"].to(R.dtype) * R[T["inj:from_rows"]])
+        if vals is not None:
+            vals = add_at(vals, T["inj:eu"], T["inj:ep"],
+                          T["inj:sign_pos"].to(vals.dtype)
+                          * vals[T["inj:from_pos"]])
+        return R, vals
+
+    def _apply_rotation(self, x, R, vals):
+        """Rotate the assembled rows into their normal-tangent frames and
+        install the constraint rows n.u = g."""
+        rd = self._rotation
+        if rd is None:
+            return R, vals
+        T = self._tables
+        dofs = T["rdofs"]
+        Q = T["rQ"].to(R.dtype)
+        R = R.index_put((dofs,), torch.einsum("nij,nj->ni", Q, R[dofs]))
+        if vals is not None:
+            pos = T["rpos"]
+            Qv = T["rQ"].to(vals.dtype)[T["rnode"]]
+            vals = vals.index_put((pos,), torch.einsum("kij,kj->ki", Qv,
+                                                       vals[pos]))
+        if rd.con_rows.size:
+            ccoef = T["rcoef"].to(R.dtype)
+            Rcon = (torch.einsum("ni,ni->n", ccoef, x[T["rcdofs"]].to(R.dtype))
+                    - T["rcval"].to(R.dtype))
+            R = R.index_put((T["rcrow"],), Rcon)
+            if vals is not None:
+                vals = vals.index_put((T["rczero"],), vals.new_zeros(()))
+                vals = vals.index_put((T["rcepos"],),
+                                      T["rcoef"].to(vals.dtype))
+        return R, vals
+
     def _apply_dirichlet(self, x, R, vals, params):
+        """Dirichlet rows: R = x - x_bc (parametric values evaluated here
+        on the coordinates as tensors), identity rows in ``vals``."""
         T = self._tables
         if self.dirichlet_dofs.size:
             xv = torch.zeros_like(R)
             xv[T["dirdofs"]] = params["dirichlet_val"].to(R.dtype)
+            for k, (d, _, fn) in enumerate(self._param_dirichlet):
+                v = torch.as_tensor(fn(T[f"pd{k}:coords"].to(R.dtype), params),
+                                    dtype=R.dtype, device=R.device)
+                xv[T[f"pd{k}:dofs"]] = v.expand(d.shape[0])
             R = torch.where(T["dirmask"], x.to(R.dtype) - xv, R)
             if vals is not None:
                 vals = vals * T["dirkeep"].to(vals.dtype)
                 vals[T["dirdiag"]] = 1.0
         return R, vals
+
+    def _row_surgery(self, x, R, vals, params):
+        """Every strong condition on the assembled (R, vals), in goma_tpu's
+        order: injection, point loads, rotation, point constraints,
+        Dirichlet. Returns (R, vals, pc_dg, pl_dfs), the point-constraint
+        and point-load row Jacobians the element matvec reads."""
+        from goma_tpu_torch.bc.pointwise import (apply_point_constraints,
+                                                 apply_point_loads)
+
+        T = self._tables
+        R, vals = self._apply_inject(R, vals)
+        R, vals, pl_dfs = apply_point_loads(self, self._point_loads, x, R,
+                                            vals, params, T)
+        R, vals = self._apply_rotation(x, R, vals)
+        R, vals, pc_dg = apply_point_constraints(self, self._point_sets, x,
+                                                 R, vals, params, T)
+        R, vals = self._apply_dirichlet(x, R, vals, params)
+        return R, vals, tuple(pc_dg), tuple(pl_dfs)
 
     def _elem_residual_fn(self, bi: int, dtype=None):
         """The generic element residual of block ``bi`` at ``dtype``:
@@ -689,9 +990,10 @@ class Problem:
         return r, J
 
     def _assemble_with_elem(self, x, params):
-        """Residual, CSR values (at ``jacobian_dtype``) and the element and
-        face Jacobians (``aux = (blockJ, faceJ)``) that power the
-        matrix-free ``element_matvec``."""
+        """Residual, CSR values (at ``jacobian_dtype``) and the operator's
+        pieces that power the matrix-free ``element_matvec``: ``aux =
+        (blockJ, faceJ, pc_dg, pl_dfs)``, the element and face Jacobians
+        and the point-constraint and point-load row Jacobians."""
         T = self._tables
         dtype = self.dtype
         jdt = self.jacobian_dtype or dtype
@@ -699,13 +1001,13 @@ class Problem:
         r_parts, blockJ, faceJ, _ = self._elem_rj_parts(x, params, T)
         R = _combine(r_parts, T["tg"], dtype)
         vals = _combine(blockJ + faceJ, T["nnztg"], jdt)
-        R, vals = self._apply_dirichlet(x, R, vals, params)
-        return R, vals, (tuple(blockJ), tuple(faceJ))
+        R, vals, pc_dg, pl_dfs = self._row_surgery(x, R, vals, params)
+        return R, vals, (tuple(blockJ), tuple(faceJ), pc_dg, pl_dfs)
 
     def _assemble(self, x, params):
         """(R, vals): the global residual and CSR Jacobian values, both at
         the problem dtype (``jacobian_dtype`` is not read, as in goma_tpu),
-        with Dirichlet rows replaced (R_d = x_d - x_bc, row = e_d)."""
+        with every strong condition's row surgery (``_row_surgery``)."""
         T = self._tables
         dtype = self.dtype
         x = x.to(dtype)
@@ -713,7 +1015,59 @@ class Problem:
                                                         jdt=dtype)
         R = _combine(r_parts, T["tg"], dtype)
         vals = _combine(blockJ + faceJ, T["nnztg"], dtype)
-        return self._apply_dirichlet(x, R, vals, params)
+        R, vals, _, _ = self._row_surgery(x, R, vals, params)
+        return R, vals
+
+    def _residual_only(self, x, params):
+        """The global residual alone, at the problem dtype: the fused block
+        without its Jacobian (``fastns.ns_q2q1_rj(..., with_jac=False)``),
+        the generic blocks and face sets without ``jacfwd``, then the same
+        row surgery as ``_assemble``."""
+        from torch.func import vmap
+
+        T = self._tables
+        dtype = self.dtype
+        x = x.to(dtype)
+        hist = params["hist"].to(dtype)
+        axes = (0, 0, 0, 0, None)
+        parts = []
+        for bi in range(len(self.dofmap.blocks)):
+            g = T[f"g{bi}"]
+            if bi in self._fast_meta:
+                gn = T.get(f"fns:gnode{bi}")
+                if gn is not None:
+                    gp = T[f"fns:gp{bi}"]
+                    gat = lambda v: fastns.node_gather(v, gn, gp)  # noqa: E731
+                else:
+                    gat = lambda v: v[g]  # noqa: E731
+                r, _ = fastns.ns_q2q1_rj(
+                    gat(x), gat(hist), fastns.select_tables(T, bi, dtype),
+                    self._fast_meta[bi], self._fast_static[bi], params["ct"],
+                    dtype, with_jac=False)
+            else:
+                ext = self._ext_gather(params, T[f"c{bi}"]).to(dtype)
+                r, _ = vmap(self._elem_residual_fn(bi, dtype), in_dims=axes)(
+                    x[g], hist[g], self._coords(T, bi, dtype), ext, params)
+            parts.append(r)
+        for j, fs in enumerate(self.face_sets):
+            g = T[f"fg{j}"]
+            ftabs = {k: T[f"ft{j}:{k}"].to(dtype) for k in fs.ftabs}
+            r, _ = vmap(self._face_residual_fn(j, dtype), in_dims=axes)(
+                x[g], hist[g], T[f"fx{j}"].to(dtype), ftabs, params)
+            parts.append(r)
+        R = _combine(parts, T["tg"], dtype)
+        R, _, _, _ = self._row_surgery(x, R, None, params)
+        return R
+
+    # the public entry points (goma_tpu jits them; here they run eagerly)
+    def assemble(self, x, params):
+        """(R, vals) at state ``x``: the residual and CSR values with every
+        strong condition applied, both at the problem dtype."""
+        return self._assemble(x, params)
+
+    def residual(self, x, params):
+        """The residual alone (no Jacobian is formed)."""
+        return self._residual_only(x, params)
 
     def _assemble_fast(self, x, params, rdt=None):
         """Vals-free assembly for the iterative path: residual, element
@@ -726,7 +1080,15 @@ class Problem:
         shared entry agree in sign) and serve the reference's row-sum
         scaling (src/sl_matrix_util.c:442). Fast blocks hand them back with
         the kernel; generic blocks and face sets re-read their (ne, nl, nl)
-        Jacobians. Returns (R, rs, aux) with aux = (blockJ, faceJ)."""
+        Jacobians. The row surgery is mirrored on rs as goma_tpu mirrors
+        it: point-load rows add sum |df|, rotated rows take |Q| rs, a
+        rotated constraint row sum |coef|, a point-constraint row sum |dg|,
+        a Dirichlet row 1. Row injection is not applied (an injected deck
+        takes the full prep). Returns (R, rs, aux) with aux = (blockJ,
+        faceJ, pc_dg, pl_dfs)."""
+        from goma_tpu_torch.bc.pointwise import (apply_point_constraints,
+                                                 apply_point_loads)
+
         T = self._tables
         dtype = rdt if rdt is not None else self.dtype
         jdt = self.jacobian_dtype or self.dtype
@@ -739,19 +1101,40 @@ class Problem:
                  for J, s in zip(blockJ + faceJ, rs_el)]
         R = _combine(r_parts, T["tg"], dtype)
         rs = _combine(rs_el, T["tg"], jdt)
+
+        R, _, pl_dfs = apply_point_loads(self, self._point_loads, x, R, None,
+                                         params, T)
+        for k, df in enumerate(pl_dfs):
+            rs = add_at(rs, T[f"pld{k}:ru"], T[f"pld{k}:rp"],
+                        torch.sum(torch.abs(df), dim=2))
+        R, _ = self._apply_rotation(x, R, None)
+        rd = self._rotation
+        if rd is not None:
+            dofs = T["rdofs"]
+            rs = rs.index_put((dofs,), torch.einsum(
+                "nij,nj->ni", torch.abs(T["rQ"].to(R.dtype)).to(jdt), rs[dofs]))
+            if rd.con_rows.size:
+                rs = rs.index_put((T["rcrow"],), torch.sum(
+                    torch.abs(T["rcoef"].to(R.dtype)), dim=1).to(jdt))
+        R, _, pc_dg = apply_point_constraints(self, self._point_sets, x, R,
+                                              None, params, T)
+        for k, dg in enumerate(pc_dg):
+            rs = rs.index_put((T[f"pc{k}:rows"],),
+                              torch.sum(torch.abs(dg), dim=1).to(jdt))
         R, _ = self._apply_dirichlet(x, R, None, params)
         if self.dirichlet_dofs.size:
             rs = torch.where(T["dirmask"], torch.ones((), dtype=jdt,
                                                       device=rs.device), rs)
-        return R, rs, (tuple(blockJ), tuple(faceJ))
+        return R, rs, (tuple(blockJ), tuple(faceJ), tuple(pc_dg),
+                       tuple(pl_dfs))
 
     def element_matvec(self, T, aux, scale, v):
         """Matrix-free y = A@v from the stored element Jacobians,
-        reproducing the Dirichlet-surgered, scaled CSR operator; the
-        per-element and per-face products are combined through the
-        transpose gather. ``aux = (blockJ, faceJ)``."""
+        reproducing the surgered, scaled CSR operator; the per-element and
+        per-face products are combined through the transpose gather.
+        ``aux = (blockJ, faceJ, pc_dg, pl_dfs)``."""
         T = T if T is not None else self._tables
-        blockJ, faceJ = aux
+        blockJ, faceJ, pc_dg, pl_dfs = aux
         parts = []
         for bi in range(len(self.dofmap.blocks)):
             gn = T.get(f"fns:gnode{bi}")
@@ -764,31 +1147,38 @@ class Problem:
             q = v[T[f"fg{j}"]]
             parts.append(torch.bmm(faceJ[j], q.unsqueeze(2)).squeeze(2))
         y = _combine(parts, T["tg"], v.dtype)
-        return self._matvec_post(T, scale, v, y)
+        return self._matvec_post(T, pc_dg, scale, v, y, pl_dfs)
 
-    def _matvec_post(self, T, scale, v, y):
-        """Dirichlet identity rows, then the row scale."""
+    def _matvec_post(self, T, pc_dg, scale, v, y, pl_dfs=()):
+        """The row surgery on a product, in ``_row_surgery``'s order: the
+        point-load rows (before rotation: they are physical contributions
+        the rotation then turns), the rotated rows and their constraint
+        rows, the point-constraint rows, the Dirichlet identity rows; then
+        the row scale. A point-constraint row's product is taken in the
+        promoted dtype of its row Jacobian and ``v``, as goma_tpu takes
+        it."""
+        for k, df in enumerate(pl_dfs):
+            contrib = torch.einsum("nlc,nc->nl", df.to(v.dtype),
+                                   v[T[f"pld{k}:dofs"]])
+            y = add_at(y, T[f"pld{k}:ru"], T[f"pld{k}:rp"], contrib)
+        rd = self._rotation
+        if rd is not None:
+            dofs = T["rdofs"]
+            y = y.index_put((dofs,), torch.einsum(
+                "nij,nj->ni", T["rQ"].to(v.dtype), y[dofs]))
+            if rd.con_rows.size:
+                y = y.index_put((T["rcrow"],), torch.einsum(
+                    "ni,ni->n", T["rcoef"].to(v.dtype), v[T["rcdofs"]]))
+        for k, dg in enumerate(pc_dg):
+            ct = torch.promote_types(dg.dtype, v.dtype)
+            row = torch.einsum("ni,ni->n", dg.to(ct),
+                               v[T[f"pc{k}:dofs"]].to(ct))
+            y = y.index_put((T[f"pc{k}:rows"],), row.to(y.dtype))
         if self.dirichlet_dofs.size:
             y = torch.where(T["dirmask"], v, y)
         if scale is not None:
             y = y * scale
         return y
-
-
-def _transpose_gather(flat: np.ndarray, n: int) -> np.ndarray:
-    """(n, m) positions in ``flat`` of each target id 0..n-1 (m = the most
-    contributions any target has); pad -> len(flat), the zero slot."""
-    L = flat.shape[0]
-    order = np.argsort(flat, kind="stable")
-    sorted_ids = flat[order]
-    starts = np.searchsorted(sorted_ids, np.arange(n))
-    ends = np.searchsorted(sorted_ids, np.arange(n) + 1)
-    m = max(int((ends - starts).max()), 1) if L else 1
-    pos = np.full((n, m), L, dtype=np.int64)
-    for k in range(m):
-        sel = starts + k < ends
-        pos[sel, k] = order[(starts + k)[sel]]
-    return pos
 
 
 def _combine(parts, tg, dtype):

@@ -78,6 +78,41 @@ def nnz_map_for_gather(pat: CSRPattern, gather: np.ndarray) -> np.ndarray:
     return pos.reshape(ne, nl, nl).astype(np.int64)
 
 
+def transpose_gather(flat: np.ndarray, n: int) -> np.ndarray:
+    """(n, m) positions in ``flat`` of each target id 0..n-1 (m = the most
+    contributions any target has); pad -> len(flat), the zero slot."""
+    L = flat.shape[0]
+    order = np.argsort(flat, kind="stable")
+    sorted_ids = flat[order]
+    starts = np.searchsorted(sorted_ids, np.arange(n))
+    ends = np.searchsorted(sorted_ids, np.arange(n) + 1)
+    m = max(int((ends - starts).max()), 1) if L else 1
+    pos = np.full((n, m), L, dtype=np.int64)
+    for k in range(m):
+        sel = starts + k < ends
+        pos[sel, k] = order[(starts + k)[sel]]
+    return pos
+
+
+def add_plan(targets: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """Host plan of a scatter-add into ``targets`` (flattened; they may
+    repeat): the distinct targets and, per distinct target, the positions
+    of its contributions in the flattened contribution array (pad -> its
+    length). :func:`add_at` then sums by a gather, in a fixed order, where
+    goma_tpu's ``.at[targets].add`` scatters."""
+    t = np.asarray(targets, dtype=np.int64).ravel()
+    uniq, inv = np.unique(t, return_inverse=True)
+    return uniq, transpose_gather(inv.ravel(), uniq.shape[0])
+
+
+def add_at(a, uniq, pos, contrib):
+    """``a`` with the contributions added at the targets of an
+    :func:`add_plan` (``uniq``, ``pos`` as tensors on ``a``'s device), out
+    of place and deterministic: no atomics."""
+    flat = torch.cat([contrib.reshape(-1).to(a.dtype), a.new_zeros(1)])
+    return a.index_put((uniq,), a[uniq] + torch.sum(flat[pos], dim=1))
+
+
 # ------------------------------------------------------------- device ops
 class EllOperator:
     """Padded-row (ELL) sparse matvec: y = sum_k vals[pos[:, k]] *

@@ -57,22 +57,38 @@ def ndlu_factors_from_numpy(facs, device=None) -> list:
 
 def materials_from_goma(mat: dict) -> dict:
     """A goma_tpu material dict -> the port's. Python scalars pass through;
-    goma_tpu's ``BoussinesqBodyForce`` is recognised by its class name and
-    attributes (gravity fetched to numpy, beta, T0, tvar), without importing
-    goma_tpu. Any other callable or array property model is a later slice
-    and raises."""
-    from goma_tpu_torch.physics.materials import BoussinesqBodyForce
+    a goma_tpu property model (``BoussinesqBodyForce`` and the models of
+    ``physics/materials.py``: ``PowerLawViscosity``, ``CarreauViscosity``,
+    ``BinghamViscosity``, ``CarreauWLFViscosity``, ``ArrheniusViscosity``,
+    ``SuspensionViscosity``, ``FillerDensity``, ``BondViscosity``) is
+    recognised by its class name and rebuilt from its attributes, named as
+    the port's constructor names its arguments (arrays fetched to numpy,
+    0-d ones to floats),
+    without importing goma_tpu. Any other callable or array is a later
+    slice and raises."""
+    import inspect
+
+    from goma_tpu_torch.physics import materials
 
     out = {}
     for k, v in mat.items():
         if isinstance(v, (bool, int, float)):
             out[k] = v
-        elif type(v).__name__ == "BoussinesqBodyForce":
-            out[k] = BoussinesqBodyForce(np.asarray(v.gravity, dtype=np.float64),
-                                         beta=float(v.beta), T0=float(v.T0),
-                                         tvar=v.tvar)
-        else:
+            continue
+        cls = getattr(materials, type(v).__name__, None)
+        if not (inspect.isclass(cls) and callable(v)
+                and cls.__module__ == materials.__name__):
             raise NotImplementedError(
                 f"material property {k!r} of type {type(v).__name__}: later "
                 "slice of the port, see ROADMAP")
+        args = {}
+        for name in inspect.signature(cls.__init__).parameters:
+            if name == "self":
+                continue
+            a = getattr(v, name)
+            if not isinstance(a, (bool, int, float, str)):
+                a = np.asarray(a, dtype=np.float64)
+                a = float(a) if a.ndim == 0 else a
+            args[name] = a
+        out[k] = cls(**args)
     return out

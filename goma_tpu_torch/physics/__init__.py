@@ -8,7 +8,7 @@ from goma_tpu_torch.physics.viscoelastic import (AxisymHoopStress,
                                                  LogConformationStress,
                                                  SqrtConformationStress,
                                                  VelocityGradientProjection,
-                                                 VEStress)
+                                                 VEStress, stress_var)
 from goma_tpu_torch.physics.level_set import (
     CSFSurfaceTension,
     ExtensionVelocity,

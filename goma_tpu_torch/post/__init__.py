@@ -4,3 +4,4 @@ from goma_tpu_torch.post.postproc import (flow_rate,
                                           volume_integral)
 from goma_tpu_torch.post.quality import (QualityReport, element_quality,
                                          make_quality_fn)
+from goma_tpu_torch.post.stats import format_stats, variable_stats

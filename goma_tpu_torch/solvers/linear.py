@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from goma_tpu_torch import config
-from goma_tpu_torch.fem.assembly import _transpose_gather
+from goma_tpu_torch.fem.sparsity import transpose_gather as _transpose_gather
 from goma_tpu_torch.fem.sparsity import CSRPattern
 from goma_tpu_torch.utils.la import gj_inv, lstsq_small
 

@@ -27,6 +27,10 @@ dtype.
   ends the Newton solve unconverged, so the transient driver halves dt.
 - ``row_scaling=False``: the full prep with R unscaled and a scale of
   ones (no fast prep), so the sequential loop runs.
+- a Problem with a row injection (``add_row_inject``): the element
+  matvec's aux does not hold the injection, so ``gmres``/``bicgstab`` take
+  the full prep on the plain ``_assemble`` values and the ELL matvec of
+  them, and the sequential loop runs, as in goma_tpu.
 
 ``solve`` routes as goma_tpu routes: ``gmres`` with ``tol_update == 0`` on
 the fast prep runs the pipelined loop (``_solve_pipelined``), everything
@@ -193,10 +197,20 @@ class NewtonSolver:
             self.precond.store_dtype = torch.bfloat16
             if opts.precond_dtype == "bf16" and hasattr(self.precond, "bj"):
                 self.precond.bj.store_dtype = torch.bfloat16
-        # the vals-free fast prep (gmres/bicgstab with row scaling); every
-        # other path takes the full prep, whose row sums come from the ELL
-        # gather (and tpu_direct refines through the ELL matvec)
-        self._fast_prep = (opts.row_scaling
+        # a row injection is not in the element matvec's aux: such a deck
+        # assembles the plain CSR values (``_assemble``) and its Krylov
+        # operator is the ELL matvec of them, as in goma_tpu; rotation,
+        # point constraints and point loads stay on the element matvec
+        elem_capable = getattr(problem, "_inject", None) is None
+        self._use_elem_mv = elem_capable and not (self._direct
+                                                  or self._host_direct)
+        # tpu_direct assembles through the element path for the Jacobian
+        # dtype (its aux is dropped: refinement matvecs through the ELL)
+        self._elem_asm_only = elem_capable and self._direct
+        # the vals-free fast prep (gmres/bicgstab with row scaling on the
+        # element matvec); every other path takes the full prep, whose row
+        # sums come from the ELL gather
+        self._fast_prep = (self._use_elem_mv and opts.row_scaling
                            and opts.linear_solver in ("gmres", "bicgstab"))
         self._ell = None if self._fast_prep else EllOperator(pat, device=self.device)
         self._rows = torch.as_tensor(pat.rows.astype(np.int64), device=self.device)
@@ -315,17 +329,18 @@ class NewtonSolver:
         """The full prep (goma_tpu's ``_prepare``): (R, vals, norms, scale,
         aux). gmres/bicgstab assemble with the element Jacobians (their
         operator, ``aux``), ``tpu_direct`` likewise for the Jacobian dtype
-        (aux unused), the host ``direct`` rung with the plain
-        full-precision ``_assemble``. With row scaling the row sums come
-        from the ELL gather and the values are symmetrically equilibrated;
-        without, R is unscaled and the scale is ones."""
+        (aux unused); the host ``direct`` rung and a deck with a row
+        injection take the plain full-precision ``_assemble`` (aux None:
+        the operator is the ELL matvec of the values). With row scaling the
+        row sums come from the ELL gather and the values are symmetrically
+        equilibrated; without, R is unscaled and the scale is ones."""
         aux = None
-        if self._host_direct:
-            R, vals = self.problem._assemble(x, params)
-        else:
+        if self._use_elem_mv:
             R, vals, aux = self.problem._assemble_with_elem(x, params)
-            if self._direct:
-                aux = None
+        elif self._elem_asm_only:
+            R, vals, _ = self.problem._assemble_with_elem(x, params)
+        else:
+            R, vals = self.problem._assemble(x, params)
         if not self.opts.row_scaling:
             return (R, vals, self._norms(R),
                     torch.ones(self._n, dtype=vals.dtype, device=vals.device), aux)
@@ -369,11 +384,15 @@ class NewtonSolver:
             return self.precond.solve(fac_num[0], r).to(r.dtype)
         return self.precond.apply(fac_num[0], r)
 
-    def _matvec(self, scale, aux):
+    def _matvec(self, scale, aux, vals=None):
         """The Krylov operator: the element matvec of the equilibrated
-        system, the scale on both sides (the DAD of the CSR values)."""
-        prob = self.problem
-        return lambda v: prob.element_matvec(None, aux, scale, scale * v)
+        system, the scale on both sides (the DAD of the CSR values); where
+        the element matvec is off (a row injection) or no aux is given,
+        the ELL matvec of the equilibrated values ``vals``."""
+        if self._use_elem_mv and aux is not None:
+            prob = self.problem
+            return lambda v: prob.element_matvec(None, aux, scale, scale * v)
+        return lambda v: self._ell.matvec(vals, v)
 
     def _factor_fresh(self, vals, scale):
         """Factor the preconditioner afresh and make it the lagged one,
@@ -386,10 +405,11 @@ class NewtonSolver:
         self._fac_base_its = None
         return fac
 
-    def _gmres_cycle(self, scale, aux, fac_num, x, b, tol, extra=()):
+    def _gmres_cycle(self, scale, aux, fac_num, x, b, tol, extra=(),
+                     vals=None):
         """One restarted-GMRES call of ``gmres_restart`` steps (the restart
         loop lives in _linsolve_gmres)."""
-        mv = self._matvec(scale, aux)
+        mv = self._matvec(scale, aux, vals)
         M = lambda r: self._apply_precond_mv(mv, fac_num, r)  # noqa: E731
         return gmres(mv, b, precond=M, tol=tol, restart=self.opts.gmres_restart,
                      maxiter=self.opts.gmres_restart, x0=x, extra=extra)
@@ -435,7 +455,8 @@ class NewtonSolver:
                 it_refac = it
             prev = rn
             lr = self._gmres_cycle(scale, aux, fac, z, b, tol,
-                                   (extra or ()) if target is None else ())
+                                   (extra or ()) if target is None else (),
+                                   vals)
             z, rn, cnt = lr.x, lr.resnorm, lr.iters
             if target is None:
                 tol, extra_vals = lr.tol, lr.extra
@@ -475,7 +496,7 @@ class NewtonSolver:
         opts = self.opts
         fac = (self._fac_cache if opts.precond_lag and self._fac_cache is not None
                else self._factor_fresh(vals, scale))
-        mv = self._matvec(scale, aux)
+        mv = self._matvec(scale, aux, vals)
         b = (scale.to(R.dtype) * R).to(vals.dtype if vals is not None
                                        else self._jdt)
         lr = bicgstab(mv, b, precond=lambda r: self._apply_precond_mv(mv, fac, r),

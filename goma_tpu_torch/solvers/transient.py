@@ -23,9 +23,10 @@ detJ of the displaced mesh is read once (``post/quality.py``, one device
 reduction and one host read); min detJ <= 0 counts as a failed step,
 halving dt and retrying with the same failure accounting.
 
-Cut to this slice: ``variable_stats=True`` needs goma_tpu's
-``post/stats.py``, which is not ported; it raises ``NotImplementedError``
-at construction (a later slice, see ROADMAP).
+``variable_stats=True`` with ``verbose=True``: after each accepted Newton
+solve, the min / max / mean / L2 of every solution variable
+(``post/stats.py``, the reference's per-step ``variable_stats``) to
+standard error, as goma_tpu prints them.
 """
 
 from __future__ import annotations
@@ -38,9 +39,6 @@ import numpy as np
 import torch
 
 from goma_tpu_torch.solvers.newton import NewtonOptions, NewtonResult, NewtonSolver
-
-_LATER = "later slice of the port, see ROADMAP"
-
 
 @dataclass
 class TimeOptions:
@@ -68,8 +66,8 @@ class TimeOptions:
     quality_guard: bool = False
     # print a per-step line (the reference's transient console output)
     verbose: bool = False
-    # per-variable statistics each accepted step (goma_tpu's
-    # post/stats.py): a later slice
+    # with verbose: per-variable statistics each accepted step
+    # (post/stats.py, the reference's variable_stats)
     variable_stats: bool = False
 
 
@@ -98,8 +96,6 @@ class TransientSolver:
         self.newton = NewtonSolver(problem, newton_options)
         self.topts = time_options or TimeOptions()
         self._quality_fn = None
-        if self.topts.variable_stats:
-            raise NotImplementedError(f"TimeOptions(variable_stats=True): {_LATER}")
 
     def _predict(self, x_old, xdot_old, xdot_older, dt, dt_old):
         if self.topts.second_order_predictor and dt_old > 0:
@@ -150,6 +146,12 @@ class TransientSolver:
                     f"finite={bool(np.all(np.isfinite(res.x)))}",
                     file=sys.stderr, flush=True,
                 )
+                if ok and to.variable_stats:
+                    from goma_tpu_torch.post.stats import (format_stats,
+                                                           variable_stats)
+
+                    print(format_stats(variable_stats(prob, res.x)),
+                          file=sys.stderr, flush=True)
             if ok and to.quality_guard:
                 if self._quality_fn is None:
                     from goma_tpu_torch.post.quality import make_quality_fn

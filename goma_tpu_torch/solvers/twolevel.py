@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from goma_tpu_torch.elements import element_type, eval_basis, interp_local_nodes
-from goma_tpu_torch.fem.assembly import _transpose_gather
+from goma_tpu_torch.fem.sparsity import transpose_gather as _transpose_gather
 from goma_tpu_torch.solvers.linear import BlockJacobi, Vanka, _ext
 from goma_tpu_torch.utils.la import saddle_split_inv
 

@@ -1,0 +1,1 @@
+from goma_tpu_torch.utils.la import det_and_inv

@@ -8,6 +8,7 @@ shapes before a run on the card.
                                             [--only-slot-coater]
                                             [--only-two-level]
                                             [--only-axisym]
+                                            [--only-bc]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -15,12 +16,14 @@ on the CPU; each kernel wrapper runs its plain version and counts that as a
 launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
 ``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
 syncs).
-The decks are cut to 8x8 (cavity, buoyant, static bubble), 8x4
-(viscoelastic), 16x4 (slot coater) and 16x8 (axisymmetric die), the checks that need the full size
-(Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump) are
-widened, and the linear iteration counts, the slot coater's accepted steps
-and free-surface heights and the die's record the script requires are those
-of the cut decks (goma_tpu's at 16x4 and 16x8, CPU). Every time it prints is a CPU time, not a device
+The decks are cut to 8x8 (cavity, buoyant, static bubble, tilted cavity),
+8x4 (viscoelastic), 16x4 (slot coater) and 16x8 (axisymmetric die,
+periodic channel), the checks that need the full size
+(Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump,
+x against goma_tpu's record) are widened, and the linear iteration counts, the slot coater's accepted steps
+and free-surface heights and the die's, the tilted cavity's and the periodic
+channel's records the script requires are those of the cut decks
+(goma_tpu's at 16x4, 16x8 and 8x8, CPU). Every time it prints is a CPU time, not a device
 number.
 """
 
@@ -107,6 +110,61 @@ AX_REF_16 = {
     "AX_REF_FLOW": {"gmres_ndlu": 2.556044900422992,
                     "tpu_direct": 2.5560449005584793}}
 
+# goma_tpu's record of the cut decks of phases 33-37 (scripts/rotation_reference.py --deck tilted --n 8 / --deck periodic
+# --n 8, CPU)
+TILT_REF_8 = {'gmres_ndlu': {'linear': [1, 13, 13, 10],
+                'newton': 4,
+                'x_samples': [0.0, 0.0, -0.0356306945113829,
+                              -0.02967565535345784, 0.0043383123867215545,
+                              -0.06869388199629611, -0.001774285467035952,
+                              0.031557085198073764, -0.029847689078451367,
+                              -0.1655017417324416, -0.19761601455684286,
+                              0.11367733534279978, 0.03303855135891354,
+                              -0.1583967302722158, -0.18341790015256265, 0.0,
+                              -0.44844102729985025, 0.06672048186737811,
+                              0.16793829402013216, 0.265248253759637,
+                              0.2311874618571892, 0.5391301795407344,
+                              0.8660253863889693, 1.6108214799896814]},
+ 'tpu_direct': {'linear': [1, 1, 1, 1],
+                'newton': 4,
+                'x_samples': [0.0, 0.0, -0.03563067902318137,
+                              -0.029675712957774682, 0.004338629634437721,
+                              -0.06869380423672805, -0.0017739514927718266,
+                              0.031557103966915884, -0.029847720092574463,
+                              -0.16550171900490313, -0.1976160077430197,
+                              0.11367739779576133, 0.03303858845769615,
+                              -0.15839681887591903, -0.18341780336755967, 0.0,
+                              -0.44844110024243944, 0.06672051910010338,
+                              0.16793824405432498, 0.2652482029305371,
+                              0.2311875050434013, 0.5391300228087493,
+                              0.8660254037844396, 1.6108217589062317]}}
+PER_REF_8 = {'gmres_ndlu': {'linear': [1],
+                'newton': 1,
+                'x_samples': [0.0, 0.0, 1.2065288768070559e-09,
+                              -2.51875609258434e-09, 0.21875,
+                              -7.239171040396286e-09, 0.3749998211860657,
+                              0.4296874701976776, 0.4296875298023224,
+                              -3.3635462415304573e-08, 1.0979412934375432e-07,
+                              4.784635893884115e-05, -4.707570511186532e-08,
+                              -1.266855331749639e-08, 8.857653455152104e-08,
+                              0.4296874403953552, 0.4296873211860657,
+                              0.3749999701976776, 1.327181653465459e-08,
+                              0.21874986588954926, 4.638253813027404e-05,
+                              -1.364885893195833e-08, 0.0, 0.0]},
+ 'tpu_direct': {'linear': [1],
+                'newton': 1,
+                'x_samples': [0.0, 0.0, -6.884720251362627e-09,
+                              2.624153464041666e-08, 0.21875039150864686,
+                              -1.0241957282560738e-08, 0.37500030925874567,
+                              0.4296880381744385, 0.4296882122054495,
+                              -8.053204119580986e-08, 6.461533448890797e-08,
+                              5.46273576570083e-05, -1.7445778022600823e-08,
+                              -1.0762547494112678e-07, 4.9240079111492516e-08,
+                              0.42968811014603264, 0.4296880941729659,
+                              0.37500044779066366, 4.359565563807554e-08,
+                              0.21875030283099006, 5.3626702288770355e-05,
+                              -8.299235430623364e-10, 0.0, 0.0]}}
+
 
 def _counted(plain):
     """``plain`` with a launch counter, as the kernel wrappers carry."""
@@ -148,6 +206,10 @@ def load_smoke():
     cs.AX_NZ, cs.AX_NR = 16, 8
     for k, v in AX_REF_16.items():
         setattr(cs, k, v)
+    cs.TILT_N, cs.TILT_REF = 8, TILT_REF_8
+    # the cut periodic deck stops after one inexact float32 step
+    cs.REF_X_TOL = 1e-3
+    cs.PER_NX, cs.PER_NY, cs.PER_REF = 16, 8, PER_REF_8
     return cs
 
 
@@ -163,6 +225,8 @@ def main() -> int:
                     help="run phases 26-29 only")
     ap.add_argument("--only-axisym", action="store_true",
                     help="run phases 30-32 only")
+    ap.add_argument("--only-bc", action="store_true",
+                    help="run phases 33-38 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -215,6 +279,20 @@ def main() -> int:
         dg = cs.die_gmres_phase(dev)
         cs.die_direct_phase(dev, dg.pop("prob"), dg["x"])
         cs.axisym_small_phase()
+    elif args.only_bc:
+        from goma_tpu_torch.solvers import NewtonSolver
+
+        dev = torch.device("cpu")
+        prob = cs.cavity_problem(cs.N_MAIN, dev)
+        res = NewtonSolver(prob, cs.cavity_opts()).solve(
+            np.zeros(prob.dofmap.n_dof), prob.base_params())
+        tg = cs.tilted_gmres_phase(dev, res.x, res.iters)
+        cs.tilted_direct_phase(dev, tg["prob"], tg["x"])
+        cs.residual_phase([("cavity", prob, res.x),
+                           ("tilted", tg.pop("prob"), tg["x"])])
+        pg = cs.periodic_gmres_phase(dev)
+        cs.periodic_direct_phase(dev, pg.pop("prob"), pg["x"])
+        cs.bc_small_phase()
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

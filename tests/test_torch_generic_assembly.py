@@ -167,17 +167,42 @@ def test_element_matvec_is_the_csr_operator():
 
 
 def test_materials_from_goma():
-    from goma_tpu.physics.materials import BoussinesqBodyForce as JB
-    from goma_tpu.physics.materials import PowerLawViscosity
-    from goma_tpu_torch.physics.materials import BoussinesqBodyForce as TB
+    """Scalars pass through; goma_tpu's ``BoussinesqBodyForce`` and each of
+    the property models of physics/materials.py (the eight of
+    tests/test_torch_axisym.py's table, with their non-default arguments)
+    become the port's class with the same attributes, and the translated
+    model gives goma_tpu's value on a seeded quadrature-point state within
+    1e-13 (test_torch_axisym.test_property_model_matches_goma_tpu's
+    state); an unknown callable still refuses."""
+    import goma_tpu.physics.materials as jmat
+    import goma_tpu_torch.physics.materials as tmat
+    from test_torch_axisym import MODELS, _FV
 
     mat = materials_from_goma({"rho": 1.0, "mu": 0.71, "k": 2,
-                               "body_force": JB([0.0, 7100.0], beta=-1.0,
-                                                T0=0.5)})
+                               "body_force": jmat.BoussinesqBodyForce(
+                                   [0.0, 7100.0], beta=-1.0, T0=0.5)})
     assert (mat["rho"], mat["mu"], mat["k"]) == (1.0, 0.71, 2)
     bf = mat["body_force"]
-    assert isinstance(bf, TB)
+    assert isinstance(bf, tmat.BoussinesqBodyForce)
     np.testing.assert_array_equal(bf.gravity, [0.0, 7100.0])
     assert (bf.beta, bf.T0, bf.tvar) == (-1.0, 0.5, "temperature")
+
+    rng = np.random.default_rng(12)
+    G = rng.standard_normal((5, 2, 2))
+    vals = {"temperature": 400.0 + 20.0 * rng.standard_normal((5, 1)),
+            "species": rng.uniform(0.05, 0.5, (5, 1)),
+            "bond": rng.uniform(0.1, 0.9, (5, 1))}
+    fv_j = _FV(jnp.asarray(G), {k: jnp.asarray(v) for k, v in vals.items()})
+    fv_t = _FV(torch.as_tensor(G), {k: torch.as_tensor(v)
+                                    for k, v in vals.items()})
+    assert len(MODELS) == 8
+    for name, kw in MODELS.items():
+        mj = getattr(jmat, name)(**kw)
+        mt = materials_from_goma({"mu": mj})["mu"]
+        assert type(mt) is getattr(tmat, name)
+        assert vars(mt) == vars(mj)
+        want = np.asarray(mj(fv_j, {}, {}))
+        got = mt(fv_t, {}, {}).numpy()
+        assert np.abs(got - want).max() <= 1e-13 * max(np.abs(want).max(), 1.0)
     with pytest.raises(NotImplementedError):
-        materials_from_goma({"mu": PowerLawViscosity(1.0, 0.5)})
+        materials_from_goma({"mu": lambda fv, mat, params: 1.0})

@@ -228,7 +228,9 @@ def test_port_imports_and_builds_without_jax():
     ``_eta_device``, and builds and finalizes the ALE slot coater deck
     (tests/test_torch_slot_coater.py's ``slot_coater``, read from its
     source: that module imports jax) with its quality-guarded
-    TransientSolver, then assembles it and reads its element quality."""
+    TransientSolver, then assembles it and reads its element quality; then
+    a cavity with rotated wall constraints and an x-periodic one, through
+    ``assemble`` and ``residual``."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -311,6 +313,30 @@ def test_port_imports_and_builds_without_jax():
         assert bool(torch.isfinite(vals).all()) and vals.shape[0] == sprob.pattern.nnz
         from goma_tpu_torch.post.quality import element_quality
         assert element_quality(sprob, sx0).ok
+        # rotated wall conditions and periodicity, through the public
+        # entry points
+        rprob = Problem(mesh, [Momentum(dim=2, transient=False),
+                               Continuity()], {"rho": 1.0, "mu": 0.1},
+                        device="cpu")
+        rprob.add_rotated_dirichlet(("left", "right", "bottom"), "velocity",
+                                    "normal", 0.0)
+        rprob.add_rotated_dirichlet("top", "velocity", "tangent", -1.0)
+        rprob.finalize()
+        assert rprob._rotation.con_rows.size > 0
+        xr = torch.zeros(rprob.dofmap.n_dof, dtype=torch.float64)
+        R, vals = rprob.assemble(xr, rprob.base_params())
+        assert torch.equal(rprob.residual(xr, rprob.base_params()), R)
+        pprob = Problem(mesh, [Momentum(dim=2, transient=False),
+                               Continuity()], {"rho": 1.0, "mu": 0.1},
+                        device="cpu")
+        pprob.add_periodic("left", "right")
+        pprob.add_dirichlet("top", "velocity", 0, 1.0)
+        pprob.finalize()
+        assert pprob.dofmap.node_alias is not None
+        R, vals = pprob.assemble(
+            torch.zeros(pprob.dofmap.n_dof, dtype=torch.float64),
+            pprob.base_params())
+        assert bool(torch.isfinite(vals).all()) and vals.shape[0] == pprob.pattern.nnz
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -351,20 +377,16 @@ def test_newton_options_outside_slice_raise(kw):
         NewtonOptions(**kw)
 
 
-@pytest.mark.parametrize("feature", ["point_load", "periodic", "edge",
-                                     "interface"])
+@pytest.mark.parametrize("feature", ["edge", "interface"])
 def test_problem_outside_slice_raises(feature):
     """Problem features outside the port's slices refuse at ``finalize``
-    (axisymmetric coordinates, refused before, are held against goma_tpu
-    in tests/test_torch_axisym.py)."""
+    (axisymmetric coordinates, point loads and periodic conditions, refused
+    before, are held against goma_tpu in tests/test_torch_axisym.py,
+    tests/test_torch_bc_rows.py and tests/test_torch_periodic.py)."""
     mesh_m, fem, phys = TORCH_PKG
     mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
     eqs = [phys.Momentum(dim=2), phys.Continuity()]
     prob = fem.Problem(mesh, eqs, {"rho": 1.0, "mu": 1.0}, device="cpu")
-    if feature == "point_load":
-        prob.add_point_load("top", "velocity", lambda q, X, p: q)
-    if feature == "periodic":
-        prob.add_periodic("left", "right")
     if feature == "edge":
         prob.add_edge_kernel("left", "top", object())
     if feature == "interface":
@@ -373,16 +395,34 @@ def test_problem_outside_slice_raises(feature):
         prob.finalize()
 
 
-def test_slot_coater_rotation_still_raises():
-    """The slot coater deck finalizes (face kernels, ALE); rotated
-    conditions on its free surface are a later slice and still refuse at
-    ``finalize``."""
+def test_slot_coater_rotation_matches_goma_tpu():
+    """The 16x4 slot coater deck with its free surface's mesh equations
+    rotated into normal-tangent frames (``add_rotation("free",
+    "mesh_displacement")``, then finalized again) in both packages: the same
+    rotation tables, and at x0 plus a seeded perturbation R and the CSR
+    values within 1e-10 of goma_tpu's (the deck's test bound in
+    tests/test_torch_slot_coater.py), float64."""
+    import examples.slot_coater as jsc
+    import jax.numpy as jnp
+    import torch
     from test_torch_slot_coater import slot_coater
 
-    prob, _, _ = slot_coater(4, 2)
-    prob.add_rotation("free", "mesh_displacement")
-    with pytest.raises(NotImplementedError, match="rotated conditions"):
-        prob.finalize()
+    pj, _, x0 = jsc.build(nx=16, ny=4)
+    pt, _, _ = slot_coater(16, 4)
+    for p in (pj, pt):
+        p.add_rotation("free", "mesh_displacement")
+        p.finalize()
+    for k in ("pos", "entry_node", "dofs"):
+        np.testing.assert_array_equal(getattr(pt._rotation, k),
+                                      getattr(pj._rotation, k))
+    np.testing.assert_allclose(pt._rotation.Q, pj._rotation.Q, rtol=0,
+                               atol=1e-15)
+    x = x0 + 1e-3 * np.random.default_rng(8).standard_normal(x0.shape)
+    Rj, vj = pj.assemble(jnp.asarray(x), pj.base_params())
+    Rt, vt = pt.assemble(torch.as_tensor(x), pt.base_params())
+    for a, b in ((Rt, Rj), (vt, vj)):
+        b = np.asarray(b)
+        assert np.abs(a.numpy() - b).max() <= 1e-10 * np.abs(b).max()
 
 
 @pytest.mark.parametrize("name,args", [

@@ -198,7 +198,9 @@ def test_slot_coater_deck_and_assembly_match():
     assert rel(Rt, Rj) <= 1e-10 and rel(vt, vj) <= 1e-10
     Rj2, rsj, auxj = jax.jit(pj._assemble_fast)(xj, jp)
     Rt2, rst, auxt = pt._assemble_fast(xt, tp)
-    assert len(auxt) == 2 and len(auxt[1]) == 1  # (blockJ, faceJ)
+    # (blockJ, faceJ, pc_dg, pl_dfs), goma_tpu's aux: no point rows here
+    assert len(auxt) == len(auxj) == 4 and len(auxt[1]) == 1
+    assert auxt[2] == auxt[3] == ()
     assert rel(Rt2, Rj2) <= 1e-10 and rel(rst, rsj) <= 1e-10
     scale = 1.0 / np.sqrt(np.asarray(rsj))
     v = rng.standard_normal(n)

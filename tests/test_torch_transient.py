@@ -143,22 +143,50 @@ def test_ve_startup_matches_goma_tpu():
 
 
 @pytest.mark.parametrize("option", ["quality_guard", "variable_stats"])
-def test_time_options_outside_slice_raise(option):
-    """``variable_stats`` (goma_tpu's post/stats.py) is a later slice and
-    refuses construction. ``quality_guard``, refused before the slot
-    coater's slice, now runs: on a fixed mesh every element keeps
-    detJ > 0, so each step passes the guard (tests/test_torch_ale.py and
-    tests/test_torch_slot_coater.py hold it on tangled and moving
-    meshes)."""
-    _, prob = _heat(TORCH_PKG, 2)
-    if option == "variable_stats":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            TransientSolver(prob, NewtonOptions(precond="ndlu"),
-                            TimeOptions(**{option: True}))
+def test_time_options_outside_slice_raise(option, capsys):
+    """Both options, refused before their slices, now run. ``quality_guard``:
+    on a fixed mesh every element keeps detJ > 0, so each step passes the
+    guard (tests/test_torch_ale.py and tests/test_torch_slot_coater.py hold
+    it on tangled and moving meshes). ``variable_stats`` with ``verbose``:
+    each accepted step prints goma_tpu's statistics table
+    (``post.stats.format_stats``) to standard error, the same tables as
+    goma_tpu prints for the same run (a 4x4 decaying conduction mode, two
+    backward-Euler steps), and ``variable_stats`` of the end state is
+    goma_tpu's within 1e-12."""
+    if option == "quality_guard":
+        _, prob = _heat(TORCH_PKG, 2)
+        ts = TransientSolver(prob, NewtonOptions(precond="ndlu"),
+                             TimeOptions(dt0=0.01, t_end=0.02, adapt=False,
+                                         quality_guard=True))
+        r = ts.run(np.ones(prob.dofmap.n_dof), prob.base_params())
+        assert ts._quality_fn is not None
+        assert len(r.steps) == 2 and r.n_failures == 0
         return
-    ts = TransientSolver(prob, NewtonOptions(precond="ndlu"),
-                         TimeOptions(dt0=0.01, t_end=0.02, adapt=False,
-                                     quality_guard=True))
-    r = ts.run(np.ones(prob.dofmap.n_dof), prob.base_params())
-    assert ts._quality_fn is not None
-    assert len(r.steps) == 2 and r.n_failures == 0
+    from goma_tpu.post.stats import variable_stats as j_stats
+    from goma_tpu_torch.post import variable_stats
+
+    tables, ends = [], []
+    for pkg in (JAX_PKG, TORCH_PKG):
+        Opts, Time, Solver = SOLVERS[id(pkg)]
+        mesh, prob = _heat(pkg, 4)
+        x0 = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "temperature",
+                                  0, lambda c: np.sin(np.pi * c[:, 0])
+                                  * np.sin(np.pi * c[:, 1]))
+        ts = Solver(prob, Opts(max_iter=4, tol_residual=1e-11,
+                               linear_solver="direct"),
+                    Time(dt0=0.01, t_end=0.02, adapt=False, verbose=True,
+                         variable_stats=True))
+        capsys.readouterr()
+        r = ts.run(x0, prob.base_params())
+        err = capsys.readouterr().err
+        tables.append([ln for ln in err.splitlines()
+                       if not ln.startswith("[transient]")])
+        ends.append((prob, r.x))
+    assert len(tables[1]) == 2 * 2 and tables[1][0].startswith("variable")
+    assert tables[1] == tables[0]
+    sj = j_stats(*ends[0])
+    st = variable_stats(*ends[1])
+    assert st.keys() == sj.keys() == {"temperature"}
+    for k in ("min", "max", "mean", "l2"):
+        assert abs(st["temperature"][k] - sj["temperature"][k]) <= 1e-12 * max(
+            1.0, abs(sj["temperature"][k]))
