@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Nineteen main paths of the three
+failure and when CUDA is unavailable. Twenty-two main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -16,7 +16,9 @@ sequential Newton loops (phase 21), the ALE slot coater's ``gmres_ndlu``
 adaptive driver, and the buoyant deck's ``tpu_direct`` rung (phase 25);
 the axisymmetric die deck's ``gmres_ndlu`` (phase 30) and ``tpu_direct``
 (phase 31) rungs; the tilted cavity's (phases 33-34) and the periodic
-channel's (phases 36-37) two rungs; then goma_tpu's other preconditioners and linear
+channel's (phases 36-37) two rungs; the lid-speed continuation of the
+64x64 cavity on both rungs (phases 39-40) and its augmenting condition
+(phase 41); then goma_tpu's other preconditioners and linear
 solvers, which run no hand kernel (their stages are torch ops): every
 option on the 8x8 cavity (phase 26), the two-level preconditioner on the
 64x64 cavity (phase 27) and the 48x48 buoyant deck (phase 28), and the
@@ -24,7 +26,10 @@ host ``direct`` rung on the 48x48 static bubble (phase 29); small axisymmetric, 
 post-processing decks on cuda and cpu (phase 32); ``Problem.residual``
 against ``Problem.assemble`` and the numerical-Jacobian check on the card
 (phase 35); small decks of the strong conditions on cuda and cpu (phase
-38). Every ``gmres`` deck with
+38); the flux sensitivity (phase 42), the Bratu fold (phase 43) and the
+bifurcation and stability decks (phase 44) on the host ``direct`` solves
+and SciPy eigensolves goma_tpu runs them on, their assembly and
+derivative actions on the card. Every ``gmres`` deck with
 ``tol_update == 0`` runs the pipelined Newton loop, as in goma_tpu; the
 buoyant, viscoelastic and cavity phases hold goma_tpu's linear iteration
 counts under it. Phases:
@@ -292,9 +297,50 @@ counts under it. Phases:
     takes the ELL operator, never the element matvec), a
     parametric-Dirichlet deck, the doubly periodic corner chain, the 3-D
     HEX27 manufactured Navier-Stokes deck and a transient conduction run
-    with ``variable_stats=True``.
+    with ``variable_stats=True``;
+39. the continuation deck: the 64x64 cavity (37,507 dof, the cavity's own
+    pattern and tree) with mu 0.01 and the lid's u the parametric
+    Dirichlet value params["U"] (Re = 100 U), continued by
+    ``continue_problem(make_params, 1.0, 4.0, dlam0=0.5, x0=0,
+    first_order=True)`` on phase 5's ``gmres_ndlu`` options, every count
+    set to 0 just before and read just after: each step's U, Newton and
+    predictor linear iterations beside goma_tpu's record (``CONT_REF``,
+    from scripts/continuation_reference.py), s, factorizations and
+    launches; require goma_tpu's accepted U sequence, Newton +-1 a step,
+    the predictor counts within REF_LIN_TOL or CONT_PRED_RTOL, x at 24
+    sampled dofs of every step within REF_X_TOL, the minimum of u/U on
+    x = 0.5 at U = 4 within 2% of Ghia et al.'s Re 400 value (-0.32726),
+    every dR/dU by the exact jvp route (``_dR_dlam.routes``), front-LU and
+    front-gather launches = levels x factorizations; then each kernel
+    against its plain version on the fronts of the run's last
+    factorization;
+40. the same on phase 10's ``tpu_direct`` options (its predictor solves
+    GMRES on the two-level preconditioner ``precond="auto"`` names, as
+    goma_tpu's does), with substitution launches = 2 x levels x solves and
+    the substitution kernel on a solve with the last factor;
+41. the augmenting condition on phase 39's deck (``gmres_ndlu``,
+    ``linear_tol=1e-8``): U such that u at the node nearest (0.5, 0.2813)
+    equals goma_tpu's value at U = 3, from the accepted step below 3;
+    require U within CONT_AC_TOL of 3 and of goma_tpu's, Newton +-1, the
+    launches of phase 39;
+42. dF/dU of the lid's x-traction at U = 4 (``post.flux_sensitivity``, the
+    state polished by host ``direct`` solves to 1e-10): within
+    CONT_FLUX_RTOL of goma_tpu's and of the central difference over two
+    direct solves at U +- 1e-3, by the exact route;
+43. the Bratu turning point on the 64x64 QUAD9 square (16,641 dof, the
+    generic AD assembly and nested jvps on the card, host ``direct``
+    solves): first-order continuation 0 -> 6, ``arclength_continue``
+    around the fold, ``detect_folds``, ``fold_track``; goma_tpu's branch,
+    lam_c within CONT_FOLD_TOL of goma_tpu's and 0.02 of 6.808;
+44. pitchfork (lambda* = pi^2 within 1e-3) and Hopf (b* = 1 + a^2,
+    omega = a within 1e-8) at tests/test_bifurcation2.py's sizes; the
+    growth rates of examples/rayleigh_benard_3d_stability.py::sweep(Ra=700)
+    and examples/film_stability.py::run() restated, of the plane-Couette
+    3D-of-2D driver and of ``solve_stability_device`` on the 8x8 heat
+    spectrum, each within CONT_SIG_RTOL of goma_tpu's.
 
-The last three lines of output: the kernel summary (JSON, with each
+Each of phases 39-44 prints its time, and the run its total, before the
+last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
 power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
 """
@@ -305,6 +351,7 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -618,6 +665,141 @@ RESID_RTOL = 1e-12
 # phase 38's small decks, cuda against cpu, max |dx| / (1 + |x|): float64
 # Jacobians, host direct or GMRES to 1e-12
 BC_X_TOL = 1e-11
+# phases 39-44: continuation and linear stability. The lid-speed cavity:
+# the 64x64 cavity with mu 0.01 and the lid's u the parametric Dirichlet
+# value params["U"] (Re = 100 U), float32 Jacobian, continued U 1 -> 4
+CONT_N, CONT_MU = 64, 0.01
+# Ghia et al. (1982) Table I, Re 400: min u on x = 0.5 (at y = 0.2813)
+GHIA400_U_MIN, GHIA400_RTOL = -0.32726, 0.02
+# a predictor solve's linear iterations: within the larger of REF_LIN_TOL
+# and this share of goma_tpu's (tpu_direct's predictor solves run 214-262
+# iterations of GMRES to 1e-10 on the two-level preconditioner factored
+# from the unscaled values, as goma_tpu runs them)
+CONT_PRED_RTOL = 0.1
+# the augmenting condition's target node, and its U against 3 and against
+# goma_tpu's: the target is u from a solve at U = 3 to ||R||_2 <= 1e-6
+# (inexact float32 steps), and goma_tpu's AC lands 1.4e-6 from 3
+CONT_AC_POINT, CONT_AC_TOL = (0.5, 0.2813), 1e-5
+# dF/dU against goma_tpu's and the central difference, relative: both on a
+# state polished to 1e-10 by float64 direct solves (goma_tpu's exact and
+# central-difference values read 1.4e-9 apart)
+CONT_FLUX_RTOL = 1e-6
+# the Bratu deck: 64x64 QUAD9; its arclength lambda and its fold against
+# goma_tpu's
+CONT_BRATU_N, CONT_ARC_TOL, CONT_FOLD_TOL = 64, 1e-6, 1e-6
+# growth rates against goma_tpu's, relative
+CONT_SIG_RTOL = 1e-6
+# goma_tpu's record of phases 39-44 (scripts/continuation_reference.py
+# --part cavity --n 64, --part bratu --n 64, --part small: float64 state,
+# float32 Jacobian on the cavity, bench._cavity_opts' options, CPU, jax
+# 0.9.0): the accepted U, Newton iterations, predictor linear iterations
+# and x at 24 evenly spaced dofs of each step, min u/U on x = 0.5 at U = 4;
+# the AC's dof, start, target, U, Newton count and norms; F and dF/dU at
+# U = 4; the Bratu branch and fold; the small decks' bifurcation points
+# and growth rates
+CONT_REF = {'gmres_ndlu': {'lam': [1.0, 1.5, 2.25, 3.375, 4.0], 'newton': [4,
+    3, 3, 4, 3], 'predictor_linear': [12, 14, 19, 27], 'u_min_centre_line':
+    -0.3287460984522568, 'x_samples': [[0.0, -0.000855946445653899,
+    0.005538034215533116, -0.017510651614429662, 0.016135984755237587,
+    0.0176623197949084, -0.050311534055936136, -0.06325618672053679,
+    -0.07643789602661855, 0.043480646549141966, -0.03021773359796498,
+    -0.220466977389151, -0.10466618755162926, -0.10104084845079342,
+    -0.156308065263147, -0.0430883344670292, -0.15628090178142884,
+    0.20505948185746092, 0.06626787572167814, 0.2063281638402259,
+    -0.05114014769424102, -0.20722232612388325, 0.012776708355886512,
+    9.001314812489], [0.0, -0.0017594939417833189, 0.009281614641992064,
+    -0.030155354352473296, 0.028336448504433065, 0.031436741187995665,
+    -0.09442458084754435, -0.11087264227444393, -0.14442687203199966,
+    0.08675890433642053, -0.049221476773936956, -0.3848339911896801,
+    -0.14916561823292795, -0.18557647291891044, -0.16690015736628538,
+    -0.036144189724154785, -0.17829081946729275, 0.31865802488482586,
+    0.07541735011909623, 0.3359997533389105, -0.08185714254432241,
+    -0.2829097712244675, 0.02277802327517975, 14.226254361918109], [0.0,
+    -0.003994686246976187, 0.015904413882964263, -0.05694545428764286,
+    0.057334185812123906, 0.058938473616841236, -0.19282842399138644,
+    -0.209667572541548, -0.2938187204749738, 0.17253796220666118,
+    -0.08548568385526778, -0.5909783426000104, -0.20875033261427234,
+    -0.3180134349859145, -0.11026097008823399, -0.004708242559217979,
+    -0.1395001281216537, 0.4901764244250444, 0.0502564258131315,
+    0.5392756302366024, -0.1424876615019457, -0.38094651341702956,
+    0.039193557853934635, 23.01966331341464], [0.0, -0.009514509185628128,
+    0.027012727395884895, -0.11743443935461073, 0.12938059751058972,
+    0.11126035964806391, -0.39736088314225526, -0.40520772897161805,
+    -0.5970882127753612, 0.2826490729332818, -0.14868564666062412,
+    -0.7217504207502543, -0.25708637725449535, -0.48852033787539995,
+    -0.011602995241332792, 0.07798261923994687, -0.051185079415517976,
+    0.7299852970327265, -0.07297315447431174, 0.8642529979855453,
+    -0.2612477652182861, -0.5068416336036989, 0.0666752186976396,
+    38.41544730081205], [0.0, -0.01380810049851533, 0.033455047084174794,
+    -0.16166546427916728, 0.18321512621196234, 0.14397264302495927,
+    -0.5268245792942707, -0.531814665831007, -0.7916007499720763,
+    0.3189514333727175, -0.18599565758563585, -0.7468966776706338,
+    -0.2657505807974303, -0.5641707530827205, 0.0320119013446174,
+    0.13659408830494613, -0.001887472371890908, 0.8543560985972363,
+    -0.1813782432145672, 1.0560963090259747, -0.33986202354208217,
+    -0.566926721725622, 0.08320501547353842, 48.138745197476055]]},
+    'tpu_direct': {'lam': [1.0, 1.5, 2.25, 3.375, 4.0], 'newton': [4, 2, 3, 3,
+    2], 'predictor_linear': [214, 227, 242, 262], 'u_min_centre_line':
+    -0.32874612503447365, 'x_samples': [[0.0, -0.0008560074054218615,
+    0.00553824414794152, -0.017511551859337355, 0.016136866029135877,
+    0.01766314233741495, -0.05031465818421465, -0.06325955098993821,
+    -0.07644197357666821, 0.04348308794524397, -0.030218831730787248,
+    -0.22047538405796768, -0.10466812912675398, -0.10104389987503369,
+    -0.15630580633508923, -0.043086148318222016, -0.15627699610021026,
+    0.20506591895901793, 0.066278849678806, 0.20634047746625075,
+    -0.05112707271105835, -0.2072238272070921, 0.01277699228984824,
+    9.00133150291201], [0.0, -0.0017595031628619222, 0.009281656591030371,
+    -0.030155445796718566, 0.028336516778507317, 0.03143686432294795,
+    -0.09442493810034568, -0.11087284913729398, -0.14442688585469032,
+    0.08675890590519597, -0.04922147846666394, -0.3848343312532573,
+    -0.1491652863606459, -0.18557662905026995, -0.16689890487653308,
+    -0.03614397828551569, -0.17829088353496386, 0.31865739849736446,
+    0.07541700509086868, 0.3359997021058621, -0.0818573413338991,
+    -0.28290990470370975, 0.02277796616854616, 14.226254337600956], [0.0,
+    -0.003994681878991751, 0.01590441050306019, -0.056945466097729235,
+    0.057334197145744344, 0.05893846011618235, -0.19282837866033078,
+    -0.20966756206383122, -0.29381868226741664, 0.172537978151505,
+    -0.08548568248392037, -0.5909783252184331, -0.20875034006178061,
+    -0.3180134418589036, -0.11026100686551969, -0.0047082174405660045,
+    -0.1395001561332071, 0.4901764601074524, 0.05025643393346595,
+    0.5392756939373924, -0.14248764663756322, -0.3809465432734741,
+    0.03919355834703378, 23.01966337965704], [0.0, -0.009514509593762575,
+    0.02701272223819218, -0.11743442035763992, 0.12938059155779685,
+    0.11126035912371877, -0.39736089022011156, -0.4052077657344391,
+    -0.5970882017301301, 0.2826490479795924, -0.14868564977724322,
+    -0.721750421993005, -0.2570863595149611, -0.4885203409267337,
+    -0.011603007943187464, 0.0779826130834013, -0.051185078289634305,
+    0.72998527160159, -0.07297315430842535, 0.8642529882308482,
+    -0.2612477987142913, -0.506841618452329, 0.06667521802145618,
+    38.41544730483959], [0.0, -0.013808103202105843, 0.0334550522490459,
+    -0.1616654533499758, 0.1832151120005745, 0.14397266026967281,
+    -0.5268246314245536, -0.531814695414074, -0.791600782513409,
+    0.31895143789534974, -0.18599565490880665, -0.7468966632015807,
+    -0.2657505422670936, -0.5641707569326334, 0.03201196401531539,
+    0.13659411368303556, -0.0018874529412517926, 0.8543561158745863,
+    -0.18137825513349737, 1.056096328437176, -0.3398620552829275,
+    -0.5669267230917437, 0.0832050148981515, 48.13874522528291]]}, 'ac':
+    {'dof': 10618, 'start': 2.25, 'target': -0.8829638489160061, 'p':
+    2.9999986375241128, 'iters': 3, 'res_norms': [0.3262066138959199,
+    0.003981090583357513, 4.1977621658243344e-05, 1.2573937407753257e-07]},
+    'flux': {'F': 1.100002971486906, 'dF_dU': 0.33971732946406047,
+    'central_difference': 0.33971732898807616, 'h': 0.001}, 'bratu': {'lam':
+    [0.0, 1.0, 2.5, 4.75, 6.0], 'newton': [0, 2, 2, 3, 3], 'arc_lam': [6.0,
+    6.177886276004049, 6.373105976310538, 6.568719494004536,
+    6.731981346487176, 6.807955198996741, 6.715873154856334,
+    6.431512440847872], 'arc_newton': [0, 2, 3, 3, 3, 3, 3, 3], 'folds': [5],
+    'fold_lam': 6.808124457169645, 'fold_iters': 3}, 'small': {'pitchfork':
+    {'lam': 9.869736469197013, 'iters': 2, 'converged': True}, 'hopf': {'b':
+    2.6899999999943667, 'omega': 1.2999999999925085, 'iters': 5, 'converged':
+    True}, 'rb_sweep': [[1.2, -1.8705245979796907], [1.8,
+    0.04155504963399331], [2.221, 0.4688221765221141], [2.8,
+    -0.1079162936339314], [3.6, -2.897109060779844]], 'film': [[0.2,
+    -0.0014868959705559663, -0.0014926375362896798], [0.4,
+    -0.009928107306018992, -0.009946356238387022], [0.8, -0.07181276056188003,
+    -0.07184933230283652], [1.5, -0.3500930922062093, -0.35011998130697547]],
+    'couette': [[0.5, -1.1543599106060125], [2.0, -2.9696508533473507]],
+    'heat_device': [-78.99727217857367, -49.36856389720157,
+    -49.36856389263032, -19.739855578785836]}}
 # device_ms's guard tensor and its kernel's name (_guard_kernel)
 _GUARD = []
 
@@ -3722,6 +3904,586 @@ def bc_small_phase():
                                f"{it_p}, x {dx:.2e} > {BC_X_TOL:.0e})")
 
 
+def lid_cavity_problem(n, device):
+    """The continuation deck: ``cavity_problem(n)`` with mu = CONT_MU and the
+    lid's u the parametric Dirichlet value params["U"] (Re = 100 U),
+    float32 Jacobian."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import Continuity, Momentum
+
+    mesh = rectangle_mesh(n, n, elem="QUAD9")
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    top = mesh.nodesets["top"]
+    xt = mesh.coords[top, 0]
+    mesh.nodesets["lid"] = top[(xt > xt.min()) & (xt < xt.max())]
+    prob = Problem(mesh, [Momentum(dim=2, interp="Q2", transient=False),
+                          Continuity(interp="Q1")],
+                   {"rho": 1.0, "mu": CONT_MU}, device=device)
+    for ns in ("left", "right", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("lid", "velocity", 0, lambda c, p: p["U"])
+    prob.add_dirichlet("lid", "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.finalize()
+    prob.jacobian_dtype = torch.float32
+    return prob
+
+
+def scalar_params(prob, key):
+    """make_params(v): the problem's base params with ``key`` the 0-d tensor
+    v on its device (v a float, or a tensor carrying a tangent)."""
+    def make_params(v):
+        return prob.base_params(**{key: torch.as_tensor(
+            v, dtype=prob.dtype, device=prob.device)})
+    return make_params
+
+
+def reset_counts():
+    """Every kernel's launch count and ``_dR_dlam``'s route counts to 0."""
+    from goma_tpu_torch.continuation.conti import _dR_dlam
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    _dR_dlam.routes.update(jvp=0, central_difference=0)
+    torch.cuda.synchronize()
+
+
+def read_counts():
+    """({"lu", "trsv", "gather": launches}, {"jvp", "central_difference"})."""
+    from goma_tpu_torch.continuation.conti import _dR_dlam
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+
+    torch.cuda.synchronize()
+    return ({"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+             "gather": front_gather.launches}, dict(_dR_dlam.routes))
+
+
+@contextmanager
+def continuation_probe():
+    """While a continuation runs (its Newton solver is its own): every
+    Newton solve's end (host clock after a synchronize, Newton iterations,
+    convergence, the launches and factorizations so far, the solver),
+    every predictor solve's linear iterations (``_solve_gmres``, which only
+    the continuation layer calls), and each NDLU's last factored CSR
+    values. The class methods are restored on exit."""
+    from goma_tpu_torch.solvers import NewtonSolver
+    from goma_tpu_torch.solvers.ndlu import NDLU
+
+    rec = {"solves": [], "pred": [], "factored": {}}
+    solve, pred, factor = NewtonSolver.solve, NewtonSolver._solve_gmres, NDLU.factor
+
+    def solve_rec(self, x0, params):
+        res = solve(self, x0, params)
+        ln, _ = read_counts()
+        rec["solves"].append({
+            "t": time.perf_counter(), "iters": res.iters,
+            "converged": res.converged, "launches": ln, "solver": self,
+            "factorizations": self.n_factor + self._ndlu_nfactor})
+        return res
+
+    def pred_rec(self, vals, R, *a, **k):
+        out = pred(self, vals, R, *a, **k)
+        rec["pred"].append(int(out.iters))
+        return out
+
+    def factor_rec(self, vals, *a, **k):
+        rec["factored"][id(self)] = (self, vals)
+        return factor(self, vals, *a, **k)
+
+    NewtonSolver.solve, NewtonSolver._solve_gmres = solve_rec, pred_rec
+    NDLU.factor = factor_rec
+    try:
+        yield rec
+    finally:
+        NewtonSolver.solve, NewtonSolver._solve_gmres = solve, pred
+        NDLU.factor = factor
+
+
+def continuation_phase(dev, rung):
+    """Phases 39 (``gmres_ndlu``) and 40 (``tpu_direct``): the 64x64 lid-speed
+    cavity continued by ``continue_problem(make_params, 1.0, 4.0, dlam0=0.5,
+    x0=0, first_order=True)`` (Re 100 -> 400) on the rung's options, every
+    count set to 0 just before and read just after. Prints each step (U,
+    Newton and predictor linear iterations beside goma_tpu's, s, launches
+    and factorizations) and requires goma_tpu's accepted U sequence
+    (``CONT_REF``), Newton +-1 a step, the predictor's linear iterations
+    within REF_LIN_TOL or CONT_PRED_RTOL, x at the sampled dofs of every
+    step within
+    REF_X_TOL, u/U's minimum on x = 0.5 at U = 4 within
+    ``GHIA400_RTOL`` of Ghia's Re 400 value, every predictor's dR/dU by the
+    exact jvp route, front-LU and front-gather launches = levels x NDLU
+    factorizations and (``tpu_direct``) substitution launches = 2 x levels
+    x NDLU solves. Then each kernel against its plain version on the fronts
+    of the run's last NDLU factorization (and, ``tpu_direct``, on the
+    substitutions of a solve with that factor)."""
+    from goma_tpu_torch.continuation import continue_problem
+
+    label = f"continuation {rung}"
+    t_phase = time.perf_counter()
+    prob = lid_cavity_problem(CONT_N, dev)
+    ref = CONT_REF[rung]
+    opts = cavity_opts() if rung == "gmres_ndlu" else direct_opts()
+    make_params = scalar_params(prob, "U")
+    n = prob.dofmap.n_dof
+    reset_counts()
+    t0 = time.perf_counter()
+    with continuation_probe() as rec:
+        steps = continue_problem(prob, make_params, 1.0, 4.0, 0.5, np.zeros(n),
+                                 opts, first_order=True)
+    sec = time.perf_counter() - t0
+    ln, routes = read_counts()
+    solves = rec["solves"]
+    solver = solves[-1]["solver"]
+    log(f"{label}: {len(steps)} steps in {sec:.2f} s, {len(solves)} Newton "
+        f"solves, {len(rec['pred'])} predictor solves; launches {ln}; "
+        f"_dR_dlam routes {routes}")
+    samples = np.linspace(0, n - 1, REF_SAMPLES).astype(np.int64)
+    lams = [float(s.lam) for s in steps]
+    t_prev, ln_prev, f_prev = t0, {k: 0 for k in ln}, 0
+    for k, (s, sv) in enumerate(zip(steps, solves)):
+        d_ln = {q: sv["launches"][q] - ln_prev[q] for q in ln}
+        pl = rec["pred"][k - 1] if k else "-"
+        rl = ref["predictor_linear"][k - 1] if k else "-"
+        log(f"{label} step {k}: U = {s.lam:.4f} (goma_tpu {ref['lam'][k]:.4f}), "
+            f"Newton {s.newton_iters} (goma_tpu {ref['newton'][k]}), predictor "
+            f"linear {pl} (goma_tpu {rl}), {sv['t'] - t_prev:.3f} s, "
+            f"factorizations {sv['factorizations'] - f_prev}, launches {d_ln}, "
+            f"x at {REF_SAMPLES} dofs {rel_dx(s.x[samples], np.asarray(ref['x_samples'][k])):.2e} "
+            "from goma_tpu's")
+        t_prev, ln_prev, f_prev = sv["t"], sv["launches"], sv["factorizations"]
+    if len(solves) != len(steps):
+        raise RuntimeError(f"{label}: {len(solves) - len(steps)} rejected steps "
+                           "(goma_tpu's run had none)")
+    if len(lams) != len(ref["lam"]) or max(abs(a - b) for a, b in
+                                           zip(lams, ref["lam"])) > 1e-12:
+        raise RuntimeError(f"{label}: accepted U {lams} != goma_tpu's {ref['lam']}")
+    if any(abs(s.newton_iters - r) > 1 for s, r in zip(steps, ref["newton"])):
+        raise RuntimeError(f"{label}: Newton {[s.newton_iters for s in steps]} "
+                           f"not within 1 of goma_tpu's {ref['newton']}")
+    if len(rec["pred"]) != len(ref["predictor_linear"]) or any(
+            abs(a - b) > max(REF_LIN_TOL, CONT_PRED_RTOL * b) for a, b in
+            zip(rec["pred"], ref["predictor_linear"])):
+        raise RuntimeError(f"{label}: predictor linear iterations {rec['pred']} "
+                           f"not within {REF_LIN_TOL} or {CONT_PRED_RTOL:.0%} "
+                           f"of goma_tpu's {ref['predictor_linear']}")
+    for k, s in enumerate(steps):
+        if not np.all(np.isfinite(s.x)) or s.x.shape != (n,):
+            raise RuntimeError(f"{label} step {k}: wrong shape or non-finite x")
+        dx = rel_dx(s.x[samples], np.asarray(ref["x_samples"][k]))
+        if dx > REF_X_TOL:
+            raise RuntimeError(f"{label} step {k}: x is {dx:.2e} from goma_tpu's "
+                               f"> {REF_X_TOL:.0e}")
+    line = np.abs(prob.mesh.coords[:, 0] - 0.5) < 1e-9
+    u_min = float(np.nanmin(prob.get_nodal_field(steps[-1].x, "velocity", 0)[line])
+                  / steps[-1].lam)
+    log(f"{label}: min u/U on x = 0.5 at U = 4 (Re 400) {u_min:.5f} (Ghia "
+        f"{GHIA400_U_MIN}, goma_tpu {ref['u_min_centre_line']:.5f})")
+    if abs(u_min - GHIA400_U_MIN) > GHIA400_RTOL * abs(GHIA400_U_MIN):
+        raise RuntimeError(f"{label}: min u/U {u_min:.5f} not within "
+                           f"{GHIA400_RTOL:.0%} of Ghia's {GHIA400_U_MIN}")
+    if routes["central_difference"] or routes["jvp"] != len(rec["pred"]):
+        raise RuntimeError(f"{label}: dR/dU routes {routes}, not the exact jvp "
+                           f"for each of {len(rec['pred'])} predictors")
+    # the NDLU the rung factors on: the preconditioner, or tpu_direct's own
+    nd_last = [(nd, v) for nd, v in rec["factored"].values()
+               if nd.invert == (rung == "gmres_ndlu")]
+    if len(nd_last) != 1:
+        raise RuntimeError(f"{label}: {len(nd_last)} NDLUs factored, not one")
+    nd, vals = nd_last[0]
+    levels = len(nd.levels)
+    direct = rung == "tpu_direct"
+    nfac = solver._ndlu_nfactor if direct else solver.n_factor
+    if nfac < 1 or ln["lu"] != levels * nfac or ln["gather"] != levels * nfac:
+        raise RuntimeError(f"{label}: front-LU launches {ln['lu']} / front-gather "
+                           f"launches {ln['gather']} != {levels} levels x {nfac} "
+                           "factorizations")
+    if direct and (nd.n_solve < 1 or ln["trsv"] != 2 * levels * nd.n_solve):
+        raise RuntimeError(f"{label}: substitution launches {ln['trsv']} != 2 x "
+                           f"{levels} levels x {nd.n_solve} solves")
+    out = {"prob": prob, "steps": steps, "launches": ln,
+           "max_abs": check_real_fronts(nd, vals, f"{label} last factorization"),
+           "gather_abs": check_gathers(nd, vals, f"{label} tree")}
+    if direct:
+        calls = []
+        rhs = torch.as_tensor(np.random.default_rng(39).standard_normal(n),
+                              dtype=vals.dtype, device=vals.device)
+        nd.solve(nd.factor(vals), rhs, trace=calls)
+        out["trsv"] = check_substitutions(calls, label)
+    log(f"phase {39 if rung == 'gmres_ndlu' else 40} ({label}): "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def augmenting_phase(prob, steps):
+    """Phase 41: the augmenting condition on the 64x64 lid-speed cavity
+    (``gmres_ndlu`` options, ``linear_tol=1e-8``): find U such that u at the
+    node nearest CONT_AC_POINT equals the value goma_tpu's solve at U = 3
+    reaches, from the accepted step below 3 (``CONT_REF["ac"]``). Requires
+    convergence, |U - 3| <= CONT_AC_TOL, U within CONT_AC_TOL of goma_tpu's,
+    goma_tpu's Newton count +-1, the exact route, and front-LU and
+    front-gather launches = levels x factorizations."""
+    import dataclasses
+
+    from goma_tpu_torch.continuation import (AugmentedNewtonSolver,
+                                             AugmentingCondition)
+
+    t_phase = time.perf_counter()
+    ref = CONT_REF["ac"]
+    coords = prob.mesh.coords
+    node = int(np.argmin(np.sum((coords - np.array(CONT_AC_POINT)) ** 2, axis=1)))
+    dof = int(prob.dofmap.dof_of_node_svar[node, prob.dofmap.svar("velocity", 0)])
+    if dof != ref["dof"]:
+        raise RuntimeError(f"AC: dof {dof} != goma_tpu's {ref['dof']}")
+    start = next(s for s in steps if s.lam == ref["start"])
+    target = ref["target"]
+    ac = AugmentingCondition(key="U", g=lambda x, p: x[dof] - target, p0=start.lam)
+    opts = dataclasses.replace(cavity_opts(), linear_tol=1e-8)
+    solver = AugmentedNewtonSolver(prob, [ac], opts)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solver.solve(start.x, scalar_params(prob, "U")(start.lam))
+    sec = time.perf_counter() - t0
+    ln, routes = read_counts()
+    U = float(res.p[0])
+    nf = solver.solver.n_factor
+    log(f"AC: from U = {start.lam} to u(node {node}) = {target:.6f}: U = {U:.10f} "
+        f"(goma_tpu {ref['p']:.10f}), converged {res.converged}, {res.iters} "
+        f"Newton (goma_tpu {ref['iters']}), norms {res.res_norms} (goma_tpu "
+        f"{ref['res_norms']}), {sec:.2f} s, {nf} factorizations, launches {ln}, "
+        f"_dR_dlam routes {routes} (its dR/dU is its own jvp)")
+    if not res.converged or abs(U - 3.0) > CONT_AC_TOL or abs(U - ref["p"]) > CONT_AC_TOL:
+        raise RuntimeError(f"AC: U = {U} (converged {res.converged}) not within "
+                           f"{CONT_AC_TOL:.0e} of 3 and of goma_tpu's {ref['p']}")
+    if abs(res.iters - ref["iters"]) > 1:
+        raise RuntimeError(f"AC: {res.iters} Newton, not goma_tpu's {ref['iters']} +- 1")
+    if routes["central_difference"]:
+        raise RuntimeError(f"AC: dR/dU took the central difference {routes}")
+    levels = len(solver.solver.precond.levels)
+    if nf < 1 or ln["lu"] != levels * nf or ln["gather"] != levels * nf:
+        raise RuntimeError(f"AC: front-LU launches {ln['lu']} / front-gather "
+                           f"launches {ln['gather']} != {levels} levels x {nf} "
+                           "factorizations")
+    log(f"phase 41 (augmenting condition): {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": ln}
+
+
+def flux_phase(prob, x4):
+    """Phase 42: dF/dU of the lid's x-traction (``traction_integrand(0)``
+    over "top") at U = 4, on phase 39's state polished by the host ``direct``
+    rung to 1e-10: ``post.flux_sensitivity`` (its dR/dU by the exact jvp
+    route) within CONT_FLUX_RTOL of goma_tpu's and of the central
+    difference over two direct solves at U +- 1e-3."""
+    from goma_tpu_torch.post import sideset_integral, traction_integrand
+    from goma_tpu_torch.post.postproc import flux_sensitivity
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+
+    t_phase = time.perf_counter()
+    ref = CONT_REF["flux"]
+    mp = scalar_params(prob, "U")
+    direct = NewtonOptions(max_iter=8, tol_residual=1e-10, linear_solver="direct")
+    r4 = NewtonSolver(prob, direct).solve(x4, mp(4.0))
+    if not r4.converged:
+        raise RuntimeError("flux: the U = 4 state did not polish to 1e-10")
+    F = sideset_integral(prob, "top", traction_integrand(0))
+    dev_x = torch.as_tensor(r4.x, dtype=prob.dtype, device=prob.device)
+    F4 = float(F(dev_x, mp(4.0)))
+    reset_counts()
+    t0 = time.perf_counter()
+    dF = float(flux_sensitivity(prob, F, r4.x, mp(4.0), "U"))
+    sec = time.perf_counter() - t0
+    _, routes = read_counts()
+    h = ref["h"]
+    Fh = []
+    for U in (4.0 + h, 4.0 - h):
+        r = NewtonSolver(prob, direct).solve(r4.x, mp(U))
+        Fh.append(float(F(torch.as_tensor(r.x, dtype=prob.dtype,
+                                          device=prob.device), mp(U))))
+    cd = (Fh[0] - Fh[1]) / (2 * h)
+    log(f"flux: F = {F4:.10f} (goma_tpu {ref['F']:.10f}), dF/dU = {dF:.10f} "
+        f"(goma_tpu {ref['dF_dU']:.10f}; central difference {cd:.10f}, "
+        f"goma_tpu's {ref['central_difference']:.10f}), {sec:.2f} s, routes {routes}")
+    if routes != {"jvp": 1, "central_difference": 0}:
+        raise RuntimeError(f"flux: dR/dU routes {routes}, not one exact jvp")
+    for name, v in (("goma_tpu's", ref["dF_dU"]), ("the central difference", cd)):
+        if abs(dF - v) > CONT_FLUX_RTOL * abs(v):
+            raise RuntimeError(f"flux: dF/dU {dF} not within {CONT_FLUX_RTOL:.0e} "
+                               f"of {name} {v}")
+    log(f"phase 42 (flux sensitivity): {time.perf_counter() - t_phase:.1f} s")
+
+
+def bratu_problem(n, device):
+    """-lap T = lam e^T on the n x n QUAD9 unit square, T = 0 on the
+    boundary (tests/test_continuation.py's Bratu deck)."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import Energy
+
+    def source(fv, mat, params):
+        return params["lam"] * torch.exp(fv.val["temperature"][:, 0])
+
+    prob = Problem(rectangle_mesh(n, n, elem="QUAD9"),
+                   [Energy(interp="Q2", transient=False, convection=False)],
+                   {"k": 1.0, "heat_source": source}, device=device)
+    for ns in ("left", "right", "top", "bottom"):
+        prob.add_dirichlet(ns, "temperature", 0, 0.0)
+    prob.finalize()
+    return prob
+
+
+def bratu_phase(dev):
+    """Phase 43: the Bratu turning point on the 64x64 QUAD9 square (16,641
+    dof; the generic AD assembly and the nested jvps on the card, the host
+    ``direct`` solves goma_tpu's fold tracker defaults to): first-order
+    continuation 0 -> 6, ``arclength_continue`` from 6 (ds0 4, lam_scale 5,
+    7 steps), ``detect_folds``, ``fold_track`` from the step before the
+    fold. Requires goma_tpu's lambda sequences and Newton counts
+    (``CONT_REF["bratu"]``; arclength lambda within CONT_ARC_TOL), lam_c
+    within CONT_FOLD_TOL of goma_tpu's and within 0.02 of 6.808, and every
+    dR/dlam by the exact route."""
+    from goma_tpu_torch.continuation import (arclength_continue,
+                                             continue_problem, detect_folds,
+                                             fold_track)
+    from goma_tpu_torch.solvers import NewtonOptions
+
+    t_phase = time.perf_counter()
+    ref = CONT_REF["bratu"]
+    prob = bratu_problem(CONT_BRATU_N, dev)
+    mp = scalar_params(prob, "lam")
+    reset_counts()
+    t0 = time.perf_counter()
+    steps = continue_problem(prob, mp, 0.0, 6.0, 1.0, np.zeros(prob.dofmap.n_dof),
+                             NewtonOptions(max_iter=12, tol_residual=1e-10,
+                                           linear_solver="direct"))
+    t1 = time.perf_counter()
+    arc = arclength_continue(prob, mp, 6.0, steps[-1].x, ds0=4.0, n_steps=7,
+                             newton_options=NewtonOptions(
+                                 max_iter=12, tol_residual=1e-9,
+                                 linear_solver="direct"), lam_scale=5.0)
+    folds = detect_folds(arc)
+    t2 = time.perf_counter()
+    if not folds:
+        raise RuntimeError(f"Bratu: no fold on the arclength branch "
+                           f"{[a.lam for a in arc]}")
+    i = folds[0] - 1
+    fr = fold_track(prob, mp, arc[i].lam, arc[i].x,
+                    NewtonOptions(linear_solver="direct"), tol=1e-8)
+    t3 = time.perf_counter()
+    _, routes = read_counts()
+    lams = [float(s.lam) for s in steps]
+    arc_lams = [float(a.lam) for a in arc]
+    log(f"Bratu {prob.dofmap.n_dof} dof: continuation U {lams} Newton "
+        f"{[s.newton_iters for s in steps]} (goma_tpu {ref['lam']} "
+        f"{ref['newton']}) {t1 - t0:.2f} s; arclength {arc_lams} Newton "
+        f"{[a.newton_iters for a in arc]} (goma_tpu {ref['arc_lam']} "
+        f"{ref['arc_newton']}) {t2 - t1:.2f} s, folds {folds}; fold_track "
+        f"lam_c = {fr.lam:.10f} (goma_tpu {ref['fold_lam']:.10f}), "
+        f"{fr.iters} iterations (goma_tpu {ref['fold_iters']}), norms "
+        f"{fr.res_norms}, {t3 - t2:.2f} s; routes {routes}")
+    if lams != ref["lam"] or [s.newton_iters for s in steps] != ref["newton"]:
+        raise RuntimeError("Bratu: the continuation is not goma_tpu's")
+    if (folds != ref["folds"] or len(arc_lams) != len(ref["arc_lam"])
+            or max(abs(a - b) for a, b in zip(arc_lams, ref["arc_lam"])) > CONT_ARC_TOL
+            or [a.newton_iters for a in arc] != ref["arc_newton"]):
+        raise RuntimeError("Bratu: the arclength branch is not goma_tpu's")
+    if (not fr.converged or abs(fr.lam - ref["fold_lam"]) > CONT_FOLD_TOL
+            or abs(fr.lam - 6.808) > 0.02):
+        raise RuntimeError(f"Bratu: lam_c {fr.lam} (converged {fr.converged}) "
+                           f"not within {CONT_FOLD_TOL:.0e} of goma_tpu's "
+                           f"{ref['fold_lam']} and 0.02 of 6.808")
+    if routes["central_difference"] or not routes["jvp"]:
+        raise RuntimeError(f"Bratu: dR/dlam routes {routes}")
+    log(f"phase 43 (Bratu fold): {time.perf_counter() - t_phase:.1f} s")
+
+
+def film_problem(dev, zmode, ny=12, rho=0.01, g=8.0):
+    """examples/film_stability.py::run's film restated: a viscous film
+    (depth 1, mu 1, sigma 1, rho 0.01, g 8) on a no-slip floor with a free
+    capillary top, ALE, plus the z-mode equations (``zmode``)."""
+    from goma_tpu_torch.bc import CapillaryBC, KinematicBC
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import (CapillaryZNormal, Continuity,
+                                        EllipticMesh, Momentum, zmode_equations)
+
+    mesh = rectangle_mesh(2, ny, elem="QUAD9", xlim=(0, 0.25), ylim=(0, 1.0))
+    eqs = [Momentum(dim=2, interp="Q2", transient=True), Continuity(interp="Q1"),
+           EllipticMesh(dim=2, interp="Q2")]
+    if zmode:
+        eqs += zmode_equations(dim=2)
+    prob = Problem(mesh, eqs, {"rho": rho, "mu": 1.0, "sigma": 1.0,
+                               "body_force": np.array([0.0, -g])}, device=dev)
+    for c in (0, 1):
+        prob.add_dirichlet("bottom", "velocity", c, 0.0)
+        prob.add_dirichlet("bottom", "mesh_displacement", c, 0.0)
+    if zmode:
+        prob.add_dirichlet("bottom", "nm_w", 0, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "velocity", 0, 0.0)
+        prob.add_dirichlet(ns, "mesh_displacement", 0, 0.0)
+    prob.add_face_kernel("top", CapillaryBC(dim=2))
+    prob.add_face_kernel("top", KinematicBC(dim=2))
+    if zmode:
+        prob.add_face_kernel("top", CapillaryZNormal(dim=2))
+    prob.finalize()
+    return prob
+
+
+def stability_phase(dev):
+    """Phase 44: the pitchfork (10x1) and Hopf (3x3 Brusselator) decks of
+    tests/test_bifurcation2.py (lambda* = pi^2 within 1e-3, b* = 1 + a^2 and
+    omega = a within 1e-8, each within 1e-8 of goma_tpu's); the growth rates
+    of examples/rayleigh_benard_3d_stability.py::sweep(Ra=700) and
+    examples/film_stability.py::run() restated (film within 2% of its exact
+    dispersion), of the plane-Couette 3D-of-2D driver of
+    tests/test_normal_mode.py, and of ``solve_stability_device`` on the 8x8
+    heat spectrum, each within CONT_SIG_RTOL of goma_tpu's
+    (``CONT_REF["small"]``). The Jacobians, mass matrices and derivative
+    actions on the card, the eigensolves' small systems on the host."""
+    from goma_tpu_torch.continuation import (solve_stability,
+                                             solve_stability_3d_of_2d,
+                                             solve_stability_3d_of_2d_ale)
+    from goma_tpu_torch.continuation.bifurcation import (hopf_track,
+                                                         pitchfork_track)
+    from goma_tpu_torch.continuation.stability import solve_stability_device
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import (Continuity, Energy, Momentum,
+                                        NormalModeContinuity, NormalModeEnergy,
+                                        NormalModeMomentum, NormalModeW, Species)
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+
+    t_phase = time.perf_counter()
+    ref = CONT_REF["small"]
+
+    def close(name, got, want, rtol):
+        got, want = np.asarray(got, dtype=float), np.asarray(want, dtype=float)
+        err = float(np.max(np.abs(got - want) / np.abs(want)))
+        log(f"{name}: {got.tolist()} (goma_tpu {want.tolist()}), max rel "
+            f"diff {err:.2e}")
+        if got.shape != want.shape or not err <= rtol:
+            raise RuntimeError(f"{name}: not within {rtol:.0e} of goma_tpu's")
+
+    # pitchfork: u'' + lam u - u^3 = 0
+    prob = Problem(rectangle_mesh(10, 1, elem="QUAD9"),
+                   [Species(1, interp="Q2", transient=False, convection=False)],
+                   {"diffusivity": 1.0, "species_source":
+                    lambda fv, mat, params: params["lam"] * fv.val["species"]
+                    - fv.val["species"] ** 3}, device=dev)
+    prob.add_dirichlet("left", "species", 0, 0.0)
+    prob.add_dirichlet("right", "species", 0, 0.0)
+    prob.finalize()
+    psi = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "species", 0,
+                               lambda X: np.sin(np.pi * X[:, 0]))
+    pf = pitchfork_track(prob, scalar_params(prob, "lam"), lam0=9.3,
+                         x0=np.zeros(prob.dofmap.n_dof), psi=psi)
+    log(f"pitchfork: lam* = {pf.lam:.12f} (pi^2 {np.pi ** 2:.12f}, goma_tpu "
+        f"{ref['pitchfork']['lam']:.12f}), {pf.iters} iterations")
+    if (not pf.converged or abs(pf.lam - np.pi ** 2) > 1e-3 * np.pi ** 2
+            or abs(pf.lam - ref["pitchfork"]["lam"]) > 1e-8):
+        raise RuntimeError(f"pitchfork: lam* {pf.lam}")
+    # Hopf: the Brusselator, a = 1.3
+    a = 1.3
+
+    def brus(fv, mat, params):
+        u, v = fv.val["species"][:, 0], fv.val["species"][:, 1]
+        b = params["b"]
+        return torch.stack([a - (b + 1.0) * u + u * u * v, b * u - u * u * v], 1)
+
+    prob = Problem(rectangle_mesh(3, 3, elem="QUAD4"),
+                   [Species(2, interp="Q1", transient=True, convection=False)],
+                   {"diffusivity": torch.tensor([0.02, 0.05], dtype=torch.float64,
+                                                device=dev),
+                    "species_source": brus}, device=dev)
+    prob.finalize()
+    b0 = 1.0 + a * a + 0.25
+    x0 = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "species", 0, a)
+    x0 = prob.set_nodal_field(x0, "species", 1, b0 / a)
+    hp = hopf_track(prob, scalar_params(prob, "b"), lam0=b0, omega0=1.15 * a,
+                    x0=x0, tol=1e-9)
+    log(f"Hopf: b* = {hp.lam:.12f} (1 + a^2 = {1 + a * a:.12f}, goma_tpu "
+        f"{ref['hopf']['b']:.12f}), omega = {abs(hp.omega):.12f} (a = {a}, "
+        f"goma_tpu {ref['hopf']['omega']:.12f}), {hp.iters} iterations")
+    for got, exact, rec in ((hp.lam, 1 + a * a, ref["hopf"]["b"]),
+                            (abs(hp.omega), a, ref["hopf"]["omega"])):
+        if not hp.converged or abs(got - exact) > 1e-8 * exact or abs(got - rec) > 1e-8:
+            raise RuntimeError(f"Hopf: {got} vs exact {exact}, goma_tpu {rec}")
+    # Rayleigh-Benard, Ra = 700, the example's wavenumbers
+    mesh = rectangle_mesh(3, 6, elem="QUAD9", xlim=(0, 0.5), ylim=(0, 1))
+    prob = Problem(mesh, [NormalModeMomentum(), NormalModeW(),
+                          NormalModeContinuity(), NormalModeEnergy()],
+                   {"rho": 1.0, "mu": 1.0, "k": 1.0, "Cp": 1.0,
+                    "buoyancy": (0.0, 700.0)},
+                   external_fields=("u0", "v0", "T0"), device=dev)
+    for ns in ("top", "bottom"):
+        prob.add_dirichlet(ns, "nm_velocity", 1, 0.0)
+        prob.add_dirichlet(ns, "nm_temperature", 0, 0.0)
+    for ns in ("left", "right"):
+        prob.add_dirichlet(ns, "nm_velocity", 0, 0.0)
+    prob.finalize()
+    z = np.zeros(mesh.n_nodes)
+    sig = []
+    for b, _ in ref["rb_sweep"]:
+        p = prob.base_params(beta=torch.tensor(b, dtype=prob.dtype, device=dev),
+                             ext_u0=z, ext_v0=z, ext_T0=1.0 - mesh.coords[:, 1])
+        sig.append(float(solve_stability(prob, np.zeros(prob.dofmap.n_dof), p,
+                                         n_modes=2, shift=0.5).growth_rates.real.max()))
+    close("Rayleigh-Benard Ra 700 growth rates", sig,
+          [s for _, s in ref["rb_sweep"]], CONT_SIG_RTOL)
+    # the film
+    base = film_problem(dev, zmode=False)
+    res = NewtonSolver(base, NewtonOptions(max_iter=6, tol_residual=1e-11,
+                                           linear_solver="direct")).solve(
+        np.zeros(base.dofmap.n_dof), base.base_params())
+    if not res.converged:
+        raise RuntimeError("film: the base state did not converge")
+    ext = film_problem(dev, zmode=True)
+    sig = []
+    for b, _, se in ref["film"]:
+        (_, s, _), = solve_stability_3d_of_2d_ale(ext, base, res.x, [b],
+                                                  n_modes=4, shift=se)
+        if abs(s - se) > 0.02 * abs(se):
+            raise RuntimeError(f"film: beta {b}: {s} not within 2% of the exact {se}")
+        sig.append(s)
+    close("film growth rates", sig, [s for _, s, _ in ref["film"]], CONT_SIG_RTOL)
+    # plane Couette through the 3D-of-2D driver
+    mesh = rectangle_mesh(3, 8, elem="QUAD9", xlim=(0, 0.5), ylim=(0, 1))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    base = Problem(mesh, [Momentum(dim=2, interp="Q2", transient=False),
+                          Continuity(interp="Q1")], {"rho": 1.0, "mu": 0.1},
+                   device=dev)
+    for ns in ("left", "right", "top", "bottom"):
+        base.add_dirichlet(ns, "velocity", 0, lambda c: c[:, 1])
+        base.add_dirichlet(ns, "velocity", 1, 0.0)
+    base.add_dirichlet("pin", "pressure", 0, 0.0)
+    base.finalize()
+    res = NewtonSolver(base, NewtonOptions(max_iter=8, tol_residual=1e-10,
+                                           linear_solver="direct")).solve(
+        np.zeros(base.dofmap.n_dof), base.base_params())
+    out = solve_stability_3d_of_2d(base, res.x, betas=[b for b, _ in ref["couette"]],
+                                   mat={"rho": 1.0, "mu": 0.1}, n_modes=3, shift=0.0)
+    close("plane Couette growth rates", [s for _, s, _ in out],
+          [s for _, s in ref["couette"]], CONT_SIG_RTOL)
+    # the device Arnoldi on the heat spectrum
+    prob = Problem(rectangle_mesh(8, 8, elem="QUAD9"),
+                   [Energy(interp="Q2", transient=True, convection=False)],
+                   {"rho": 1.0, "Cp": 1.0, "k": 1.0}, device=dev)
+    for ns in ("left", "right", "top", "bottom"):
+        prob.add_dirichlet(ns, "temperature", 0, 0.0)
+    prob.finalize()
+    r = solve_stability_device(prob, np.zeros(prob.dofmap.n_dof),
+                               prob.base_params(), n_modes=4,
+                               shift=-2 * np.pi ** 2)
+    close("heat spectrum (device Arnoldi)", sorted(r.growth_rates.real),
+          ref["heat_device"], CONT_SIG_RTOL)
+    log(f"phase 44 (bifurcations and stability): {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -3731,6 +4493,7 @@ def main() -> int:
     from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
     from goma_tpu_torch.solvers.twolevel import _saddle_mask
 
+    t_run = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = gpu_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
@@ -4029,6 +4792,22 @@ def main() -> int:
     # ---- 38. small decks of this slice's conditions, cuda vs cpu
     bc_small_phase()
 
+    # ---- 39.-40. the 64x64 lid-speed continuation on both rungs
+    t_cont = time.perf_counter()
+    cg = continuation_phase(dev, "gmres_ndlu")
+    cd = continuation_phase(dev, "tpu_direct")
+    del cd["prob"], cd["steps"]
+
+    # ---- 41.-42. the augmenting condition and the flux sensitivity
+    ca = augmenting_phase(cg["prob"], cg["steps"])
+    flux_phase(cg.pop("prob"), cg.pop("steps")[-1].x)
+
+    # ---- 43.-44. the Bratu fold; bifurcations and stability
+    bratu_phase(dev)
+    stability_phase(dev)
+    log(f"phases 39-44 (continuation and stability): "
+        f"{time.perf_counter() - t_cont:.1f} s; {mem_line()}")
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -4046,7 +4825,10 @@ def main() -> int:
                 "tilted gmres_ndlu": tg["launches"],
                 "tilted tpu_direct": tdr["launches"],
                 "periodic gmres_ndlu": pg["launches"],
-                "periodic tpu_direct": pdr["launches"]}
+                "periodic tpu_direct": pdr["launches"],
+                "continuation gmres_ndlu": cg["launches"],
+                "continuation tpu_direct": cd["launches"],
+                "augmenting condition gmres_ndlu": ca["launches"]}
 
     def deck_keys(prefix, rec, kind):
         """A deck's numbers of one kernel for the summary line."""
@@ -4082,7 +4864,8 @@ def main() -> int:
         "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"],
                            tp["max_abs"], sc["max_abs"], sd["max_abs"],
                            dg["max_abs"], dd["max_abs"], tg["max_abs"],
-                           tdr["max_abs"], pg["max_abs"], pdr["max_abs"]),
+                           tdr["max_abs"], pg["max_abs"], pdr["max_abs"],
+                           cg["max_abs"], cd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -4119,7 +4902,8 @@ def main() -> int:
         "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
                            vd["trsv"]["max_abs"], td["trsv"]["max_abs"],
                            sd["trsv"]["max_abs"], dd["trsv"]["max_abs"],
-                           tdr["trsv"]["max_abs"], pdr["trsv"]["max_abs"]),
+                           tdr["trsv"]["max_abs"], pdr["trsv"]["max_abs"],
+                           cd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -4182,7 +4966,8 @@ def main() -> int:
                            sc["gather_abs"], sd["gather_abs"],
                            dg["gather_abs"], dd["gather_abs"],
                            tg["gather_abs"], tdr["gather_abs"],
-                           pg["gather_abs"], pdr["gather_abs"]),
+                           pg["gather_abs"], pdr["gather_abs"],
+                           cg["gather_abs"], cd["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -4207,6 +4992,7 @@ def main() -> int:
         **deck_keys("tilted", tg, "gather"),
         **deck_keys("periodic", pg, "gather"),
     }]}))
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,22 @@ from goma_tpu_torch.physics.viscoelastic import (AxisymHoopStress,
                                                  SqrtConformationStress,
                                                  VelocityGradientProjection,
                                                  VEStress, stress_var)
+from goma_tpu_torch.physics.normal_mode import (
+    NormalModeContinuity,
+    NormalModeEnergy,
+    NormalModeMomentum,
+    NormalModeW,
+)
+from goma_tpu_torch.physics.normal_mode_ale import (
+    CapillaryZNormal,
+    ContinuityZ,
+    MeshZ,
+    MomentumZ,
+    ScalarZ,
+    WMomentum,
+    embed_state,
+    zmode_equations,
+)
 from goma_tpu_torch.physics.level_set import (
     CSFSurfaceTension,
     ExtensionVelocity,

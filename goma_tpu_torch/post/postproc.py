@@ -14,8 +14,8 @@ the assembler uses (r-weighted in axisymmetric coordinates), and returns a
 it runs eagerly, with the gathers and tables put on the problem's device
 once, when the function is built.
 
-``flux_sensitivity`` waits for continuation (a later slice, see ROADMAP)
-and raises ``NotImplementedError``.
+``flux_sensitivity`` is the jvp of the residual and of the flux through a
+params leaf, with a host direct solve between them.
 """
 
 from __future__ import annotations
@@ -28,8 +28,6 @@ import torch
 from goma_tpu_torch.fem.assembly import Problem, eval_surfacevars
 from goma_tpu_torch.fem.fields import eval_fieldvars
 from goma_tpu_torch.physics.materials import prop
-
-_LATER = "later slice of the port, see ROADMAP"
 
 
 def _weighted_sum(w, g):
@@ -121,10 +119,45 @@ def volume_integral(problem: Problem, integrand: Callable, blocks=None):
 
 
 def flux_sensitivity(problem, flux_fn, x, params, wrt: str):
-    """goma_tpu's total sensitivity dF/dp of a flux or volume integral
-    (reference ``evaluate_flux_sens``, src/mm_flux.c:5792): it belongs with
-    continuation, a later slice of the port."""
-    raise NotImplementedError(f"flux_sensitivity (continuation): {_LATER}")
+    """Total sensitivity dF/dp of a flux/volume integral F = f(x(p), p) with
+    respect to a scalar parameter ``params[wrt]`` (BC value, material
+    constant, ...), as host numpy.
+
+    Reference parity: ``evaluate_flux_sens`` (``src/mm_flux.c:5792``) — there
+    via stored solution sensitivities (``soln_sens``,
+    ``src/mm_sol_nonlinear.c:3119``); here via AD:
+
+        dF/dp = (dF/dx) . w + dF/dp|_x,   J w = -dR/dp   (adjoint-free jvp)
+
+    dR/dp is the continuation layer's ``_dR_dlam`` (``torch.func.jvp`` of
+    the residual through ``params[wrt]``, its route counted there).
+    ``flux_fn`` is a function f(x, params) -> scalar/vector (e.g. the output
+    of :func:`sideset_integral` / :func:`volume_integral`). The linear solve
+    is the host direct path (sensitivities are a post-processing step).
+    """
+    from torch.func import jvp
+
+    from goma_tpu_torch.continuation.conti import _dR_dlam, _host
+    from goma_tpu_torch.solvers.linear import direct_solve_host
+
+    dtype, dev = problem.dtype, problem.device
+    x = torch.as_tensor(x, dtype=dtype, device=dev)
+    p0 = torch.as_tensor(params[wrt], dtype=dtype, device=dev)
+    if p0.ndim != 0:
+        raise ValueError(f"flux_sensitivity: params[{wrt!r}] must be scalar")
+
+    def with_p(pv):
+        pr = dict(params)
+        pr[wrt] = pv
+        return pr
+
+    dRdp = _dR_dlam(problem, x, with_p, p0)
+    _, vals = problem._assemble(x, params)
+    w = direct_solve_host(problem.pattern, _host(vals), -_host(dRdp))
+    _, dF = jvp(lambda xv, pv: flux_fn(xv, with_p(pv)), (x, p0),
+                (torch.as_tensor(w, dtype=dtype, device=dev),
+                 torch.ones_like(p0)))
+    return _host(dF)
 
 
 # ------------------------------------------------------------ derived fields

@@ -188,15 +188,12 @@ class NewtonSolver:
         self._direct = opts.linear_solver == "tpu_direct"
         self._host_direct = opts.linear_solver == "direct"
         pat = problem.pattern
-        # the direct rungs read no preconditioner, so none is built
-        # (goma_tpu builds the one precond names and never applies it)
+        # the direct rungs' Newton solves read no preconditioner, so none
+        # is built here; ``_solve_gmres`` (the continuation layer's solves)
+        # builds the one ``precond`` names at its first call, as goma_tpu
+        # builds it up front
         self.precond = (None if self._direct or self._host_direct
                         else self._build_precond(kind))
-        if self.precond is not None and opts.precond_dtype in ("bf16",
-                                                              "bf16-coarse"):
-            self.precond.store_dtype = torch.bfloat16
-            if opts.precond_dtype == "bf16" and hasattr(self.precond, "bj"):
-                self.precond.bj.store_dtype = torch.bfloat16
         # a row injection is not in the element matvec's aux: such a deck
         # assembles the plain CSR values (``_assemble``) and its Krylov
         # operator is the ELL matvec of them, as in goma_tpu; rotation,
@@ -238,7 +235,16 @@ class NewtonSolver:
         self.n_discarded = 0
 
     def _build_precond(self, kind):
-        """The preconditioner ``kind`` names, on the Problem's device."""
+        """The preconditioner ``kind`` names, on the Problem's device, with
+        ``precond_dtype``'s factor storage."""
+        pre = self._make_precond(kind)
+        if self.opts.precond_dtype in ("bf16", "bf16-coarse"):
+            pre.store_dtype = torch.bfloat16
+            if self.opts.precond_dtype == "bf16" and hasattr(pre, "bj"):
+                pre.bj.store_dtype = torch.bfloat16
+        return pre
+
+    def _make_precond(self, kind):
         problem, opts = self.problem, self.opts
         if kind == "vanka":
             from goma_tpu_torch.solvers.linear import Vanka
@@ -488,6 +494,22 @@ class NewtonSolver:
         out = LinearResult(x=scale * z, iters=it, resnorm=rn,
                            converged=rn <= target)
         return (out, extra_vals) if extra is not None else out
+
+    def _solve_gmres(self, vals, R, scale=None, aux=None, tol=None):
+        """goma_tpu's ``_solve_gmres(vals, R, scale, aux, tol)``, the entry
+        the continuation layer solves through: ``scale`` None means ones,
+        ``aux`` None the ELL matvec of ``vals``. The solve takes the lagged
+        factor when one is cached (built from the Newton solve's
+        equilibrated values) and factors ``vals`` as given otherwise, as
+        goma_tpu does; a direct rung, which keeps no preconditioner, builds
+        the one ``precond`` names at its first call."""
+        if scale is None:
+            scale = torch.ones(self._n, dtype=R.dtype, device=R.device)
+        if aux is None and self._ell is None:
+            self._ell = EllOperator(self.problem.pattern, device=self.device)
+        if self.precond is None:
+            self.precond = self._build_precond(self._precond_kind)
+        return self._linsolve_gmres(R, scale, aux, tol=tol, vals=vals)
 
     def _linsolve_bicgstab(self, R, scale, aux, tol=None, vals=None):
         """Solve (DAD) z = D R by right-preconditioned BiCGStab with the

@@ -9,6 +9,7 @@ shapes before a run on the card.
                                             [--only-two-level]
                                             [--only-axisym]
                                             [--only-bc]
+                                            [--only-continuation]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -16,14 +17,15 @@ on the CPU; each kernel wrapper runs its plain version and counts that as a
 launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
 ``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
 syncs).
-The decks are cut to 8x8 (cavity, buoyant, static bubble, tilted cavity),
+The decks are cut to 8x8 (cavity, buoyant, static bubble, tilted cavity,
+lid-speed continuation), 16x16 (Bratu),
 8x4 (viscoelastic), 16x4 (slot coater) and 16x8 (axisymmetric die,
 periodic channel), the checks that need the full size
 (Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump,
 x against goma_tpu's record) are widened, and the linear iteration counts, the slot coater's accepted steps
-and free-surface heights and the die's, the tilted cavity's and the periodic
-channel's records the script requires are those of the cut decks
-(goma_tpu's at 16x4, 16x8 and 8x8, CPU). Every time it prints is a CPU time, not a device
+and free-surface heights and the die's, the tilted cavity's, the periodic
+channel's and the continuation decks' records the script requires are those
+of the cut decks (goma_tpu's at 16x4, 16x8, 8x8 and 16x16, CPU). Every time it prints is a CPU time, not a device
 number.
 """
 
@@ -165,6 +167,106 @@ PER_REF_8 = {'gmres_ndlu': {'linear': [1],
                               0.21875030283099006, 5.3626702288770355e-05,
                               -8.299235430623364e-10, 0.0, 0.0]}}
 
+# goma_tpu's record of phases 39-44 at the cut sizes
+# (scripts/continuation_reference.py --part cavity --n 8, --part bratu --n 16,
+# --part small; CPU)
+CONT_REF_8 = {'gmres_ndlu': {'lam': [1.0, 1.5, 2.25, 3.375, 4.0], 'newton':
+    [4, 2, 3, 3, 2], 'predictor_linear': [10, 13, 20, 31],
+    'u_min_centre_line': -0.3505625737188893, 'x_samples': [[0.0, 0.0,
+    -0.040166527298424626, -0.02549967496361205, 0.004338536157263206,
+    -0.035358158130293305, -0.0017740729176694003, 0.04152962889384071,
+    -0.03010187314430368, -0.0752777049751785, -0.1620547564494359,
+    0.15020312192064011, -0.08644483830903482, -0.2261332369525917,
+    -0.10160613671177998, 0.0, -0.44028912805515574, 0.05878004311671248,
+    0.20816618625394767, 0.2513512743607862, 0.18412719744810602,
+    0.6299326445696352, 1.0, 1.6108215073290921], [0.0, 0.0,
+    -0.06715123326284811, -0.04374050127717055, 0.0006422864339015177,
+    -0.06456650791096763, -0.007427413938330574, 0.07395103402996028,
+    -0.04234372049177182, -0.13367116631388853, -0.26647189327610477,
+    0.2517890495437314, -0.16095298082109366, -0.3126951549493242,
+    -0.10370631067780778, 0.0, -0.7392351792150293, 0.10155085939186392,
+    0.3116254509277496, 0.31463420258660335, 0.3197042239116854,
+    0.9089285188492795, 1.5, 3.0160364216717426], [0.0, 0.0,
+    -0.12169896110361833, -0.07938179997370298, -0.0186815092668553,
+    -0.13063218389629583, -0.031998064141589566, 0.1413307807970341,
+    -0.06256607600221287, -0.2594323254147639, -0.44992156899621705,
+    0.4524382170939134, -0.2888938756245807, -0.3361866779300726,
+    -0.06500212723221921, 0.0, -1.1708060086480145, 0.10998948077747173,
+    0.48622684174847564, 0.3769802357487606, 0.4987050841064047,
+    1.3027281028432753, 2.25, 5.895401814150318], [0.0, 0.0,
+    -0.24573167584065914, -0.15068281479841517, -0.08299310834564722,
+    -0.28949930607814167, -0.15055229444169527, 0.2811460408147468,
+    -0.09980678271381294, -0.4902480618534355, -0.6903503431408922,
+    0.8437398588075666, -0.47045236848907734, -0.27055195344246386,
+    0.04661626065171731, 0.0, -1.7190052786904744, 0.08483225033876352,
+    0.7752025975416927, 0.41929301175991895, 0.7369368547160775,
+    1.8908811753706232, 3.375, 11.847363335301907], [0.0, 0.0,
+    -0.33933419087014727, -0.19708318743585096, -0.13995412002287821,
+    -0.41029768316548143, -0.28806425612037856, 0.37435752451983717,
+    -0.11691242566007531, -0.6103547805128073, -0.7967707209341484,
+    1.101000783129166, -0.5557208725917917, -0.2459079715840744,
+    0.12216767472818901, 0.0, -1.985151362714987, 0.07084310471680055,
+    0.9512942242902227, 0.4192649118679128, 0.8732816871461182,
+    2.2396017663984367, 4.0, 15.972223980901163]]}, 'tpu_direct': {'lam':
+    [1.0, 1.5, 2.25, 3.375, 4.0], 'newton': [4, 2, 3, 3, 2],
+    'predictor_linear': [41, 49, 140, 400], 'u_min_centre_line':
+    -0.35056273965589974, 'x_samples': [[0.0, 0.0, -0.040166555135235565,
+    -0.025499748640275228, 0.004338629633301513, -0.03535815106700817,
+    -0.0017739515146718377, 0.04152971822275261, -0.030101897701736935,
+    -0.07527773772191437, -0.1620549351167581, 0.15020332439470668,
+    -0.08644490279708261, -0.22613344949573852, -0.10160596615506247, 0.0,
+    -0.4402894599183919, 0.05878011066471889, 0.20816627788335865,
+    0.2513512663335229, 0.1841273629192799, 0.6299327473916286, 1.0,
+    1.6108217583935187], [0.0, 0.0, -0.06715134932390796,
+    -0.04374069348562942, 0.0006423285979355641, -0.0645666343148047,
+    -0.007427446595089071, 0.0739513953972752, -0.04234372847709777,
+    -0.1336714021703641, -0.26647218033859055, 0.2517897204927605,
+    -0.1609531360746282, -0.31269450978411467, -0.1037059226753689, 0.0,
+    -0.7392352672362037, 0.10155039723784587, 0.3116257469316312,
+    0.31463433573519484, 0.3197042063302994, 0.9089284213218878, 1.5,
+    3.0160354109275964], [0.0, 0.0, -0.12169915141213215,
+    -0.07938199859524459, -0.018680697541755834, -0.13063239389020057,
+    -0.031997310259572725, 0.14133093035982908, -0.06256615303932714,
+    -0.2594326529223732, -0.44992180763367773, 0.45243860969469246,
+    -0.2888939711398486, -0.33618647560512266, -0.0650018600922909, 0.0,
+    -1.1708064062042276, 0.10998931109606043, 0.4862270055745582,
+    0.37698032414104454, 0.49870528665778735, 1.3027283787521773, 2.25,
+    5.895403362396896], [0.0, 0.0, -0.24573173229847406, -0.1506826997632018,
+    -0.08299442634409149, -0.2894994407751495, -0.15055364329555265,
+    0.2811461688202505, -0.09980688449418522, -0.49024816950616784,
+    -0.6903505690749885, 0.8437400923468686, -0.47045239007629147,
+    -0.27055185274153853, 0.04661620965847677, 0.0, -1.7190055736182794,
+    0.0848321182977633, 0.7752028115886554, 0.4192930738906767,
+    0.736937083754216, 1.8908814827556122, 3.375, 11.84736104715136], [0.0,
+    0.0, -0.33933477839379483, -0.19708342970354248, -0.1399541494361206,
+    -0.41029824249372165, -0.28806494606854216, 0.37435794235313186,
+    -0.11691272651898402, -0.6103550932106757, -0.7967708340468885,
+    1.1010014663915435, -0.555720913950685, -0.24590783087617446,
+    0.1221680470606114, 0.0, -1.985151891907594, 0.07084303982389013,
+    0.9512946960425835, 0.4192648724097187, 0.8732821546793141,
+    2.2396023067275523, 4.0, 15.972224568569363]]}, 'ac': {'dof': 213,
+    'start': 2.25, 'target': -0.943112476134047, 'p': 2.999999999938152,
+    'iters': 4, 'res_norms': [0.3420874943494748, 0.028413270151375247,
+    0.0002889011578572764, 1.1829561026555679e-06, 2.90837745721376e-12]},
+    'flux': {'F': 0.6228705318013417, 'dF_dU': 0.17821359132934722,
+    'central_difference': 0.17821359080411048, 'h': 0.001}, 'bratu': {'lam':
+    [0.0, 1.0, 2.5, 4.75, 6.0], 'newton': [0, 2, 2, 3, 3], 'arc_lam': [6.0,
+    6.491117027880676, 6.805485572903932, 6.485888317186042,
+    5.569281282760934, 4.2030469511613555, 2.449924513210624,
+    0.882321640433402], 'arc_newton': [0, 3, 3, 4, 4, 4, 4, 5], 'folds': [2],
+    'fold_lam': 6.808133423631652, 'fold_iters': 4}, 'small': {'pitchfork':
+    {'lam': 9.869736469197013, 'iters': 2, 'converged': True}, 'hopf': {'b':
+    2.6899999999943667, 'omega': 1.2999999999925085, 'iters': 5, 'converged':
+    True}, 'rb_sweep': [[1.2, -1.8705245979796907], [1.8,
+    0.04155504963399331], [2.221, 0.4688221765221141], [2.8,
+    -0.1079162936339314], [3.6, -2.897109060779844]], 'film': [[0.2,
+    -0.0014868959705559663, -0.0014926375362896798], [0.4,
+    -0.009928107306018992, -0.009946356238387022], [0.8, -0.07181276056188003,
+    -0.07184933230283652], [1.5, -0.3500930922062093, -0.35011998130697547]],
+    'couette': [[0.5, -1.1543599106060125], [2.0, -2.9696508533473507]],
+    'heat_device': [-78.99727217857367, -49.36856389720157,
+    -49.36856389263032, -19.739855578785836]}}
+
 
 def _counted(plain):
     """``plain`` with a launch counter, as the kernel wrappers carry."""
@@ -210,6 +312,8 @@ def load_smoke():
     # the cut periodic deck stops after one inexact float32 step
     cs.REF_X_TOL = 1e-3
     cs.PER_NX, cs.PER_NY, cs.PER_REF = 16, 8, PER_REF_8
+    cs.CONT_N, cs.CONT_BRATU_N, cs.CONT_REF = 8, 16, CONT_REF_8
+    cs.GHIA400_RTOL = 1.0
     return cs
 
 
@@ -227,6 +331,8 @@ def main() -> int:
                     help="run phases 30-32 only")
     ap.add_argument("--only-bc", action="store_true",
                     help="run phases 33-38 only")
+    ap.add_argument("--only-continuation", action="store_true",
+                    help="run phases 39-44 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -293,6 +399,14 @@ def main() -> int:
         pg = cs.periodic_gmres_phase(dev)
         cs.periodic_direct_phase(dev, pg.pop("prob"), pg["x"])
         cs.bc_small_phase()
+    elif args.only_continuation:
+        dev = torch.device("cpu")
+        cg = cs.continuation_phase(dev, "gmres_ndlu")
+        cs.continuation_phase(dev, "tpu_direct")
+        cs.augmenting_phase(cg["prob"], cg["steps"])
+        cs.flux_phase(cg["prob"], cg["steps"][-1].x)
+        cs.bratu_phase(dev)
+        cs.stability_phase(dev)
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

@@ -178,7 +178,17 @@ EXPORTS = {
                 "NewtonOptions", "NewtonResult", "NewtonSolver"],
     "fem": ["Problem", "DofMap", "build_dofmap", "Equation", "FaceKernel",
             "SurfaceVars", "FieldVars", "build_pattern"],
-    "physics": ["stress_var"],
+    "physics": ["stress_var", "NormalModeContinuity", "NormalModeEnergy",
+                "NormalModeMomentum", "NormalModeW", "CapillaryZNormal",
+                "ContinuityZ", "MeshZ", "MomentumZ", "ScalarZ", "WMomentum",
+                "embed_state", "zmode_equations"],
+    "continuation": ["ArcStep", "ContinuationStep", "arclength_continue",
+                     "continue_problem", "AugmentedNewtonSolver",
+                     "AugmentedResult", "AugmentingCondition",
+                     "StabilityResult", "mass_and_jacobian", "solve_stability",
+                     "solve_stability_3d_of_2d", "solve_stability_3d_of_2d_ale",
+                     "HuntSpec", "detect_folds", "hunt_problem", "FoldResult",
+                     "fold_track"],
     "post": ["variable_stats", "format_stats", "flow_rate", "heat_flux",
              "sideset_integral", "stream_function", "traction_integrand",
              "volume_integral"],

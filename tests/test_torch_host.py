@@ -230,7 +230,8 @@ def test_port_imports_and_builds_without_jax():
     source: that module imports jax) with its quality-guarded
     TransientSolver, then assembles it and reads its element quality; then
     a cavity with rotated wall constraints and an x-periodic one, through
-    ``assemble`` and ``residual``."""
+    ``assemble`` and ``residual``; then it imports the continuation layer
+    and assembles the Jacobian and mass matrix of a normal-mode deck."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -337,6 +338,20 @@ def test_port_imports_and_builds_without_jax():
             torch.zeros(pprob.dofmap.n_dof, dtype=torch.float64),
             pprob.base_params())
         assert bool(torch.isfinite(vals).all()) and vals.shape[0] == pprob.pattern.nnz
+        # the continuation layer and a normal-mode (3D-of-2D) deck
+        import goma_tpu_torch.continuation
+        from goma_tpu_torch.physics import (NormalModeContinuity,
+                                            NormalModeMomentum, NormalModeW)
+        nprob = Problem(mesh, [NormalModeMomentum(), NormalModeW(),
+                               NormalModeContinuity()],
+                        {"rho": 1.0, "mu": 1.0},
+                        external_fields=("u0", "v0"), device="cpu")
+        nprob.add_dirichlet("top", "nm_velocity", 0, 0.0)
+        nprob.finalize()
+        J, M = goma_tpu_torch.continuation.mass_and_jacobian(
+            nprob, np.zeros(nprob.dofmap.n_dof),
+            nprob.base_params(beta=torch.tensor(1.5, dtype=torch.float64)))
+        assert np.isfinite(J).all() and np.abs(M).max() > 0
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -441,14 +456,31 @@ def test_viscoelastic_pieces_outside_slice_raise(name, args):
 
 
 def test_flux_sensitivity_outside_slice_raises():
-    """goma_tpu's ``flux_sensitivity`` waits for continuation: the port's
-    exists under its name and refuses a call."""
-    import goma_tpu.post.postproc as jpost
+    """goma_tpu's ``flux_sensitivity`` is in the port under its name (it
+    refused a call until continuation was ported): dF/dmu of the lid's
+    x-traction on the 4x4 Re = 100 cavity at a seeded state, float64,
+    within 1e-8 relative of goma_tpu's."""
+    import jax.numpy as jnp
+    import torch
+
+    import goma_tpu.post as jpost
+    import goma_tpu.post.postproc as jpp
+    import goma_tpu_torch.post as tpost
     from goma_tpu_torch.post import postproc
 
-    assert jpost.flux_sensitivity.__name__ == postproc.flux_sensitivity.__name__
-    with pytest.raises(NotImplementedError, match="later slice"):
-        postproc.flux_sensitivity(None, None, None, {}, "mu")
+    assert jpp.flux_sensitivity.__name__ == postproc.flux_sensitivity.__name__
+    pj, pt = cavity(JAX_PKG, 4), cavity(TORCH_PKG, 4)
+    for p in (pj, pt):
+        p.materials[0]["mu"] = (lambda fv, mat, params: params["mu"])
+    x = np.random.default_rng(45).standard_normal(pt.dofmap.n_dof)
+    fj = jpp.flux_sensitivity(
+        pj, jpost.sideset_integral(pj, "top", jpost.traction_integrand(0)), x,
+        pj.base_params(mu=jnp.asarray(0.01)), "mu")
+    ft = postproc.flux_sensitivity(
+        pt, tpost.sideset_integral(pt, "top", tpost.traction_integrand(0)), x,
+        pt.base_params(mu=torch.tensor(0.01, dtype=torch.float64)), "mu")
+    assert abs(float(ft) - float(fj)) <= 1e-8 * abs(float(fj))
+    assert abs(float(fj)) > 0
 
 
 @pytest.mark.parametrize("name", [
