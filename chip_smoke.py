@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Twenty-two main paths of the three
+failure and when CUDA is unavailable. Twenty-three main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -18,7 +18,10 @@ the axisymmetric die deck's ``gmres_ndlu`` (phase 30) and ``tpu_direct``
 (phase 31) rungs; the tilted cavity's (phases 33-34) and the periodic
 channel's (phases 36-37) two rungs; the lid-speed continuation of the
 64x64 cavity on both rungs (phases 39-40) and its augmenting condition
-(phase 41); then goma_tpu's other preconditioners and linear
+(phase 41); the 96x48 immersed cylinder (overset multipliers) on both
+rungs (phases 45-46); the bordered solver's ``ndlu`` base on the 20x10
+cylinder (phase 47) is read the same way as a cross-check, not a main
+path; then goma_tpu's other preconditioners and linear
 solvers, which run no hand kernel (their stages are torch ops): every
 option on the 8x8 cavity (phase 26), the two-level preconditioner on the
 64x64 cavity (phase 27) and the 48x48 buoyant deck (phase 28), and the
@@ -337,9 +340,35 @@ counts under it. Phases:
     growth rates of examples/rayleigh_benard_3d_stability.py::sweep(Ra=700)
     and examples/film_stability.py::run() restated, of the plane-Couette
     3D-of-2D driver and of ``solve_stability_device`` on the 8x8 heat
-    spectrum, each within CONT_SIG_RTOL of goma_tpu's.
+    spectrum, each within CONT_SIG_RTOL of goma_tpu's;
+45. the immersed cylinder (examples/immersed_cylinder.py's problem restated:
+    QUAD9 on [0, 2] x [0, 1], Stokes, a BAR circle of 134 segments carrying
+    P0 multipliers, 42,463 dof, the float32 Jacobian) under
+    bench._cavity_opts("gmres+ndlu", tol=1e-9, max_iter=10): the finalize
+    and overset-set setup times; the ND tree against goma_tpu's record
+    (``OVS_REF``, from scripts/overset_reference.py) before any solve; the
+    kernels on its real fronts at x = 0 (the multiplier rows go last in
+    their fronts and the GESP boost fires on their zero pivots), the
+    front LU at the tree's level shapes, the gather exact and timed, the
+    factorization split; one warm-up solve, ``reset_lagged()``, one timed
+    solve; goma_tpu's Newton +-1, linear iterations, x at 24 dofs within
+    REF_X_TOL, the drag (the multipliers' x-traction times the segment
+    length) within OVS_DRAG_RTOL; launches = levels x factorizations; the
+    front LU and the gather on the fronts of the run's last factorization;
+46. the same on ``tpu_direct`` (phase 10's options at tol 1e-9), with the
+    substitution kernel on one solve's substitutions at x = 0 and on the
+    last factorization, and substitution launches = 2 x levels x solves;
+47. on cuda and on cpu: the example's own 20x10 deck on host ``direct``,
+    on ``gmres`` with ``precond="auto"`` (the constraint-aware Vanka) and
+    bordered on the ``ndlu`` base (substitution launches = 2 x levels x
+    base solves on the card, x within 1e-6 of the monolithic solve); the
+    two-layer contact resistance, the DG stress decay channel, the HEX27
+    edge line source and the FILL_CA wetting deck: the same Newton count
+    on both devices and goma_tpu's (``OVS_SMALL_REF``), x within
+    OVS_SMALL_X_TOL between the devices, the drag, temperature jump, decay
+    rate, flux and force within OVS_SMALL_RTOL of goma_tpu's.
 
-Each of phases 39-44 prints its time, and the run its total, before the
+Each of phases 39-47 prints its time, and the run its total, before the
 last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
 power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -841,14 +870,18 @@ def cavity_problem(n, device, Re=RE):
 
 
 def cavity_opts(tol=1e-6, max_iter=20):
-    """bench._cavity_opts("gmres+ndlu") restated (bench.py imports jax)."""
+    """bench._cavity_opts("gmres+ndlu") restated (bench.py imports jax),
+    with its deep-tolerance branch (tol < 1e-8: loose float32 Krylov
+    solves, the standard Eisenstat-Walker endgame)."""
     from goma_tpu_torch.solvers import NewtonOptions
 
+    deep = tol < 1e-8
     return NewtonOptions(max_iter=max_iter, tol_residual=tol, linear_tol=1e-4,
                          precond="ndlu", linear_solver="gmres",
                          gmres_restart=60, linear_maxiter=240,
                          ndlu_leaf_max=192, prep32_tol=3e-6,
-                         ew_eta_floor=0.0, ew_endgame="tighten")
+                         ew_eta_floor=1e-3 if deep else 0.0,
+                         ew_endgame="standard" if deep else "tighten")
 
 
 def boosted_fronts(nn, m, seed):
@@ -4484,6 +4517,458 @@ def stability_phase(dev):
     log(f"phase 44 (bifurcations and stability): {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phases 45-47: the overset, interface and edge coupling sets
+OVS_NX, OVS_NY, OVS_NSEG, OVS_RADIUS = 96, 48, 134, 0.2
+# goma_tpu's record of the immersed cylinder on both device rungs
+# (``python3 scripts/overset_reference.py --part cylinder --nx 96 --ny 48
+# --nseg 134``, goma_tpu on a CPU, float64 state, float32 Jacobian)
+OVS_REF = {'gmres+ndlu': {'converged': True,
+                'drag': 48.49879252370282,
+                'levels': [[236, 192], [128, 192], [64, 63], [32, 104],
+                           [16, 133], [8, 278], [4, 186], [2, 418],
+                           [1, 287]],
+                'linear': [1, 3],
+                'newton': 2,
+                'x_samples': [0.0, 0.33913601184242265, 0.08019596290251947,
+                              0.060622986495494545, 1.6753720922881437,
+                              -0.165062965139481, 0.9318134606525479,
+                              0.8423208434152637, 0.8847646971966036,
+                              -0.2693670917185295, 41.78073483717906,
+                              0.8248649362621971, -0.0013931963681413596,
+                              0.8240232767634015, 0.021287626281026123,
+                              0.8700957704171641, 0.8385407478710741,
+                              0.894503464071566, -0.20961343269718913,
+                              5.968788456573553, 0.4144948486123702,
+                              0.34279832465888194, 0.5719155591787302,
+                              -13.08044190780489]},
+ 'n_dof': 42463,
+ 'n_lm': 268,
+ 'nnz': 1705281,
+ 'nseg': 134,
+ 'nx': 96,
+ 'ny': 48,
+ 'tpu_direct': {'converged': True,
+                'drag': 48.49879252194283,
+                'levels': [[236, 192], [128, 192], [64, 63], [32, 104],
+                           [16, 133], [8, 278], [4, 186], [2, 418],
+                           [1, 287]],
+                'linear': [1, 1],
+                'newton': 2,
+                'x_samples': [0.0, 0.3391360118422113, 0.08019596290245808,
+                              0.060622986495472625, 1.6753720922880377,
+                              -0.1650629651392229, 0.9318134606521454,
+                              0.8423208434154145, 0.884764697196525,
+                              -0.269367091718009, 41.78073483794899,
+                              0.8248649362622993, -0.0013931963680379842,
+                              0.8240232767634438, 0.021287626281460446,
+                              0.8700957704168406, 0.8385407478709254,
+                              0.8945034640721838, -0.20961343269839525,
+                              5.968788456569475, 0.4144948486122508,
+                              0.3427983246590746, 0.571915559178325,
+                              -13.080441901008658]}}
+# goma_tpu's record of the small decks (``--part small``)
+OVS_SMALL_REF = {'bordered': {'converged': True, 'drag': 47.43937276331011, 'iters': 1},
+ 'contact': {'T_a': 0.8333333333333334,
+             'T_b': 0.6666666666666666,
+             'newton': 1},
+ 'dg': {'newton': 2, 'rate': -2.0004080338730756},
+ 'direct': {'converged': True,
+            'drag': 47.43937276331009,
+            'linear': [1],
+            'newton': 1},
+ 'edge': {'flux': 2.499999999999972, 'newton': 1},
+ 'gmres_auto': {'converged': True,
+                'drag': 47.43937276331011,
+                'linear': [1097, 1412],
+                'newton': 2},
+ 'wetting': {'force': [-0.459982248551977, -0.6569227314062618]}}
+# the drag against goma_tpu's, relative
+OVS_DRAG_RTOL = 1e-6
+# the small decks' scalar readings (drag, jump, rate, flux, force) against
+# goma_tpu's, relative: float64 on both sides, the same operations
+OVS_SMALL_RTOL = 1e-8
+# cuda against cpu on the small decks: phase 4's bound, max |dx|
+OVS_SMALL_X_TOL = 1e-5
+
+
+def overset_problem(nx, ny, nseg, device):
+    """examples/immersed_cylinder.py's problem restated in the port: QUAD9
+    on [0, 2] x [0, 1], Stokes mu = 1, parabolic inflow, a BAR circle of
+    radius 0.2 at (0.8, 0.5) of ``nseg`` segments carrying P0 multipliers
+    (``OversetLM``) tied to the fluid by ``OversetNoSlip``; the float32
+    Jacobian bench.py sets. Returns (problem, bar block, overset-set
+    seconds, finalize seconds)."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import circle_block, rectangle_mesh
+    from goma_tpu_torch.physics import (Continuity, Momentum, OversetLM,
+                                        OversetNoSlip)
+
+    mesh = rectangle_mesh(nx, ny, elem="QUAD9", xlim=(0, 2.0), ylim=(0, 1.0))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    bi = circle_block(mesh, (0.8, 0.5), OVS_RADIUS, n=nseg, name="cylinder")
+    prob = Problem(mesh, [
+        [Momentum(dim=2, interp="Q2", transient=False, convection=False),
+         Continuity(interp="Q1")], [OversetLM(dim=2)]],
+        [{"rho": 1.0, "mu": 1.0}, {}], device=device)
+    prob.add_dirichlet("left", "velocity", 0, lambda c: 4 * c[:, 1] * (1 - c[:, 1]))
+    prob.add_dirichlet("top", "velocity", 0, 0.0)
+    prob.add_dirichlet("bottom", "velocity", 0, 0.0)
+    for ns in ("left", "top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.add_overset(bi, 0, OversetNoSlip(dim=2))
+    # finalize's own build of the overset sets (kd-tree, isoparametric
+    # inversions, bases), timed by an instance-level wrapper
+    build, t_ovs = prob._build_overset_sets, []
+
+    def timed_build_sets():
+        t0 = time.perf_counter()
+        sets = build()
+        t_ovs.append(time.perf_counter() - t0)
+        return sets
+
+    prob._build_overset_sets = timed_build_sets
+    t0 = time.perf_counter()
+    prob.finalize()
+    t_fin = time.perf_counter() - t0
+    del prob._build_overset_sets
+    prob.jacobian_dtype = torch.float32
+    return prob, bi, t_ovs[0], t_fin
+
+
+def overset_drag(prob, x, bi):
+    """The multipliers' x-traction times the segment length, summed."""
+    bd = prob.dofmap.blocks[bi]
+    s = bd.slot("lm")
+    lam = np.asarray(x)[bd.gather[:, s.start:s.start + s.size]]
+    return float(lam[:, 0].sum() * 2 * np.pi * OVS_RADIUS / bd.gather.shape[0])
+
+
+def check_overset_levels(nd, ref, label):
+    """The ND tree's (fronts, fully-summed size) per level against
+    goma_tpu's record, before any solve; the kernels' gate 1 < s <= 1000."""
+    levels = nd_levels(nd)
+    shapes = [[nn, m] for nn, m, _ in levels]
+    log(f"{label} tree: {len(levels)} levels (nn, s, b) = {levels}; goma_tpu "
+        f"(nn, s) = {ref['levels']}")
+    if shapes != ref["levels"]:
+        raise RuntimeError(f"{label}: ND tree {shapes} != goma_tpu's {ref['levels']}")
+    return levels
+
+
+def overset_phase(dev, kind, prob=None, bi=None):
+    """Phases 45 (``gmres+ndlu``) and 46 (``tpu_direct``): the 96x48 immersed
+    cylinder (134 segments) under ``bench._cavity_opts(kind, tol=1e-9,
+    max_iter=10)``. The overset deck assembles the plain CSR values on every
+    rung (the coupling sets are not in the element matvec's aux) and its
+    multiplier rows go last in every front (``_saddle_mask`` with ``lm`` on
+    ``gmres+ndlu``, ``zero_diag_defer_mask`` on ``tpu_direct``), so the GESP
+    boost of the front LU fires on their zero pivots. The tree against
+    goma_tpu's; the kernels on its real fronts at x = 0; one warm-up solve,
+    ``reset_lagged()``, one timed solve (counts set to 0 just before and
+    read just after); goma_tpu's Newton count +-1, linear iterations,
+    x at 24 dofs and drag (``OVS_DRAG_RTOL``); launches = levels x
+    factorizations (and 2 x levels x solves); each kernel against its
+    plain version on the fronts of the timed run's last factorization."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    label = f"overset {kind}"
+    t_phase = time.perf_counter()
+    ref = OVS_REF[kind]
+    if prob is None:
+        prob, bi, t_ovs, t_fin = overset_problem(OVS_NX, OVS_NY, OVS_NSEG, dev)
+        log(f"overset setup: {OVS_NX}x{OVS_NY}, {OVS_NSEG} segments, "
+            f"{prob.dofmap.n_dof} dof ({2 * OVS_NSEG} multipliers, goma_tpu "
+            f"{OVS_REF['n_dof']}), {prob.pattern.nnz} nnz (goma_tpu "
+            f"{OVS_REF['nnz']}), {prob.ovs_sets[0].gather.shape[0]} overset "
+            f"rows; finalize {t_fin:.2f} s, of it the overset sets {t_ovs:.2f} s")
+        if (prob.dofmap.n_dof, prob.pattern.nnz) != (OVS_REF["n_dof"], OVS_REF["nnz"]):
+            raise RuntimeError("overset deck: dof or nnz count differs from goma_tpu's")
+    direct = kind == "tpu_direct"
+    opts = (direct_opts if direct else cavity_opts)(tol=1e-9, max_iter=10)
+    solver = NewtonSolver(prob, opts)
+    if solver._use_elem_mv or solver._elem_asm_only:
+        raise RuntimeError(f"{label}: the coupling sets must take the CSR operator")
+    params = prob.base_params()
+    if direct:
+        # the full prep's values at x = 0, the NDLU the rung will use, the
+        # kernels on its real fronts and the substitutions of one solve
+        tree = direct_tree_phase(prob, solver, label)
+        nd = tree.pop("nd")
+        check_overset_levels(nd, ref, label)
+    else:
+        x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
+        vals = solver._prepare(x0, params)[1]  # what the first factor sees
+        nd = solver.precond
+        levels = check_overset_levels(nd, ref, label)
+        shapes = [(nn, m) for nn, m, _ in levels]
+        tree = {"max_abs": check_real_fronts(nd, vals, f"{label} x=0"),
+                "gather_abs": check_gathers(nd, vals, f"{label} tree")}
+        lu_abs, tree["lu_ms"] = lu_shapes(shapes, label, time_twin=True)
+        tree["max_abs"] = max(tree["max_abs"], lu_abs)
+        tree["lu_bound"] = lu_bound(shapes)
+        tree["g_times"], tree["g_bound"] = gather_times(nd, vals, f"{label} tree")
+        factor_split_ms(nd, vals, f"{label} tree")
+    levels = nd.levels
+    seen = record_factor_vals(nd)
+    x_init = np.zeros(prob.dofmap.n_dof)
+    res, sec, ln = warm_then_timed(solver, x_init, params, label)
+    check_launches(solver, ln, len(levels), label, direct=direct)
+    check_record(prob, res, ref, label, 1e-9)
+    d = overset_drag(prob, res.x, bi)
+    log(f"{label}: drag {d:.12f} (goma_tpu {ref['drag']:.12f}), relative "
+        f"difference {abs(d - ref['drag']) / abs(ref['drag']):.2e}")
+    if abs(d - ref["drag"]) > OVS_DRAG_RTOL * abs(ref["drag"]):
+        raise RuntimeError(f"{label}: drag {d} not within {OVS_DRAG_RTOL:.0e} "
+                           f"of goma_tpu's {ref['drag']}")
+    tree["max_abs"] = max(tree["max_abs"], check_real_fronts(
+        nd, seen["last"], f"{label} last factorization"))
+    tree["gather_abs"] = max(tree["gather_abs"], check_gathers(
+        nd, seen["last"], f"{label} last factorization"))
+    del nd.factor  # record_factor_vals's wrapper
+    if direct:
+        calls = []
+        rhs = torch.as_tensor(np.random.default_rng(46).standard_normal(
+            prob.dofmap.n_dof), dtype=prob.dtype, device=dev)
+        nd.solve(nd.factor(seen["last"]), rhs, trace=calls)
+        last = check_substitutions(calls, f"{label} last factorization")
+        tree["trsv"]["max_abs"] = max(tree["trsv"]["max_abs"], last["max_abs"])
+    log(f"phase {46 if direct else 45} ({label}): {sec / max(res.iters, 1):.4f} "
+        f"s/iter, phase {time.perf_counter() - t_phase:.1f} s")
+    return {"prob": prob, "bi": bi, "x": res.x, "launches": ln, **tree}
+
+
+def interface_strip(device):
+    """tests/test_interface.py's two-layer contact resistance: [0,1]^2 split
+    at x = 0.5 into QUAD4 blocks A (k 2) and B (k 0.5), B's interface nodes
+    split, the exchange coefficient 4. Returns (problem, A nodes, B
+    nodes)."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import Block, Mesh
+    from goma_tpu_torch.mesh.interface import (find_interface_faces,
+                                               split_interface)
+    from goma_tpu_torch.physics import Energy, InterfaceExchange
+
+    gx, gy = 9, 3
+    X, Y = np.meshgrid(np.linspace(0, 1, gx), np.linspace(0, 1, gy), indexing="xy")
+    coords = np.stack([X.ravel(), Y.ravel()], axis=1)
+    ca, cb = [], []
+    for j in range(2):
+        for i in range(8):
+            c = [j * gx + i, j * gx + i + 1, (j + 1) * gx + i + 1, (j + 1) * gx + i]
+            (ca if i < 4 else cb).append(c)
+    mesh = Mesh(2, coords, [Block("A", "QUAD4", np.asarray(ca, dtype=np.int32)),
+                            Block("B", "QUAD4", np.asarray(cb, dtype=np.int32))])
+    mesh.nodesets = {"left": np.where(np.isclose(coords[:, 0], 0.0))[0].astype(np.int32),
+                     "right": np.where(np.isclose(coords[:, 0], 1.0))[0].astype(np.int32)}
+    mesh.sidesets = {}
+    pairs = find_interface_faces(mesh, 0, 1)
+    orig, new = split_interface(mesh, pairs)
+    E = lambda: Energy(interp="Q1", transient=False, convection=False)  # noqa: E731
+    prob = Problem(mesh, [[E()], [E()]], [{"rho": 1.0, "Cp": 1.0, "k": 2.0},
+                                          {"rho": 1.0, "Cp": 1.0, "k": 0.5}],
+                   device=device)
+    prob.add_dirichlet("left", "temperature", 0, 1.0)
+    prob.add_dirichlet("right", "temperature", 0, 0.0)
+    prob.add_interface_kernel(pairs, InterfaceExchange("temperature", coeff=4.0))
+    prob.finalize()
+    return prob, orig, new
+
+
+def dg_channel(device):
+    """tests/test_viscoelastic.py's DG stress decay channel (16x2 QUAD9,
+    uniform U = 1, P1E Oldroyd-B stress lam 0.5, interior-face upwinding,
+    inflow closure s_in = (1, 0.5, 0.25))."""
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.mesh.interface import interior_face_pairs
+    from goma_tpu_torch.physics import (Continuity, DGStressInflow,
+                                        DGStressUpwind, Momentum, VEStress)
+
+    mesh = rectangle_mesh(16, 2, elem="QUAD9", xlim=(0, 2.0), ylim=(0, 0.25))
+    mesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+    prob = Problem(mesh, [Momentum(dim=2, interp="Q2", transient=False),
+                          Continuity(interp="Q1"),
+                          VEStress(0, dim=2, lam=0.5, mu_p=1.0, interp="P1E",
+                                   supg=0.0, use_projected_gradient=False,
+                                   transient=False)],
+                   {"rho": 0.0, "mu": 1.0}, device=device)
+    for ns in ("left", "right", "top", "bottom"):
+        prob.add_dirichlet(ns, "velocity", 0, 1.0)
+        prob.add_dirichlet(ns, "velocity", 1, 0.0)
+    prob.add_dirichlet("pin", "pressure", 0, 0.0)
+    prob.add_interface_kernel(interior_face_pairs(mesh, 0),
+                              DGStressUpwind(0, lam=0.5))
+    prob.add_face_kernel("left", DGStressInflow(0, lam=0.5, s_in=[1.0, 0.5, 0.25]))
+    prob.finalize()
+    return prob
+
+
+def edge_box(device):
+    """tests/test_edge_wetting_bcs.py's line source: a 3x3x3 HEX27 box,
+    steady conduction, the bottom held at 0, a line load of 2.5 on the
+    top & right edge curve."""
+    from goma_tpu_torch.bc.edge import EdgeTraction
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import box_mesh
+    from goma_tpu_torch.physics import Energy
+
+    prob = Problem(box_mesh(3, 3, 3, elem="HEX27"),
+                   [Energy(interp="Q2", transient=False, convection=False)],
+                   {"k": 1.0}, device=device)
+    prob.add_dirichlet("bottom", "temperature", 0, 0.0)
+    prob.add_edge_kernel("top", "right", EdgeTraction("temperature", 1, 2.5))
+    prob.finalize()
+    return prob
+
+
+def wetting_box(device):
+    """tests/test_edge_wetting_bcs.py's FILL_CA deck (8x4 QUAD9 level set,
+    the Young force at 55 degrees, sigma 0.8) at its planar interface
+    through (0.5, 0) at 65 degrees. Returns (problem, x)."""
+    from goma_tpu_torch.bc.wetting import FillContactAngle
+    from goma_tpu_torch.fem import Problem
+    from goma_tpu_torch.mesh import rectangle_mesh
+    from goma_tpu_torch.physics import Continuity, FillEquation, Momentum
+
+    mesh = rectangle_mesh(8, 4, elem="QUAD9")
+    prob = Problem(mesh, [Momentum(dim=2, interp="Q2", transient=False),
+                          Continuity(interp="Q1"), FillEquation(interp="Q2")],
+                   {"rho": 1.0, "mu": 1.0}, device=device)
+    prob.add_face_kernel("bottom", FillContactAngle(dim=2, theta_deg=55.0,
+                                                    sigma=0.8, eps=0.15))
+    prob.finalize()
+    th = np.deg2rad(65.0)
+    nf = np.array([-np.sin(th), -np.cos(th)])
+    x = np.zeros(prob.dofmap.n_dof)
+    dF = prob.dofmap.dof_of_node_svar[:, prob.dofmap.svar("fill")]
+    ok = dF >= 0
+    x[dF[ok]] = (mesh.coords[ok] - [0.5, 0.0]) @ nf
+    return prob, x
+
+
+def overset_small_decks(device):
+    """The small decks of phase 47 on one device: {name: (Newton count, x,
+    reading, linear iterations)} and the bordered solve's launches."""
+    from goma_tpu_torch.post import heat_flux, sideset_integral
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+    from goma_tpu_torch.solvers.bordered import (BorderedNewtonSolver,
+                                                 multiplier_dof_mask)
+
+    out = {}
+    prob, bi, _, _ = overset_problem(20, 10, 28, device)
+    prob.jacobian_dtype = None
+    x0 = np.zeros(prob.dofmap.n_dof)
+    for name, opts in (
+            ("direct", NewtonOptions(max_iter=8, tol_residual=1e-9,
+                                     linear_solver="direct")),
+            ("gmres_auto", NewtonOptions(
+                max_iter=6, tol_residual=1e-9, linear_solver="gmres",
+                precond="auto", linear_tol=1e-9, gmres_restart=160,
+                linear_maxiter=4000, forcing="fixed", precond_lag=False))):
+        solver = NewtonSolver(prob, opts)
+        if name == "gmres_auto" and solver._precond_kind != "vanka":
+            raise RuntimeError(f"overset gmres auto: precond {solver._precond_kind}, "
+                               "not the constraint-aware vanka")
+        res = solver.solve(x0, prob.base_params())
+        if not res.converged:
+            raise RuntimeError(f"overset 20x10 {name} did not converge on "
+                               f"{device}:\n{res.summary()}")
+        out[name] = (res.iters, res.x, overset_drag(prob, res.x, bi),
+                     res.linear_iters)
+    reset_counts()
+    bs = BorderedNewtonSolver(prob, multiplier_dof_mask(prob), NewtonOptions(
+        max_iter=8, tol_residual=1e-8), base_solver="ndlu")
+    bres = bs.solve(x0, prob.base_params())
+    ln, _ = read_counts()
+    if not bres.converged:
+        raise RuntimeError(f"bordered 20x10 did not converge on {device}")
+    out["bordered"] = (bres.iters, bres.x, overset_drag(prob, bres.x, bi), [])
+    levels = len(bs._ndlu.levels)
+    if device.type == "cuda" and (
+            ln["trsv"] != 2 * levels * bs._ndlu.n_solve
+            or ln["lu"] != levels * (bres.iters) or ln["gather"] != ln["lu"]):
+        raise RuntimeError(f"bordered: launches {ln} != levels {levels} x "
+                           f"{bres.iters} factorizations / 2 x levels x "
+                           f"{bs._ndlu.n_solve} solves")
+    mono = out["direct"][1]
+    dmono = float(np.linalg.norm(bres.x - mono) / np.linalg.norm(mono))
+    if dmono > 1e-6:
+        raise RuntimeError(f"bordered vs monolithic on {device}: {dmono:.2e} > 1e-6")
+
+    direct = NewtonOptions(max_iter=8, tol_residual=1e-11, linear_solver="direct")
+    ip, orig, new = interface_strip(device)
+    r = NewtonSolver(ip, direct).solve(np.zeros(ip.dofmap.n_dof), ip.base_params())
+    T = ip.get_nodal_field(r.x, "temperature")
+    out["contact"] = (r.iters, r.x, float(T[orig].mean() - T[new].mean()), [])
+    dp = dg_channel(device)
+    r = NewtonSolver(dp, direct).solve(np.zeros(dp.dofmap.n_dof), dp.base_params())
+    bd = dp.dofmap.blocks[0]
+    vals = r.x[bd.gather[:, bd.slot("stress0").start]]
+    xc = dp.mesh.coords[dp.mesh.blocks[0].conn].mean(axis=1)[:, 0]
+    order = np.argsort(xc)
+    out["dg"] = (r.iters, r.x, float(np.polyfit(xc[order], np.log(vals[order]), 1)[0]), [])
+    ep = edge_box(device)
+    r = NewtonSolver(ep, NewtonOptions(max_iter=5, linear_solver="direct")).solve(
+        np.zeros(ep.dofmap.n_dof), ep.base_params())
+    F = sideset_integral(ep, "bottom", heat_flux)
+    out["edge"] = (r.iters, r.x, float(F(torch.as_tensor(r.x, device=device),
+                                         ep.base_params())), [])
+    wp, wx = wetting_box(device)
+    R = wp.assemble(torch.as_tensor(wx, device=device), wp.base_params())[0].cpu().numpy()
+    out["wetting"] = (0, R, [float(-R[dd[dd >= 0]].sum()) for dd in (
+        wp.dofmap.dof_of_node_svar[:, wp.dofmap.svar("velocity", c)]
+        for c in range(2))], [])
+    for name, (it, x, v, lin) in out.items():
+        if not np.all(np.isfinite(x)):
+            raise RuntimeError(f"{name} on {device}: non-finite values")
+    return out, ln
+
+
+def overset_small_phase():
+    """Phase 47: the small decks on cuda and on cpu (the example's own 20x10
+    deck on host ``direct``, on ``gmres`` with ``precond="auto"`` (the
+    constraint-aware Vanka) and bordered on the ``ndlu`` base against the
+    monolithic solve; the two-layer contact resistance; the DG stress decay
+    channel; the HEX27 edge line source; the FILL_CA wetting deck): the
+    same Newton count on both devices and goma_tpu's (+-1 on GMRES), x
+    within OVS_SMALL_X_TOL between the devices, each scalar reading within
+    OVS_SMALL_RTOL of goma_tpu's record. Returns the bordered solve's
+    launches on the card."""
+    t0 = time.perf_counter()
+    runs = {d: overset_small_decks(torch.device(d)) for d in ("cuda", "cpu")}
+    (cu, ln), (cp, _) = runs["cuda"], runs["cpu"]
+    ref = OVS_SMALL_REF
+    want = {"direct": (ref["direct"]["newton"], ref["direct"]["drag"]),
+            "gmres_auto": (ref["gmres_auto"]["newton"], ref["gmres_auto"]["drag"]),
+            "bordered": (ref["bordered"]["iters"], ref["bordered"]["drag"]),
+            "contact": (ref["contact"]["newton"],
+                        ref["contact"]["T_a"] - ref["contact"]["T_b"]),
+            "dg": (ref["dg"]["newton"], ref["dg"]["rate"]),
+            "edge": (ref["edge"]["newton"], ref["edge"]["flux"]),
+            "wetting": (0, ref["wetting"]["force"])}
+    for name, (it_ref, v_ref) in want.items():
+        (it_c, x_c, v_c, lin_c), (it_p, x_p, v_p, lin_p) = cu[name], cp[name]
+        dx = float(np.abs(x_c - x_p).max())
+        dv = float(np.max(np.abs(np.subtract(v_c, v_ref)) / np.abs(v_ref)))
+        lin = f", linear cuda {lin_c} cpu {lin_p} (goma_tpu " \
+              f"{ref[name]['linear']})" if name == "gmres_auto" else ""
+        log(f"overset small {name}: Newton cuda {it_c} cpu {it_p} (goma_tpu "
+            f"{it_ref}){lin}; max |x_cuda - x_cpu| {dx:.2e}; reading {v_c} "
+            f"(goma_tpu {v_ref}, relative {dv:.2e})")
+        slack = 1 if name == "gmres_auto" else 0
+        if it_c != it_p or abs(it_c - it_ref) > slack:
+            raise RuntimeError(f"overset small {name}: Newton cuda {it_c} cpu "
+                               f"{it_p} goma_tpu {it_ref}")
+        if dx > OVS_SMALL_X_TOL or dv > OVS_SMALL_RTOL:
+            raise RuntimeError(f"overset small {name}: x {dx:.2e} between the "
+                               f"devices or reading {dv:.2e} from goma_tpu's")
+    log(f"phase 47 (overset, interface, edge and wetting small decks, cuda and "
+        f"cpu): {time.perf_counter() - t0:.1f} s; bordered launches {ln}")
+    return ln
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -4808,6 +5293,16 @@ def main() -> int:
     log(f"phases 39-44 (continuation and stability): "
         f"{time.perf_counter() - t_cont:.1f} s; {mem_line()}")
 
+    # ---- 45.-46. the 96x48 immersed cylinder (overset multipliers) on both
+    # rungs; 47. the small coupling-set decks, cuda and cpu
+    t_ovs = time.perf_counter()
+    og = overset_phase(dev, "gmres+ndlu")
+    od = overset_phase(dev, "tpu_direct", og.pop("prob"), og.pop("bi"))
+    del od["prob"]
+    bl = overset_small_phase()
+    log(f"phases 45-47 (coupling sets): {time.perf_counter() - t_ovs:.1f} s; "
+        f"{mem_line()}")
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -4828,7 +5323,11 @@ def main() -> int:
                 "periodic tpu_direct": pdr["launches"],
                 "continuation gmres_ndlu": cg["launches"],
                 "continuation tpu_direct": cd["launches"],
-                "augmenting condition gmres_ndlu": ca["launches"]}
+                "augmenting condition gmres_ndlu": ca["launches"],
+                "overset gmres_ndlu": og["launches"],
+                "overset tpu_direct": od["launches"]}
+    # a small deck's launches, read as a cross-check: not a main path
+    cross_checks = {"bordered ndlu 20x10": bl}
 
     def deck_keys(prefix, rec, kind):
         """A deck's numbers of one kernel for the summary line."""
@@ -4853,6 +5352,9 @@ def main() -> int:
 
     def path_launches(kind):
         return {k: ln[kind] for k, ln in more_paths.items()}
+
+    def cross_check_launches(kind):
+        return {k: ln[kind] for k, ln in cross_checks.items()}
     print(json.dumps({"kernels": [{
         "name": "batched_lu",
         "route": "cuda",
@@ -4861,11 +5363,13 @@ def main() -> int:
         "launches": launches + d_lu + b_lu + sum(path_launches("lu").values()),
         "launches_by_path": {"gmres+ndlu": launches, "tpu_direct": d_lu,
                              "buoyant gmres+ndlu": b_lu, **path_launches("lu")},
+        "cross_check_launches": cross_check_launches("lu"),
         "max_abs_err": max(max_abs, ve["max_abs"], vd["max_abs"],
                            tp["max_abs"], sc["max_abs"], sd["max_abs"],
                            dg["max_abs"], dd["max_abs"], tg["max_abs"],
                            tdr["max_abs"], pg["max_abs"], pdr["max_abs"],
-                           cg["max_abs"], cd["max_abs"]),
+                           cg["max_abs"], cd["max_abs"], og["max_abs"],
+                           od["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -4892,6 +5396,7 @@ def main() -> int:
         "die_bound_ms": dg["lu_bound"][0],
         **deck_keys("tilted", tg, "lu"),
         **deck_keys("periodic", pg, "lu"),
+        **deck_keys("overset", og, "lu"),
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -4899,11 +5404,12 @@ def main() -> int:
         "replaces": "goma_tpu/solvers/pallas_lu.py:67",
         "launches": d_trsv + b_trsv + sum(path_launches("trsv").values()),
         "launches_by_path": {"tpu_direct": d_trsv, **path_launches("trsv")},
+        "cross_check_launches": cross_check_launches("trsv"),
         "max_abs_err": max(trsv["max_abs"], btrsv["max_abs"],
                            vd["trsv"]["max_abs"], td["trsv"]["max_abs"],
                            sd["trsv"]["max_abs"], dd["trsv"]["max_abs"],
                            tdr["trsv"]["max_abs"], pdr["trsv"]["max_abs"],
-                           cd["trsv"]["max_abs"]),
+                           cd["trsv"]["max_abs"], od["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -4952,6 +5458,7 @@ def main() -> int:
         "die_step_ns": dd["step_ns"],
         **deck_keys("tilted", tdr, "trsv"),
         **deck_keys("periodic", pdr, "trsv"),
+        **deck_keys("overset", od, "trsv"),
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -4962,12 +5469,14 @@ def main() -> int:
         "launches_by_path": {"gmres+ndlu": g_launches, "tpu_direct": d_gather,
                              "buoyant gmres+ndlu": b_gather,
                              **path_launches("gather")},
+        "cross_check_launches": cross_check_launches("gather"),
         "max_abs_err": max(gather_abs, ve["gather_abs"], tp["gather_abs"],
                            sc["gather_abs"], sd["gather_abs"],
                            dg["gather_abs"], dd["gather_abs"],
                            tg["gather_abs"], tdr["gather_abs"],
                            pg["gather_abs"], pdr["gather_abs"],
-                           cg["gather_abs"], cd["gather_abs"]),
+                           cg["gather_abs"], cd["gather_abs"],
+                           og["gather_abs"], od["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -4991,6 +5500,7 @@ def main() -> int:
         "die_bound_ms": dg["g_bound"][0],
         **deck_keys("tilted", tg, "gather"),
         **deck_keys("periodic", pg, "gather"),
+        **deck_keys("overset", og, "gather"),
     }]}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(gpu_line())

@@ -46,11 +46,24 @@ through host-built gather plans (``fem.sparsity.add_plan``), never an
 atomic scatter. Periodicity (``add_periodic``) aliases node pairs in the
 dofmap, so the pair shares its dofs and adds no rows.
 
+Coupling sets (goma_tpu's interface, overset and edge sets) add terms
+that span two elements or lie on a curve: paired faces of two blocks
+(``add_interface_kernel``), immersed-curve quadrature points each paired
+with the background element it lands in (``add_overset``: P0 Lagrange
+multipliers on a BAR block), and the 3D edges where two side sets meet
+(``add_edge_kernel``). Each set has one shape: a host-built combined
+gather, a residual per row, ``vmap(jacfwd(...))`` over the combined local
+dofs, and a sum into R and the CSR values through host-built gather plans
+(``fem.sparsity.add_plan``/``add_at``; no atomics). The pattern holds
+their couplings; they are not in the element matvec's aux, so a deck with
+one takes the CSR (ELL) operator, as in goma_tpu. BAR blocks in a 2D mesh
+evaluate through ``fem.fields.eval_curvevars``.
+
 The public entry points are goma_tpu's: ``assemble(x, params) -> (R,
 vals)``, ``residual(x, params) -> R`` (the residual-only pass) and
-``bc_dup_report()``. Everything else goma_tpu's Problem supports (edge /
-interface / overset kernels, face kernels on bar-endpoint faces, shell and
-Nedelec blocks) raises ``NotImplementedError`` at ``finalize``: later
+``bc_dup_report()``. Everything else goma_tpu's Problem supports (the
+overset coupling to a solid, face kernels on bar-endpoint faces, surface
+blocks in 3D and Nedelec blocks) raises ``NotImplementedError``: later
 slices (see ROADMAP).
 """
 
@@ -73,7 +86,7 @@ from goma_tpu_torch.elements import faces as elem_faces
 from goma_tpu_torch.fem.equations import Equation, FaceKernel, SurfaceVars
 from goma_tpu_torch.fem.fields import (MESH_VAR, BlockTables, _guard_r,
                                        _unpack, build_block_tables,
-                                       eval_fieldvars)
+                                       eval_curvevars, eval_fieldvars)
 from goma_tpu_torch.fem.sparsity import (CSRPattern, add_at, add_plan,
                                          build_pattern, nnz_map_for_gather)
 from goma_tpu_torch.fem.sparsity import transpose_gather as _transpose_gather
@@ -152,6 +165,39 @@ class _FaceSet:
     name: str = ""
 
 
+@dataclass
+class _IfcSet:
+    """Paired-face interface set (cross-block coupling)."""
+
+    block_a: int
+    block_b: int
+    kernels: list
+    elems_a: np.ndarray  # (np,)
+    elems_b: np.ndarray
+    ftabs_a: dict[str, np.ndarray]
+    ftabs_b: dict[str, np.ndarray]
+    fwts: np.ndarray
+    gather_ab: np.ndarray  # (np, nla + nlb) combined dof gather
+    nla: int
+
+
+@dataclass
+class _OvsSet:
+    """Overset (fictitious-domain) coupling set: one row per immersed-curve
+    quadrature point, pairing the bar element carrying the Lagrange
+    multiplier with the background element that holds the point
+    (reference ``src/bc_contact.c`` overlapping-grid contact)."""
+
+    bar_block: int
+    fluid_block: int
+    kernels: list
+    gather: np.ndarray  # (nr, nlb + nlf) combined dof gather
+    nlb: int
+    xq: np.ndarray  # (nr, dim) physical points
+    wq: np.ndarray  # (nr,) arc-length quadrature weights
+    Nf: dict[str, np.ndarray]  # fluid interp -> (nr, nbf) basis at the point
+
+
 def _cast_floats(params: dict, dtype) -> dict:
     return {k: (v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
                 else v) for k, v in params.items()}
@@ -205,8 +251,9 @@ class Problem:
         self._point_load_specs: list = []
         self._inject_specs: list = []
         self._inject = None
-        # registrations of features outside this slice; finalize raises
-        self._unported: list[str] = []
+        self._edge_specs: list = []
+        self._ifc_specs: list = []
+        self._ovs_specs: list = []
         # optional lower-precision Jacobian (mixed-precision Newton-Krylov);
         # None = same as working dtype
         self.jacobian_dtype = None
@@ -230,10 +277,18 @@ class Problem:
         self._face_sets.append((sideset, kernel))
 
     def add_interface_kernel(self, pairs, kernel):
-        self._unported.append("interface kernels")
+        """Cross-block interface term over the paired faces ``pairs``
+        (``goma_tpu_torch.mesh.interface.find_interface_faces`` /
+        ``split_interface`` / ``interior_face_pairs``); reference
+        interfacial sources between discontinuous variables,
+        src/mm_interface.c."""
+        self._ifc_specs.append((pairs, kernel))
 
-    def add_edge_kernel(self, sideset_a, sideset_b, kernel):
-        self._unported.append("edge kernels")
+    def add_edge_kernel(self, sideset_a: str, sideset_b: str, kernel):
+        """Integrated condition on the 3D curve where two side sets meet
+        (reference ``bc_curve.c apply_integrated_curve_bc``, e.g.
+        VELO_TANGENT_EDGE); ``kernel`` an EdgeKernel (``bc/edge.py``)."""
+        self._edge_specs.append((sideset_a, sideset_b, kernel))
 
     def add_rotation(self, sidesets, var: str):
         """Rotate the nodal equations of ``var`` into normal-tangent frames
@@ -273,8 +328,22 @@ class Problem:
         self._inject_specs.append(
             (nodeset, from_var, to_var, from_comp, to_comp, sign))
 
-    def add_overset(self, bar_block, fluid_block, kernel, *args, **kwargs):
-        self._unported.append("overset coupling")
+    def add_overset(self, bar_block, fluid_block, kernel, quad_order=None,
+                    solid=None):
+        """Overset (fictitious-domain) coupling between an immersed BAR
+        block carrying the P0 multiplier ``lm`` (``physics.overset``) and a
+        background block: at every quadrature point of the curve the
+        background element holding it is located on the host (kd-tree +
+        isoparametric inversion) and the kernel ties the background field
+        there to the boundary motion (reference ``src/bc_contact.c:79``,
+        ``src/mm_augc_util.c:2914``). ``quad_order=1`` collocates one
+        constraint at each segment midpoint; higher orders (default: the
+        problem's) enforce segment averages. The two-way coupling to a
+        solid (``solid=(block, sideset)``) is a later slice."""
+        if solid is not None:
+            raise NotImplementedError(
+                f"add_overset(solid=...) (two-way solid coupling): {_LATER}")
+        self._ovs_specs.append((bar_block, fluid_block, kernel, quad_order))
 
     def add_periodic(self, nodeset_a: str, nodeset_b: str, translation=None,
                      tol: float = 1e-8):
@@ -356,9 +425,10 @@ class Problem:
 
     # ------------------------------------------------------------- finalize
     def finalize(self):
-        if self._unported:
-            raise NotImplementedError(
-                f"{', '.join(sorted(set(self._unported)))}: {_LATER}")
+        """Build the dofmap, the coupling sets, the CSR pattern, the face
+        and edge sets, the strong conditions and the device tables. Called
+        again after the mesh moved (an overset curve's new position), it
+        rebuilds them all."""
         mesh = self.mesh
         block_vars = [
             [(eq.var, eq.ncomp, eq.interp) for eq in eqs] for eqs in self.equations
@@ -375,8 +445,13 @@ class Problem:
                 continue
             if bd.edge_signs is not None:
                 raise NotImplementedError(f"Nedelec (edge-signed) blocks: {_LATER}")
-            if element_type(bd.elem_type).dim < mesh.dim:
-                raise NotImplementedError(f"shell/curve blocks: {_LATER}")
+            edim = element_type(bd.elem_type).dim
+            if edim < mesh.dim and (edim != 1 or mesh.dim != 2):
+                raise NotImplementedError(f"surface blocks in 3D: {_LATER}")
+            if edim < mesh.dim and self.coord != "cartesian":
+                raise NotImplementedError(
+                    "shell/curve blocks are not supported in axisymmetric "
+                    "coordinates yet")
             for eq in self.equations[bi]:
                 eq.check_slice()
         self.tables: list[BlockTables] = [
@@ -384,8 +459,18 @@ class Problem:
                                self.quad_order)
             for bd, blk in zip(self.dofmap.blocks, mesh.blocks)]
         gathers = [b.gather for b in self.dofmap.blocks]
-        self.pattern: CSRPattern = self._build_pattern_with_inject(gathers)
+        # interface (paired-face) and overset sets add cross-element
+        # couplings to the graph
+        self.ifc_sets: list[_IfcSet] = self._build_interface_sets()
+        self.ovs_sets: list[_OvsSet] = self._build_overset_sets()
+        self.pattern: CSRPattern = self._build_pattern_with_inject(
+            gathers + [s.gather_ab for s in self.ifc_sets]
+            + [s.gather for s in self.ovs_sets])
         self._nnz_maps = [nnz_map_for_gather(self.pattern, g) for g in gathers]
+        self._ifc_nnz = [nnz_map_for_gather(self.pattern, s.gather_ab)
+                         for s in self.ifc_sets]
+        self._ovs_nnz = [nnz_map_for_gather(self.pattern, s.gather)
+                         for s in self.ovs_sets]
 
         # face sets: the registered kernels grouped by side set (in the
         # order of first registration), split by block
@@ -395,6 +480,17 @@ class Problem:
         self.face_sets: list[_FaceSet] = []
         for name, kernels in bysset.items():
             self.face_sets.extend(self._build_face_set(name, kernels))
+        # 3D edge-curve sets (bc_curve.c): the registered kernels grouped by
+        # side-set pair, the intersections found on the host
+        bypair: dict[tuple[str, str], list] = {}
+        for sa, sb, k in self._edge_specs:
+            bypair.setdefault((sa, sb), []).append(k)
+        self.edge_sets = []
+        if bypair:
+            from goma_tpu_torch.bc.edge import build_edge_sets
+
+            for (sa, sb), kernels in bypair.items():
+                self.edge_sets.extend(build_edge_sets(self, sa, sb, kernels))
 
         # Dirichlet arrays. Duplicate resolution keeps the FIRST spec in the
         # deck, with a warning when a later spec carries a conflicting value
@@ -597,6 +693,157 @@ class Problem:
                 ftabs=ftabs, fwts=fwts, name=sideset_name))
         return out
 
+    def _build_interface_sets(self) -> list[_IfcSet]:
+        """Per registered pairing: the A side's face quadrature tables, the
+        B side's basis tables at the MATCHING reference points (host Newton
+        inversion of B's face map at A's physical points) and the combined
+        (nla + nlb) dof gather whose ``jacfwd`` gives the cross-block
+        Jacobian blocks. Host numpy, goma_tpu's construction."""
+        out = []
+        bykey: dict[int, tuple] = {}
+        for pairs, k in self._ifc_specs:
+            bykey.setdefault(id(pairs), (pairs, []))[1].append(k)
+        mesh = self.mesh
+        for pairs, kernels in bykey.values():
+            ba, bb = pairs.block_a, pairs.block_b
+            blk_a, blk_b = mesh.blocks[ba], mesh.blocks[bb]
+            bd_a, bd_b = self.dofmap.blocks[ba], self.dofmap.blocks[bb]
+            et_a, et_b = element_type(blk_a.elem_type), element_type(blk_b.elem_type)
+            gi_a, gi_b = geom_interp(et_a), geom_interp(et_b)
+            fpts, fwts = face_rule(et_a.family, self.quad_order)
+            faces_a = elem_faces(et_a.family)
+            faces_b = elem_faces(et_b.family)
+            interps_a = {s.interp for s in bd_a.slots}
+            interps_b = {s.interp for s in bd_b.slots}
+            ta = {"Ng": [], "dNg": [], "refjac": []}
+            tb = {"Ng": [], "dNg": [], "refjac": []}
+            Na = {i: [] for i in interps_a}
+            dNa = {i: [] for i in interps_a}
+            Nb = {i: [] for i in interps_b}
+            dNb = {i: [] for i in interps_b}
+            for la, fa, lb, fb in zip(pairs.elems_a, pairs.faces_a,
+                                      pairs.elems_b, pairs.faces_b):
+                face_a = faces_a[int(fa)]
+                epts_a = face_a.ref_map(fpts)
+                Ng_a, dNg_a = eval_basis(et_a.family, gi_a, epts_a)
+                xq = Ng_a @ mesh.coords[blk_a.conn[int(la)]]  # (nq, dim)
+                # invert B's face map at each physical point (host Newton)
+                face_b = faces_b[int(fb)]
+                Xb = mesh.coords[blk_b.conn[int(lb)]]
+                s_ref = np.zeros((fpts.shape[0], face_b.ref_jac.shape[1]))
+                for _ in range(30):
+                    Ng_b, dNg_b = eval_basis(et_b.family, gi_b,
+                                             face_b.ref_map(s_ref))
+                    dxds = np.einsum("qnd,df,nk->qkf", dNg_b,
+                                     face_b.ref_jac, Xb)
+                    r = Ng_b @ Xb - xq
+                    JtJ = np.einsum("qkf,qkg->qfg", dxds, dxds)
+                    Jtr = np.einsum("qkf,qk->qf", dxds, r)
+                    ds = np.linalg.solve(JtJ, Jtr[:, :, None])[:, :, 0]
+                    s_ref = s_ref - ds
+                    if np.abs(ds).max() < 1e-13:
+                        break
+                epts_b = face_b.ref_map(s_ref)
+                Ng_b, dNg_b = eval_basis(et_b.family, gi_b, epts_b)
+                if np.abs(Ng_b @ Xb - xq).max() > 1e-8:
+                    raise RuntimeError("interface faces are not conforming")
+                for tab, vals in ((ta, (Ng_a, dNg_a, face_a.ref_jac)),
+                                  (tb, (Ng_b, dNg_b, face_b.ref_jac))):
+                    for key, v in zip(("Ng", "dNg", "refjac"), vals):
+                        tab[key].append(v)
+                for et, epts, N_, dN_ in ((et_a, epts_a, Na, dNa),
+                                          (et_b, epts_b, Nb, dNb)):
+                    for itp in N_:
+                        N, dN = eval_basis(et.family, itp, epts)
+                        N_[itp].append(N)
+                        dN_[itp].append(dN)
+            ftabs_a = {k: np.stack(v) for k, v in ta.items()}
+            ftabs_b = {k: np.stack(v) for k, v in tb.items()}
+            for itp in interps_a:
+                ftabs_a[f"N:{itp}"] = np.stack(Na[itp])
+                ftabs_a[f"dN:{itp}"] = np.stack(dNa[itp])
+            for itp in interps_b:
+                ftabs_b[f"N:{itp}"] = np.stack(Nb[itp])
+                ftabs_b[f"dN:{itp}"] = np.stack(dNb[itp])
+            ga = bd_a.gather[pairs.elems_a]
+            gb = bd_b.gather[pairs.elems_b]
+            out.append(_IfcSet(
+                block_a=ba, block_b=bb, kernels=kernels,
+                elems_a=np.asarray(pairs.elems_a),
+                elems_b=np.asarray(pairs.elems_b),
+                ftabs_a=ftabs_a, ftabs_b=ftabs_b, fwts=fwts,
+                gather_ab=np.concatenate([ga, gb], axis=1), nla=ga.shape[1]))
+        return out
+
+    def _build_overset_sets(self) -> list[_OvsSet]:
+        """Host precomputation of the overset couplings: the immersed
+        curve's quadrature points and arc weights from the BAR geometry,
+        the background element holding each point (centroid kd-tree +
+        isoparametric Newton inversion, the host analog of the reference's
+        point search in src/bc_contact.c), the background basis at the
+        landed reference point, and the combined [bar, fluid] dof gather.
+        Host numpy, goma_tpu's construction."""
+        if not self._ovs_specs:
+            return []
+        from scipy.spatial import cKDTree
+
+        from goma_tpu_torch.elements import volume_rule
+        from goma_tpu_torch.post.particles import _invert_map
+
+        mesh = self.mesh
+        name2bi = {b.name: i for i, b in enumerate(mesh.blocks)}
+        bykey: dict[tuple, list] = {}
+        for bb, fb, k, qo in self._ovs_specs:
+            bb = name2bi[bb] if isinstance(bb, str) else int(bb)
+            fb = name2bi[fb] if isinstance(fb, str) else int(fb)
+            bykey.setdefault((bb, fb, qo), []).append(k)
+        out = []
+        for (bb, fb, qo), kernels in bykey.items():
+            blk_b, blk_f = mesh.blocks[bb], mesh.blocks[fb]
+            bd_b, bd_f = self.dofmap.blocks[bb], self.dofmap.blocks[fb]
+            et_b, et_f = element_type(blk_b.elem_type), element_type(blk_f.elem_type)
+            if et_b.family != "bar":
+                raise ValueError("overset multiplier block must be a BAR block")
+            qpts, qwts = volume_rule("bar", qo or self.quad_order)
+            Ng, dNg = eval_basis("bar", geom_interp(et_b), qpts)
+            interps_f = sorted({s.interp for s in bd_f.slots})
+            cents = mesh.coords[blk_f.conn].mean(axis=1)
+            tree = cKDTree(cents)
+            rows_g, xs, ws = [], [], []
+            Nfs: dict[str, list] = {i: [] for i in interps_f}
+            for le in range(blk_b.n_elem):
+                Xb = mesh.coords[blk_b.conn[le]]
+                xq = Ng @ Xb  # (nq, dim)
+                tang = np.einsum("qn,nk->qk", dNg[:, :, 0], Xb)
+                wq = qwts * np.linalg.norm(tang, axis=1)
+                _, cand = tree.query(xq, k=min(8, cents.shape[0]))
+                cand = np.atleast_2d(cand)
+                for iq in range(qpts.shape[0]):
+                    fe = -1
+                    for ge in cand[iq]:
+                        xi, ok = _invert_map(et_f, mesh.coords[blk_f.conn[ge]],
+                                             xq[iq])
+                        if ok:
+                            fe = int(ge)
+                            break
+                    if fe < 0:
+                        raise RuntimeError(
+                            f"overset point {xq[iq]} lies outside the "
+                            f"background block '{blk_f.name}'")
+                    rows_g.append(np.concatenate([bd_b.gather[le],
+                                                  bd_f.gather[fe]]))
+                    xs.append(xq[iq])
+                    ws.append(wq[iq])
+                    for itp in interps_f:
+                        N, _ = eval_basis(et_f.family, itp, xi[None, :])
+                        Nfs[itp].append(N[0])
+            out.append(_OvsSet(
+                bar_block=bb, fluid_block=fb, kernels=kernels,
+                gather=np.stack(rows_g).astype(np.int32), nlb=bd_b.n_ldof,
+                xq=np.stack(xs), wq=np.asarray(ws),
+                Nf={i: np.stack(v) for i, v in Nfs.items()}))
+        return out
+
     def _build_tables(self):
         """Static tables as tensors on ``self.device``."""
         dt = self.dtype
@@ -634,6 +881,40 @@ class Problem:
             for k, v in fs.ftabs.items():
                 T[f"ft{j}:{k}"] = put(v, dt)
             T[f"fw{j}"] = put(fs.fwts, dt)
+        # coupling sets: geometry, bases, and per set the gather plans of its
+        # rows into R (key ":r") and of its Jacobian into the values (":v")
+        coords = self.mesh.coords
+
+        def plans(key, gather, nmap):
+            for tag, tgt in (("r", gather), ("v", nmap)):
+                uniq, pos = add_plan(tgt)
+                T[f"{key}:{tag}u"], T[f"{key}:{tag}p"] = put(uniq), put(pos)
+
+        for j, es in enumerate(self.edge_sets):
+            bd = self.dofmap.blocks[es.block_index]
+            blk = self.mesh.blocks[es.block_index]
+            T[f"eg{j}"] = put(bd.gather[es.edge_elems].astype(np.int64))
+            T[f"ex{j}"] = put(coords[blk.conn[es.edge_elems]], dt)
+            for k, v in es.etabs.items():
+                T[f"et{j}:{k}"] = put(v, dt)
+            plans(f"e{j}", bd.gather[es.edge_elems],
+                  self._nnz_maps[es.block_index][es.edge_elems])
+        for j, st in enumerate(self.ifc_sets):
+            T[f"ig{j}"] = put(st.gather_ab.astype(np.int64))
+            T[f"ixa{j}"] = put(coords[self.mesh.blocks[st.block_a].conn[st.elems_a]], dt)
+            T[f"ixb{j}"] = put(coords[self.mesh.blocks[st.block_b].conn[st.elems_b]], dt)
+            for k, v in st.ftabs_a.items():
+                T[f"ita{j}:{k}"] = put(v, dt)
+            for k, v in st.ftabs_b.items():
+                T[f"itb{j}:{k}"] = put(v, dt)
+            plans(f"i{j}", st.gather_ab, self._ifc_nnz[j])
+        for j, st in enumerate(self.ovs_sets):
+            T[f"og{j}"] = put(st.gather.astype(np.int64))
+            T[f"ox{j}"] = put(st.xq, dt)
+            T[f"ow{j}"] = put(st.wq, dt)
+            for k, v in st.Nf.items():
+                T[f"oN{j}:{k}"] = put(v, dt)
+            plans(f"o{j}", st.gather, self._ovs_nnz[j])
         T["tg"] = put(self._tgather_pos)
         T["nnztg"] = put(self._nnz_tgather)
         T["dirmask"] = put(self._dir_mask)
@@ -817,11 +1098,18 @@ class Problem:
         mat = self.materials[bi]
         dtype = dtype or self.dtype
         ext_names, coord = self.external_fields, self.coord
+        # a BAR block in a 2D mesh (finalize refuses other lower-dimension
+        # blocks) evaluates on the curve
+        curve = element_type(bd.elem_type).dim < self.mesh.dim
 
         def elem_res(q_e, hist_e, X_e, ext_e, params):
             qdot_e = params["ct"] * q_e + hist_e
-            fv = eval_fieldvars(q_e, qdot_e, X_e, tables, bd.slots, dtype,
-                                ext_e, ext_names, coord)
+            if curve:
+                fv = eval_curvevars(q_e, qdot_e, X_e, tables, bd.slots, dtype,
+                                    ext_e, ext_names)
+            else:
+                fv = eval_fieldvars(q_e, qdot_e, X_e, tables, bd.slots, dtype,
+                                    ext_e, ext_names, coord)
             acc = {}
             for eq in eqs:
                 contrib = eq.residual(fv, mat, params)  # (nq, ncomp, nbf)
@@ -861,6 +1149,157 @@ class Problem:
             return r, r
 
         return face_res
+
+    @staticmethod
+    def _slot_cat(slots, acc, like):
+        """The local vector of ``slots`` (in start order): each slot's
+        accumulated contribution in ``acc``, zeros elsewhere (built out of
+        place, so it maps under ``torch.func.vmap``)."""
+        return [acc[s.var] if s.var in acc else like.new_zeros(s.size)
+                for s in slots]
+
+    def _edge_residual_fn(self, j: int):
+        """The residual of ONE element edge of edge set ``j`` (bc_curve.c):
+        ``edge_res(q_e, hist_e, X_e, etab, params) -> (r, r)`` over the
+        element's local dofs, each kernel's line integrand contracted with
+        the arc-length measure."""
+        from goma_tpu_torch.bc.edge import eval_edgevars
+
+        es = self.edge_sets[j]
+        bd = self.dofmap.blocks[es.block_index]
+        mat = self.materials[es.block_index]
+        dtype = self.dtype
+        ewts = torch.as_tensor(es.ewts, dtype=dtype, device=self.device)
+
+        def edge_res(q_e, hist_e, X_e, etab, params):
+            qdot_e = params["ct"] * q_e + hist_e
+            efv = eval_edgevars(q_e, qdot_e, X_e, etab, ewts, bd.slots, dtype)
+            acc = {}
+            for k in es.kernels:
+                contrib = k.residual(efv, mat, params)  # (nq_e, ncomp, nbf)
+                a = torch.einsum("q,qcn->cn", efv.wds, contrib).reshape(-1)
+                acc[k.var] = acc[k.var] + a if k.var in acc else a
+            r = torch.cat(self._slot_cat(bd.slots, acc, q_e))
+            return r, r
+
+        return edge_res
+
+    def _ifc_residual_fn(self, j: int):
+        """The residual of ONE face pair of interface set ``j`` over the
+        COMBINED local dofs (nla + nlb): ``jacfwd`` of it gives the
+        two-sided Jacobian with the cross-block blocks (the reference's
+        ``lec->J_stress_neighbor``). A kernel's ``var_a``/``var_b`` (when
+        set) name a different equation on each side."""
+        st = self.ifc_sets[j]
+        bd_a = self.dofmap.blocks[st.block_a]
+        bd_b = self.dofmap.blocks[st.block_b]
+        mat_a = self.materials[st.block_a]
+        mat_b = self.materials[st.block_b]
+        dtype, dim, nla = self.dtype, self.mesh.dim, st.nla
+        fwts = torch.as_tensor(st.fwts, dtype=dtype, device=self.device)
+
+        def ifc_res(q_ab, hist_ab, Xa_e, Xb_e, fta, ftb, params):
+            qa, qb = q_ab[:nla], q_ab[nla:]
+            ha, hb = hist_ab[:nla], hist_ab[nla:]
+            sa = eval_surfacevars(qa, params["ct"] * qa + ha, Xa_e, fta, fwts,
+                                  bd_a.slots, dim, dtype, self.coord)
+            sb = eval_surfacevars(qb, params["ct"] * qb + hb, Xb_e, ftb, fwts,
+                                  bd_b.slots, dim, dtype, self.coord)
+            acc_a, acc_b = {}, {}
+            for k in st.kernels:
+                ca, cb = k.residual(sa, sb, mat_a, mat_b, params)
+                for acc, var, c in ((acc_a, getattr(k, "var_a", None) or k.var, ca),
+                                    (acc_b, getattr(k, "var_b", None) or k.var, cb)):
+                    a = torch.einsum("q,qcn->cn", sa.wdA, c).reshape(-1)
+                    acc[var] = acc[var] + a if var in acc else a
+            r = torch.cat(self._slot_cat(bd_a.slots, acc_a, q_ab)
+                          + self._slot_cat(bd_b.slots, acc_b, q_ab))
+            return r, r
+
+        return ifc_res
+
+    def _ovs_residual_fn(self, j: int):
+        """The residual of ONE quadrature point of overset set ``j`` over the
+        combined [bar, fluid] local dofs: ``jacfwd`` of it gives the
+        multiplier/velocity coupling blocks (the reference's hand-coded
+        bAC/cAC/dAC arrays)."""
+        from goma_tpu_torch.physics.overset import LM_VAR, OversetVars
+
+        st = self.ovs_sets[j]
+        bd_b = self.dofmap.blocks[st.bar_block]
+        bd_f = self.dofmap.blocks[st.fluid_block]
+        nlb = st.nlb
+        lam = bd_b.slot(LM_VAR)
+
+        def row_res(q, xp, wp, Nf, params):
+            qf = q[nlb:]
+            ov = OversetVars()
+            ov.x = xp
+            ov.w = wp
+            for sl in bd_f.slots:
+                N = Nf[sl.interp]  # (nbf,)
+                qv = qf[sl.start:sl.start + sl.size].reshape(sl.ncomp, sl.nbf)
+                ov.vals[sl.var] = qv @ N
+                ov.phi[sl.var] = N
+            q_lam = q[lam.start:lam.start + lam.size].reshape(lam.ncomp)
+            acc_b, acc_f = {}, {}
+            for k in st.kernels:
+                r_lam, rf = k.residual(ov, q_lam, params)
+                for acc, var, c in ([(acc_b, LM_VAR, r_lam)]
+                                    + [(acc_f, v, c) for v, c in rf.items()]):
+                    c = c.reshape(-1)
+                    acc[var] = acc[var] + c if var in acc else c
+            r = torch.cat(self._slot_cat(bd_b.slots, acc_b, q)
+                          + self._slot_cat(bd_f.slots, acc_f, q))
+            return r, r
+
+        return row_res
+
+    def _coupling_parts(self, x, hist, params, T, with_jac=True):
+        """Every coupling set's (key, r (rows, nl), J (rows, nl, nl) or
+        None), in goma_tpu's order: edge sets, interface sets, overset
+        sets; at the problem dtype, ``vmap(jacfwd(...))`` over the rows."""
+        from torch.func import jacfwd, vmap
+
+        def run(fn, args, axes):
+            if with_jac:
+                J, r = vmap(jacfwd(fn, argnums=0, has_aux=True),
+                            in_dims=axes)(*args)
+                return r, J
+            return vmap(fn, in_dims=axes)(*args)[0], None
+
+        parts = []
+        for j, es in enumerate(self.edge_sets):
+            g = T[f"eg{j}"]
+            etabs = {k: T[f"et{j}:{k}"] for k in es.etabs}
+            parts.append((f"e{j}", *run(self._edge_residual_fn(j), (
+                x[g], hist[g], T[f"ex{j}"], etabs, params), (0, 0, 0, 0, None))))
+        for j, st in enumerate(self.ifc_sets):
+            g = T[f"ig{j}"]
+            fta = {k: T[f"ita{j}:{k}"] for k in st.ftabs_a}
+            ftb = {k: T[f"itb{j}:{k}"] for k in st.ftabs_b}
+            parts.append((f"i{j}", *run(self._ifc_residual_fn(j), (
+                x[g], hist[g], T[f"ixa{j}"], T[f"ixb{j}"], fta, ftb, params),
+                (0, 0, 0, 0, 0, 0, None))))
+        for j, st in enumerate(self.ovs_sets):
+            Nf = {k: T[f"oN{j}:{k}"] for k in st.Nf}
+            parts.append((f"o{j}", *run(self._ovs_residual_fn(j), (
+                x[T[f"og{j}"]], T[f"ox{j}"], T[f"ow{j}"], Nf, params),
+                (0, 0, 0, 0, None))))
+        return parts
+
+    def _add_coupling(self, x, params, T, R, vals):
+        """R and (when not None) the CSR values with every coupling set's
+        contributions added through their gather plans."""
+        if not (self.edge_sets or self.ifc_sets or self.ovs_sets):
+            return R, vals
+        hist = params["hist"].to(self.dtype)
+        for key, r, J in self._coupling_parts(x, hist, params, T,
+                                              with_jac=vals is not None):
+            R = add_at(R, T[f"{key}:ru"], T[f"{key}:rp"], r)
+            if vals is not None:
+                vals = add_at(vals, T[f"{key}:vu"], T[f"{key}:vp"], J)
+        return R, vals
 
     def _elem_rj_parts(self, x, params, T, rdt=None, jdt=None):
         """Per-block and per-face-set residual vectors (at ``rdt`` or the
@@ -1001,6 +1440,9 @@ class Problem:
         r_parts, blockJ, faceJ, _ = self._elem_rj_parts(x, params, T)
         R = _combine(r_parts, T["tg"], dtype)
         vals = _combine(blockJ + faceJ, T["nnztg"], jdt)
+        # the coupling sets are not in the aux (their decks take the CSR
+        # operator, see NewtonSolver)
+        R, vals = self._add_coupling(x, params, T, R, vals)
         R, vals, pc_dg, pl_dfs = self._row_surgery(x, R, vals, params)
         return R, vals, (tuple(blockJ), tuple(faceJ), pc_dg, pl_dfs)
 
@@ -1015,6 +1457,7 @@ class Problem:
                                                         jdt=dtype)
         R = _combine(r_parts, T["tg"], dtype)
         vals = _combine(blockJ + faceJ, T["nnztg"], dtype)
+        R, vals = self._add_coupling(x, params, T, R, vals)
         R, vals, _, _ = self._row_surgery(x, R, vals, params)
         return R, vals
 
@@ -1056,6 +1499,7 @@ class Problem:
                 x[g], hist[g], T[f"fx{j}"].to(dtype), ftabs, params)
             parts.append(r)
         R = _combine(parts, T["tg"], dtype)
+        R, _ = self._add_coupling(x, params, T, R, None)
         R, _, _, _ = self._row_surgery(x, R, None, params)
         return R
 

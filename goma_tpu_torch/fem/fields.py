@@ -19,10 +19,12 @@ Axisymmetric coordinates (``coord="cylindrical"``/``"swirling"``, q =
 radius ``fv.r``; frozen external nodal fields (``ext_e``) are interpolated
 with the geometric basis into ``fv.ext``/``fv.ext_grad``.
 
-Cut to this slice: volume elements with Lagrange interpolations. The N1
-(Nedelec) and H3 (Hermite) tables raise ``NotImplementedError`` here;
-``Problem.finalize`` refuses shell/curve blocks (later slices, see
-ROADMAP).
+BAR blocks embedded in a 2D mesh (the immersed curves of the overset
+coupling) evaluate through ``eval_curvevars``: arc-length measure, unit
+tangent and normal, tangential gradients. Cut to this slice: Lagrange
+interpolations; the N1 (Nedelec) and H3 (Hermite) tables raise
+``NotImplementedError`` here, and ``Problem.finalize`` refuses surface
+blocks in 3D (``eval_surfvars``, a later slice, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -236,4 +238,68 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
             e = ext_e[:, k]  # (n_geom_nodes,)
             fv.ext[name] = torch.einsum("qn,n->q", tb["Ng"], e)
             fv.ext_grad[name] = torch.einsum("qnk,n->qk", gphi_g, e)
+    return fv
+
+
+class CurveVars(FieldVars):
+    """FieldVars for curve elements (reference dimension below the space
+    dimension): BAR blocks embedded in a 2D mesh (goma_tpu's
+    ``CurveVars``; reference shell machinery ``src/mm_fill_shell.c``).
+
+    Extra attributes:
+      tangent  (nq, dim)  unit tangent along the curve
+      normal   (nq, dim)  unit normal (tangent rotated -90 deg)
+      wds      (nq,)      arc-length quadrature weight (``wdetJ`` aliases it)
+      dphi_ds[v] (nq, nbf) arc-length derivative of the basis
+      grad_s[v] (nq, ncomp) arc-length derivative of the fields
+    """
+
+    def __init__(self):
+        super().__init__()
+        self.tangent = None
+        self.normal = None
+        self.wds = None
+        self.dphi_ds: dict[str, Any] = {}
+        self.grad_s: dict[str, Any] = {}
+        self.curvature = None
+
+
+def eval_curvevars(q_e, qdot_e, X_e, tables: BlockTables, slots, dtype,
+                   ext_e=None, ext_names: tuple[str, ...] = ()) -> CurveVars:
+    """Field evaluation on a BAR element embedded in 2D (goma_tpu's
+    ``eval_curvevars`` without its Hermite branch, whose tables this slice
+    refuses): gradients are tangential, ``(dphi/ds) t``."""
+    u = _unpack(q_e, slots)
+    udot = _unpack(qdot_e, slots)
+    tb = tables.on(dtype, q_e.device)
+    Xc = X_e + u[MESH_VAR].T if MESH_VAR in u else X_e
+
+    fv = CurveVars()
+    fv.dim = Xc.shape[1]
+    dxds_ref = torch.einsum("qn,nk->qk", tb["dNg"][:, :, 0], Xc)  # dx/dxi
+    mag = torch.sqrt(torch.sum(dxds_ref**2, dim=1) + 1e-300)
+    fv.tangent = dxds_ref / mag[:, None]
+    fv.normal = torch.stack([fv.tangent[:, 1], -fv.tangent[:, 0]], dim=1)
+    fv.wds = tb["qwts"] * mag
+    fv.wdetJ = fv.wds  # the volume measure, so generic kernels integrate
+    fv.x = torch.einsum("qn,nk->qk", tb["Ng"], Xc)
+    fv.detJ = mag
+    fv.h_elem = torch.sum(fv.wds)  # element length
+    for s in slots:
+        Ni = tb[f"N:{s.interp}"]
+        dphi = tb[f"dN:{s.interp}"][:, :, 0] / mag[:, None]
+        fv.phi[s.var] = Ni
+        fv.dphi_ds[s.var] = dphi
+        fv.gphi[s.var] = dphi[:, :, None] * fv.tangent[:, None, :]
+        fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
+        fv.grad_s[s.var] = torch.einsum("qn,cn->qc", dphi, u[s.var])
+        fv.grad[s.var] = fv.grad_s[s.var][:, :, None] * fv.tangent[:, None, :]
+        fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
+    if ext_names:
+        dphi_g = tb["dNg"][:, :, 0] / mag[:, None]
+        for k, name in enumerate(ext_names):
+            e = ext_e[:, k]
+            fv.ext[name] = torch.einsum("qn,n->q", tb["Ng"], e)
+            ds = torch.einsum("qn,n->q", dphi_g, e)
+            fv.ext_grad[name] = ds[:, None] * fv.tangent
     return fv

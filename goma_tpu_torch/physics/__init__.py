@@ -48,3 +48,5 @@ from goma_tpu_torch.physics.level_set import (
     XFEMPressureMomentum,
     sharp_heaviside,
 )
+from goma_tpu_torch.physics.interface import InterfaceExchange
+from goma_tpu_torch.physics.overset import OversetLM, OversetNoSlip

@@ -28,20 +28,19 @@ trick: each branch of a ``torch.where`` gets a safe input, so neither the
 value nor its forward derivative is NaN at the degenerate point.
 
 ``AxisymHoopStress`` carries the hoop (theta-theta) component of
-axisymmetric problems. Cut to this slice: ``DGStressUpwind`` and
-``DGStressInflow`` need interface kernels; both raise
-``NotImplementedError`` at construction (later slices, see ROADMAP).
+axisymmetric problems. ``DGStressUpwind`` (an interface kernel over the
+interior face pairs) and ``DGStressInflow`` (a face kernel) upwind a
+discontinuous (P0/P1E) stress across element faces.
 """
 
 from __future__ import annotations
 
 import torch
 
-from goma_tpu_torch.fem.equations import Equation
+from goma_tpu_torch.fem.equations import Equation, FaceKernel, InterfaceKernel
 from goma_tpu_torch.fem.variables import sym_comps
 from goma_tpu_torch.physics.fluid import _sym_expand, advective_velocity
 
-_LATER = "later slice of the port, see ROADMAP"
 
 
 def stress_var(mode: int) -> str:
@@ -384,22 +383,54 @@ def sqrtconf_stress_tensor(fv, mode: int, lam: float, mu_p: float):
     return (mu_p / lam) * (c - _eye2(b)[None])
 
 
-class DGStressUpwind:
-    """Interior-face upwind advection for discontinuous stress (goma_tpu's
-    ``InterfaceKernel``): needs the interface kernels that
-    ``Problem.add_interface_kernel`` refuses in this slice."""
+def _neg(a):
+    """min(a, 0) with jnp.minimum's derivative (half to each side at a
+    tie)."""
+    return torch.minimum(a, a.new_zeros(()))
+
+
+class DGStressUpwind(InterfaceKernel):
+    """Interior-face upwind advection for DISCONTINUOUS (P0/P1E) stress,
+    the DG analog of the reference's neighbor-element stress coupling
+    (``assemble_surface_stress``, src/mm_fill_stress.c:5017; the
+    ``lec->J_stress_neighbor`` blocks come from jacfwd over the pair's
+    combined dofs). Adds lam (v.n)^- (s_ext - s_in) phi on the inflow side
+    of every interior face (pairs from
+    ``mesh.interface.interior_face_pairs``)."""
 
     def __init__(self, mode: int, lam: float, dim: int = 2):
-        raise NotImplementedError(f"DGStressUpwind (interface kernels): {_LATER}")
+        super().__init__(stress_var(mode), len(sym_comps(dim)))
+        self.lam = lam
+
+    def residual(self, sa, sb, mat_a, mat_b, params):
+        v = sa.val["velocity"]
+        vn = torch.einsum("qk,qk->q", v, sa.normal)  # out of A into B
+        s_a = sa.val[self.var]
+        s_b = sb.val[self.var]
+        ca = self.lam * _neg(vn)[:, None, None] \
+            * (s_b - s_a)[:, :, None] * sa.phi[self.var][:, None, :]
+        cb = self.lam * _neg(-vn)[:, None, None] \
+            * (s_a - s_b)[:, :, None] * sb.phi[self.var][:, None, :]
+        return ca, cb
 
 
-class DGStressInflow:
-    """Inflow boundary closure for discontinuous stress (goma_tpu's
-    ``FaceKernel``): needs the face kernels that ``Problem.add_face_kernel``
-    refuses in this slice."""
+class DGStressInflow(FaceKernel):
+    """Inflow boundary closure for DG stress: the exterior state is the
+    prescribed ``s_in`` (reference: stress inflow via tables in
+    assemble_surface_stress)."""
 
     def __init__(self, mode: int, lam: float, s_in, dim: int = 2):
-        raise NotImplementedError(f"DGStressInflow (face kernels): {_LATER}")
+        super().__init__(stress_var(mode), len(sym_comps(dim)))
+        self.lam = lam
+        self.s_in = torch.as_tensor(s_in, dtype=torch.float64)
+
+    def residual(self, sfv, mat, params):
+        v = sfv.val["velocity"]
+        vn = torch.einsum("qk,qk->q", v, sfv.normal)
+        s = sfv.val[self.var]
+        ds = self.s_in.to(dtype=s.dtype, device=s.device)[None, :] - s
+        return self.lam * _neg(vn)[:, None, None] \
+            * ds[:, :, None] * sfv.phi[self.var][:, None, :]
 
 
 class AxisymHoopStress(Equation):

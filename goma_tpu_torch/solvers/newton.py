@@ -27,10 +27,12 @@ dtype.
   ends the Newton solve unconverged, so the transient driver halves dt.
 - ``row_scaling=False``: the full prep with R unscaled and a scale of
   ones (no fast prep), so the sequential loop runs.
-- a Problem with a row injection (``add_row_inject``): the element
-  matvec's aux does not hold the injection, so ``gmres``/``bicgstab`` take
-  the full prep on the plain ``_assemble`` values and the ELL matvec of
-  them, and the sequential loop runs, as in goma_tpu.
+- a Problem with a row injection (``add_row_inject``) or a coupling set
+  (``add_interface_kernel``, ``add_overset``, ``add_edge_kernel``): the
+  element matvec's aux holds neither, so ``gmres``/``bicgstab`` take the
+  full prep on the plain ``_assemble`` values and the ELL matvec of them,
+  ``tpu_direct`` factors the plain ``_assemble`` values, and the
+  sequential loop runs, as in goma_tpu.
 
 ``solve`` routes as goma_tpu routes: ``gmres`` with ``tol_update == 0`` on
 the fast prep runs the pipelined loop (``_solve_pipelined``), everything
@@ -194,11 +196,15 @@ class NewtonSolver:
         # builds it up front
         self.precond = (None if self._direct or self._host_direct
                         else self._build_precond(kind))
-        # a row injection is not in the element matvec's aux: such a deck
-        # assembles the plain CSR values (``_assemble``) and its Krylov
-        # operator is the ELL matvec of them, as in goma_tpu; rotation,
-        # point constraints and point loads stay on the element matvec
-        elem_capable = getattr(problem, "_inject", None) is None
+        # a row injection and the coupling sets (interface, overset, edge)
+        # are not in the element matvec's aux: such a deck assembles the
+        # plain CSR values (``_assemble``) and its Krylov operator is the
+        # ELL matvec of them, as in goma_tpu; rotation, point constraints
+        # and point loads stay on the element matvec
+        elem_capable = (getattr(problem, "_inject", None) is None
+                        and not getattr(problem, "ifc_sets", None)
+                        and not getattr(problem, "ovs_sets", None)
+                        and not getattr(problem, "edge_sets", None))
         self._use_elem_mv = elem_capable and not (self._direct
                                                   or self._host_direct)
         # tpu_direct assembles through the element path for the Jacobian

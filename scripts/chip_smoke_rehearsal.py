@@ -10,6 +10,7 @@ shapes before a run on the card.
                                             [--only-axisym]
                                             [--only-bc]
                                             [--only-continuation]
+                                            [--only-overset]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -18,14 +19,16 @@ launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
 ``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
 syncs).
 The decks are cut to 8x8 (cavity, buoyant, static bubble, tilted cavity,
-lid-speed continuation), 16x16 (Bratu),
+lid-speed continuation), 16x16 (Bratu), 20x10 with 28 segments (the
+immersed cylinder),
 8x4 (viscoelastic), 16x4 (slot coater) and 16x8 (axisymmetric die,
 periodic channel), the checks that need the full size
 (Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump,
 x against goma_tpu's record) are widened, and the linear iteration counts, the slot coater's accepted steps
 and free-surface heights and the die's, the tilted cavity's, the periodic
-channel's and the continuation decks' records the script requires are those
-of the cut decks (goma_tpu's at 16x4, 16x8, 8x8 and 16x16, CPU). Every time it prints is a CPU time, not a device
+channel's, the continuation decks' and the immersed cylinder's records the
+script requires are those of the cut decks (goma_tpu's at 16x4, 16x8, 8x8,
+16x16 and 20x10, CPU). Every time it prints is a CPU time, not a device
 number.
 """
 
@@ -268,6 +271,50 @@ CONT_REF_8 = {'gmres_ndlu': {'lam': [1.0, 1.5, 2.25, 3.375, 4.0], 'newton':
     -49.36856389263032, -19.739855578785836]}}
 
 
+# goma_tpu's record of the 20x10 immersed cylinder (28 segments)
+# (scripts/overset_reference.py --part cylinder --nx 20 --ny 10 --nseg 28)
+OVS_REF_20 = {'gmres+ndlu': {'converged': True,
+                'drag': 47.43937276333542,
+                'levels': [[14, 135], [8, 87], [4, 58], [2, 76], [1, 92]],
+                'linear': [1, 1, 1],
+                'newton': 3,
+                'x_samples': [0.0, 2.0426776812166154, 0.0033867719136375196,
+                              0.015164451362392542, 0.029529897346420027,
+                              0.14586908143482805, 0.8272734739828945,
+                              0.438608374192567, 0.3955568869372126,
+                              0.21264743634275013, 0.20445077539091835,
+                              0.3180411359662486, 0.134696494687837,
+                              0.25429647870747024, 0.09360926432213527,
+                              0.140703994165065, 0.13773417673933042,
+                              0.02029492026596955, -0.010969264715608502,
+                              -0.001247100722379052, -0.009811852263841205,
+                              -0.0028601556706662557, 0.0,
+                              -18.317747434694624]},
+ 'n_dof': 2009,
+ 'n_lm': 56,
+ 'nnz': 77683,
+ 'nseg': 28,
+ 'nx': 20,
+ 'ny': 10,
+ 'tpu_direct': {'converged': True,
+                'drag': 47.439372763310125,
+                'levels': [[14, 135], [8, 87], [4, 58], [2, 76], [1, 92]],
+                'linear': [1, 1],
+                'newton': 2,
+                'x_samples': [0.0, 2.0426776812167047, 0.0033867719136365868,
+                              0.015164451362387586, 0.029529897346410403,
+                              0.14586908143482666, 0.8272734739828597,
+                              0.4386083741926602, 0.3955568869373821,
+                              0.2126474363427116, 0.20445077539092912,
+                              0.31804113596634087, 0.13469649468780207,
+                              0.25429647870743055, 0.09360926432211052,
+                              0.1407039941650391, 0.13773417673931934,
+                              0.020294920265965896, -0.010969264715620966,
+                              -0.001247100722386216, -0.009811852263849128,
+                              -0.0028601556706685403, 0.0,
+                              -18.317747436057605]}}
+
+
 def _counted(plain):
     """``plain`` with a launch counter, as the kernel wrappers carry."""
     def counted(*a, **k):
@@ -314,6 +361,7 @@ def load_smoke():
     cs.PER_NX, cs.PER_NY, cs.PER_REF = 16, 8, PER_REF_8
     cs.CONT_N, cs.CONT_BRATU_N, cs.CONT_REF = 8, 16, CONT_REF_8
     cs.GHIA400_RTOL = 1.0
+    cs.OVS_NX, cs.OVS_NY, cs.OVS_NSEG, cs.OVS_REF = 20, 10, 28, OVS_REF_20
     return cs
 
 
@@ -333,6 +381,8 @@ def main() -> int:
                     help="run phases 33-38 only")
     ap.add_argument("--only-continuation", action="store_true",
                     help="run phases 39-44 only")
+    ap.add_argument("--only-overset", action="store_true",
+                    help="run phases 45-47 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -407,6 +457,11 @@ def main() -> int:
         cs.flux_phase(cg["prob"], cg["steps"][-1].x)
         cs.bratu_phase(dev)
         cs.stability_phase(dev)
+    elif args.only_overset:
+        dev = torch.device("cpu")
+        og = cs.overset_phase(dev, "gmres+ndlu")
+        cs.overset_phase(dev, "tpu_direct", og.pop("prob"), og.pop("bi"))
+        cs.overset_small_phase()
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

@@ -178,7 +178,10 @@ EXPORTS = {
                 "NewtonOptions", "NewtonResult", "NewtonSolver"],
     "fem": ["Problem", "DofMap", "build_dofmap", "Equation", "FaceKernel",
             "SurfaceVars", "FieldVars", "build_pattern"],
-    "physics": ["stress_var", "NormalModeContinuity", "NormalModeEnergy",
+    "mesh": ["Block", "Mesh", "SideSet", "box_mesh", "rectangle_mesh",
+             "circle_block", "polyline_block"],
+    "physics": ["InterfaceExchange", "OversetLM", "OversetNoSlip",
+                "stress_var", "NormalModeContinuity", "NormalModeEnergy",
                 "NormalModeMomentum", "NormalModeW", "CapillaryZNormal",
                 "ContinuityZ", "MeshZ", "MomentumZ", "ScalarZ", "WMomentum",
                 "embed_state", "zmode_equations"],

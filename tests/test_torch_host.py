@@ -231,7 +231,9 @@ def test_port_imports_and_builds_without_jax():
     TransientSolver, then assembles it and reads its element quality; then
     a cavity with rotated wall constraints and an x-periodic one, through
     ``assemble`` and ``residual``; then it imports the continuation layer
-    and assembles the Jacobian and mass matrix of a normal-mode deck."""
+    and assembles the Jacobian and mass matrix of a normal-mode deck; then
+    it builds and assembles the immersed-cylinder overset deck (a BAR
+    multiplier block) and builds its bordered solver."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -352,6 +354,28 @@ def test_port_imports_and_builds_without_jax():
             nprob, np.zeros(nprob.dofmap.n_dof),
             nprob.base_params(beta=torch.tensor(1.5, dtype=torch.float64)))
         assert np.isfinite(J).all() and np.abs(M).max() > 0
+        # the overset immersed cylinder (BAR block of P0 multipliers)
+        from goma_tpu_torch.mesh import circle_block
+        from goma_tpu_torch.physics import OversetLM, OversetNoSlip
+        from goma_tpu_torch.solvers.bordered import (BorderedNewtonSolver,
+                                                     multiplier_dof_mask)
+        omesh = rectangle_mesh(6, 3, elem="QUAD9", xlim=(0, 2.0))
+        omesh.nodesets["pin"] = np.array([0], dtype=np.int32)
+        obi = circle_block(omesh, (0.8, 0.5), 0.2, n=8, name="cylinder")
+        oprob = Problem(omesh, [[Momentum(dim=2, transient=False,
+                                          convection=False), Continuity()],
+                                [OversetLM(dim=2)]],
+                        [{"rho": 1.0, "mu": 1.0}, {}], device="cpu")
+        oprob.add_dirichlet("left", "velocity", 0, 1.0)
+        oprob.add_dirichlet("pin", "pressure", 0, 0.0)
+        oprob.add_overset(obi, 0, OversetNoSlip(dim=2))
+        oprob.finalize()
+        assert len(oprob.ovs_sets) == 1
+        R, vals = oprob.assemble(
+            torch.zeros(oprob.dofmap.n_dof, dtype=torch.float64),
+            oprob.base_params())
+        assert bool(torch.isfinite(vals).all()) and vals.shape[0] == oprob.pattern.nnz
+        BorderedNewtonSolver(oprob, multiplier_dof_mask(oprob))
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -392,22 +416,66 @@ def test_newton_options_outside_slice_raise(kw):
         NewtonOptions(**kw)
 
 
-@pytest.mark.parametrize("feature", ["edge", "interface"])
+@pytest.mark.parametrize("feature", ["edge", "interface", "overset_solid",
+                                     "shell3d"])
 def test_problem_outside_slice_raises(feature):
-    """Problem features outside the port's slices refuse at ``finalize``
-    (axisymmetric coordinates, point loads and periodic conditions, refused
-    before, are held against goma_tpu in tests/test_torch_axisym.py,
-    tests/test_torch_bc_rows.py and tests/test_torch_periodic.py)."""
+    """Problem features outside the port's slices refuse: the overset
+    coupling to a solid (``add_overset(solid=...)``) and a surface (shell)
+    block in a 3D mesh. Edge and interface kernels, refused before, are
+    ported: on a small deck of each, ``finalize`` builds the set and R at a
+    seeded state is goma_tpu's within 1e-10 (tests/test_torch_interface.py
+    holds every kernel against goma_tpu)."""
     mesh_m, fem, phys = TORCH_PKG
-    mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
-    eqs = [phys.Momentum(dim=2), phys.Continuity()]
-    prob = fem.Problem(mesh, eqs, {"rho": 1.0, "mu": 1.0}, device="cpu")
-    if feature == "edge":
-        prob.add_edge_kernel("left", "top", object())
-    if feature == "interface":
-        prob.add_interface_kernel(np.zeros((1, 2), dtype=np.int64), object())
-    with pytest.raises(NotImplementedError):
+    if feature == "overset_solid":
+        mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
+        prob = fem.Problem(mesh, [phys.Momentum(dim=2), phys.Continuity()],
+                           {"rho": 1.0, "mu": 1.0}, device="cpu")
+        with pytest.raises(NotImplementedError, match="later slice"):
+            prob.add_overset(1, 0, phys.OversetNoSlip(dim=2),
+                             solid=(2, "top"))
+        return
+    if feature == "shell3d":
+        mesh = mesh_m.box_mesh(1, 1, 1, elem="HEX8")
+        quad = mesh.sidesets["top"]
+        conn = mesh.blocks[0].conn[quad.elems][:, [4, 5, 6, 7]]
+        mesh.blocks.append(goma_tpu_torch.mesh.Block("shell", "QUAD4",
+                                                     conn.astype(np.int32)))
+        prob = fem.Problem(mesh, [[phys.Energy(interp="Q1")],
+                                  [phys.Energy(interp="Q1")]], {"k": 1.0},
+                           device="cpu")
+        with pytest.raises(NotImplementedError, match="surface blocks in 3D"):
+            prob.finalize()
+        return
+    import torch
+
+    import goma_tpu.bc.edge as jedge
+    import goma_tpu.mesh.interface as jmi
+    import goma_tpu_torch.bc.edge as tedge
+    import goma_tpu_torch.mesh.interface as tmi
+
+    R = []
+    for pkg, edge, mi in ((JAX_PKG, jedge, jmi), (TORCH_PKG, tedge, tmi)):
+        mesh_m, fem, phys = pkg
+        if feature == "edge":
+            mesh = mesh_m.box_mesh(1, 1, 1, elem="HEX27")
+            prob = fem.Problem(mesh, [phys.Energy(interp="Q2")], {"k": 1.0},
+                               **cpu(pkg))
+            prob.add_edge_kernel("top", "right", edge.EdgeTraction(
+                "temperature", 1, 2.0))
+        else:
+            mesh = mesh_m.rectangle_mesh(2, 1, elem="QUAD9")
+            prob = fem.Problem(mesh, [phys.Energy(interp="P0")], {"k": 1.0},
+                               **cpu(pkg))
+            prob.add_interface_kernel(mi.interior_face_pairs(mesh, 0),
+                                      phys.InterfaceExchange("temperature",
+                                                             coeff=3.0))
         prob.finalize()
+        x = np.random.default_rng(2).standard_normal(prob.dofmap.n_dof)
+        if pkg is TORCH_PKG:
+            R.append(prob.residual(torch.as_tensor(x), prob.base_params()).numpy())
+        else:
+            R.append(np.asarray(prob.residual(x, prob.base_params())))
+    assert np.abs(R[1] - R[0]).max() <= 1e-10 * np.abs(R[0]).max()
 
 
 def test_slot_coater_rotation_matches_goma_tpu():
@@ -442,17 +510,54 @@ def test_slot_coater_rotation_matches_goma_tpu():
 
 @pytest.mark.parametrize("name,args", [
     ("DGStressUpwind", (0, 1.0)),
-    ("DGStressInflow", (0, 1.0, [0.0, 0.0, 0.0])),
+    ("DGStressInflow", (0, 1.0, [0.5, 0.2, 0.1])),
+    ("OversetFSI", (2,)),
 ])
 def test_viscoelastic_pieces_outside_slice_raise(name, args):
-    """The discontinuous-stress face/interface kernels exist under
-    goma_tpu's names and refuse construction (the axisymmetric hoop stress,
-    refused before, is held against goma_tpu in
-    tests/test_torch_axisym.py)."""
-    cls = getattr(goma_tpu_torch.physics, name)
-    assert getattr(goma_tpu.physics, name).__name__ == name
-    with pytest.raises(NotImplementedError, match="later slice"):
-        cls(*args)
+    """goma_tpu's pieces under their names: the two-way overset solid
+    coupling (``OversetFSI``, ``goma_tpu_torch.physics.overset``) refuses
+    construction. The discontinuous-stress kernels, refused before, are
+    ported: each one's integrand on the same random face states equals
+    goma_tpu's to 1e-14 relative (tests/test_torch_interface.py holds the
+    DG decks against goma_tpu)."""
+    import jax.numpy as jnp
+    import torch
+
+    import goma_tpu.physics.overset as jov
+    import goma_tpu.physics.viscoelastic as jve
+    import goma_tpu_torch.physics.overset as tov
+    import goma_tpu_torch.physics.viscoelastic as tve
+
+    if name == "OversetFSI":
+        assert jov.OversetFSI.__name__ == tov.OversetFSI.__name__ == name
+        with pytest.raises(NotImplementedError, match="later slice"):
+            tov.OversetFSI(*args)
+        return
+    rng = np.random.default_rng(4)
+    nq, nb = 3, 3
+    arrs = {"v": rng.standard_normal((nq, 2)), "n": rng.standard_normal((nq, 2)),
+            "sa": rng.standard_normal((nq, 3)), "sb": rng.standard_normal((nq, 3)),
+            "pa": rng.standard_normal((nq, nb)), "pb": rng.standard_normal((nq, nb))}
+
+    class Face:
+        pass
+
+    out = []
+    for ve, arr in ((jve, jnp.asarray), (tve, torch.as_tensor)):
+        faces = []
+        for side in "ab":
+            f = Face()
+            f.val = {"velocity": arr(arrs["v"]), "stress0": arr(arrs["s" + side])}
+            f.phi = {"stress0": arr(arrs["p" + side])}
+            f.normal = arr(arrs["n"])
+            faces.append(f)
+        k = getattr(ve, name)(*args)
+        if name == "DGStressUpwind":
+            out.append([np.asarray(c) for c in k.residual(*faces, {}, {}, {})])
+        else:
+            out.append([np.asarray(k.residual(faces[0], {}, {}))])
+    for a, b in zip(out[1], out[0]):
+        np.testing.assert_allclose(a, b, rtol=1e-14, atol=1e-14 * np.abs(b).max())
 
 
 def test_flux_sensitivity_outside_slice_raises():
