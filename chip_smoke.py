@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Twenty-three main paths of the three
+failure and when CUDA is unavailable. Twenty-seven main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -19,7 +19,8 @@ the axisymmetric die deck's ``gmres_ndlu`` (phase 30) and ``tpu_direct``
 channel's (phases 36-37) two rungs; the lid-speed continuation of the
 64x64 cavity on both rungs (phases 39-40) and its augmenting condition
 (phase 41); the 96x48 immersed cylinder (overset multipliers) on both
-rungs (phases 45-46); the bordered solver's ``ndlu`` base on the 20x10
+rungs (phases 45-46); the 64x64 thermal slider bearing (phase 48) and
+drying film (phase 49) on 3D surface shells, each on both rungs; the bordered solver's ``ndlu`` base on the 20x10
 cylinder (phase 47) is read the same way as a cross-check, not a main
 path; then goma_tpu's other preconditioners and linear
 solvers, which run no hand kernel (their stages are torch ops): every
@@ -366,9 +367,33 @@ counts under it. Phases:
     edge line source and the FILL_CA wetting deck: the same Newton count
     on both devices and goma_tpu's (``OVS_SMALL_REF``), x within
     OVS_SMALL_X_TOL between the devices, the drag, temperature jump, decay
-    rate, flux and force within OVS_SMALL_RTOL of goma_tpu's.
+    rate, flux and force within OVS_SMALL_RTOL of goma_tpu's;
+48. the thermal slider bearing (``scripts/shell_decks.py``: Reynolds
+    lubrication and shell energy with SUPG on the QUAD9 shell that
+    ``attach_shell_block`` lays on the z = 0 face of a 64x64x1 HEX27 box
+    with no bulk equation; a tilted pad gap, mu = 1e-2 exp(-2 T); 33,282
+    dof) under bench._cavity_opts(kind, tol=1e-9, max_iter=12) restated,
+    float64 Jacobian, on ``gmres+ndlu`` then ``tpu_direct``: the tree
+    against goma_tpu's record (``SHELL_REF``, from
+    scripts/shell_reference.py) before any solve; the kernels on its real
+    fronts at x = 0; a warm-up solve, ``reset_lagged()``, a timed solve
+    with the counts set to 0 just before and read just after; goma_tpu's
+    Newton +-1, the load and p_max within SHELL_P_RTOL, T at 24 dofs
+    within SHELL_X_TOL; launches = levels x factorizations (and 2 x levels
+    x solves); the kernels on the timed run's first and last
+    factorization;
+49. the drying particle-laden film (film pressure, height and particles on
+    the z = 0 face of a 64x64x1 HEX27 box, 49,923 dof), five
+    Crank-Nicolson steps of dt = 0.02/lambda from the leveling mode, on
+    both rungs as phase 48: goma_tpu's Newton +-1 on every step, the
+    amplitude within SHELL_AMP_RTOL of its exact decay, H and C at 24 dofs
+    within SHELL_X_TOL, the launch identities, the kernels on the timed
+    run's first and last factorization;
+50. goma_tpu's shell tests' decks (``shell_decks.SMALL``) at their own
+    sizes on the card: each test's own exact-solution gate, goma_tpu's
+    Newton count and its readings within SHELL_SMALL_RTOL.
 
-Each of phases 39-47 prints its time, and the run its total, before the
+Each of phases 39-50 prints its time, and the run its total, before the
 last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
 power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -3407,19 +3432,21 @@ def more_calls(solver, x_init, params, label, n=2):
     return out
 
 
-def gmres_tree_phase(prob, solver, label):
+def gmres_tree_phase(prob, solver, label, vals=None, at="x=0"):
     """The kernels on a ``gmres_ndlu`` deck's tree, as phases 15 and 30
-    hold them: the front LU on its real fronts at x = 0 and on random
-    boosted fronts at its level shapes (kernel, twin, ``lu_factor_ex``,
-    bound), the factorization split, the gather exact and timed. Returns
-    the numbers the kernel summary reads, and the x = 0 values."""
+    hold them: the front LU on its real fronts at x = 0 (or on the CSR
+    values ``vals`` a run factored, named ``at``) and on random boosted
+    fronts at its level shapes (kernel, twin, ``lu_factor_ex``, bound),
+    the factorization split, the gather exact and timed. Returns the
+    numbers the kernel summary reads, and the values."""
     nd = solver.precond
     levels = nd_levels(nd)
-    params = prob.base_params()
-    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
-    vals = solver._scaled_vals(x0, params,
-                               solver._prepare_fast32(x0, params)[2])
-    max_abs = check_real_fronts(nd, vals, f"{label} x=0")
+    if vals is None:
+        params = prob.base_params()
+        x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+        vals = solver._scaled_vals(x0, params,
+                                   solver._prepare_fast32(x0, params)[2])
+    max_abs = check_real_fronts(nd, vals, f"{label} {at}")
     shapes = [(nn, m) for nn, m, _ in levels]
     lu_abs, lu_ms = lu_shapes(shapes, label, time_twin=True)
     factor_split_ms(nd, vals, f"{label} tree")
@@ -3430,22 +3457,28 @@ def gmres_tree_phase(prob, solver, label):
             "g_times": g_times, "g_bound": g_bound, "vals": vals}
 
 
-def direct_tree_phase(prob, solver, label):
+def direct_tree_phase(prob, solver, label, vals=None, at="x=0"):
     """The kernels on a ``tpu_direct`` deck's tree, as phases 16 and 31
-    hold them: the front LU on its real fronts at x = 0, the substitution
-    kernel on the substitutions of one solve (against ``solve_triangular``
-    by graph replay), the device ns per dependent step at the two top
-    levels, the gather exact. Returns the numbers the summary reads."""
-    params = prob.base_params()
-    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
-    R, vals, _, scale, _ = solver._prepare(x0, params)
+    hold them: the front LU on its real fronts at x = 0 (or on the CSR
+    values ``vals`` a run factored, named ``at``, then with a seeded
+    right-hand side), the substitution kernel on the substitutions of one
+    solve (against ``solve_triangular`` by graph replay), the device ns
+    per dependent step at the two top levels, the gather exact. Returns
+    the numbers the summary reads."""
+    if vals is None:
+        x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+        R, vals, _, scale, _ = solver._prepare(x0, prob.base_params())
+        rhs = scale * R
+    else:
+        rhs = torch.as_tensor(np.random.default_rng(49).standard_normal(
+            prob.dofmap.n_dof), dtype=prob.dtype, device="cuda")
     nd = solver._direct_ndlu(vals)  # the NDLU the rung will use
     levels = nd_levels(nd)
     log(f"{label} setup: {len(levels)} ND levels (nn, s, b) = {levels}, "
         f"{sum(nn * (m + b) ** 2 for nn, m, b in levels)} front slots")
-    max_abs = check_real_fronts(nd, vals, f"{label} x=0")
+    max_abs = check_real_fronts(nd, vals, f"{label} {at}")
     calls = []
-    nd.solve(nd.factor(vals), scale * R, trace=calls)
+    nd.solve(nd.factor(vals), rhs, trace=calls)
     if len(calls) != 2 * len(levels):
         raise RuntimeError(f"one {label} solve made {len(calls)} "
                            f"substitutions, not 2 x {len(levels)} levels")
@@ -4644,7 +4677,7 @@ def overset_drag(prob, x, bi):
     return float(lam[:, 0].sum() * 2 * np.pi * OVS_RADIUS / bd.gather.shape[0])
 
 
-def check_overset_levels(nd, ref, label):
+def check_ref_levels(nd, ref, label):
     """The ND tree's (fronts, fully-summed size) per level against
     goma_tpu's record, before any solve; the kernels' gate 1 < s <= 1000."""
     levels = nd_levels(nd)
@@ -4695,12 +4728,12 @@ def overset_phase(dev, kind, prob=None, bi=None):
         # kernels on its real fronts and the substitutions of one solve
         tree = direct_tree_phase(prob, solver, label)
         nd = tree.pop("nd")
-        check_overset_levels(nd, ref, label)
+        check_ref_levels(nd, ref, label)
     else:
         x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device=dev)
         vals = solver._prepare(x0, params)[1]  # what the first factor sees
         nd = solver.precond
-        levels = check_overset_levels(nd, ref, label)
+        levels = check_ref_levels(nd, ref, label)
         shapes = [(nn, m) for nn, m, _ in levels]
         tree = {"max_abs": check_real_fronts(nd, vals, f"{label} x=0"),
                 "gather_abs": check_gathers(nd, vals, f"{label} tree")}
@@ -4966,6 +4999,509 @@ def overset_small_phase():
     log(f"phase 47 (overset, interface, edge and wetting small decks, cuda and "
         f"cpu): {time.perf_counter() - t0:.1f} s; bordered launches {ln}")
     return ln
+
+
+# ---- phases 48-50: the shell and lubrication layer
+SHELL_N = 64
+# goma_tpu's record of the 64x64 bearing and film on both device rungs and
+# of the small shell decks (``python3 scripts/shell_reference.py --part
+# bearing|film --n 64`` and ``--part small``, goma_tpu on a CPU, float64
+# state and Jacobian, float32 NDLU factors)
+SHELL_REF = {'bearing': {'gmres+ndlu': {'T_min': 0.7816109297889136,
+                            'T_samples': [1.0, 0.8266035206199066,
+                                          0.9305438085281154,
+                                          0.7916619747775642,
+                                          0.8681823072384448,
+                                          0.9864815599290638,
+                                          0.8188538873651655,
+                                          0.916058334946045,
+                                          0.7877858142685049,
+                                          0.8562494691297601,
+                                          0.9731520005387008,
+                                          0.8103919226423764,
+                                          0.9044511696963435,
+                                          0.7842973233376801,
+                                          0.8469177083756496,
+                                          0.957642520597749,
+                                          0.8040723500603288,
+                                          0.8912142694681369,
+                                          0.7824404034772758,
+                                          0.8364388518024489,
+                                          0.9452212687705788,
+                                          0.7973653896032957,
+                                          0.8806705518477296,
+                                          0.7816109297889153],
+                            'converged': True,
+                            'levels': [[180, 138], [128, 192], [64, 64],
+                                       [32, 72], [16, 144], [8, 88], [4, 202],
+                                       [2, 188], [1, 258]],
+                            'linear': [1, 61, 32, 30, 14],
+                            'load': 122.74007863715266,
+                            'newton': 5,
+                            'p_max': 296.10562458937744},
+             'n': 64,
+             'n_dof': 33282,
+             'nnz': 1052676,
+             'tpu_direct': {'T_min': 0.7816109297885315,
+                            'T_samples': [1.0, 0.8266035206194926,
+                                          0.9305438085278515,
+                                          0.7916619747771783,
+                                          0.8681823072380639,
+                                          0.9864815599289876,
+                                          0.8188538873647931,
+                                          0.9160583349457301,
+                                          0.7877858142681381,
+                                          0.8562494691294366,
+                                          0.9731520005385061,
+                                          0.8103919226420322,
+                                          0.9044511696960489,
+                                          0.7842973233373174,
+                                          0.8469177083753171,
+                                          0.957642520597497,
+                                          0.8040723500599618,
+                                          0.8912142694677939,
+                                          0.7824404034769025,
+                                          0.836438851802055,
+                                          0.9452212687703566,
+                                          0.7973653896029003,
+                                          0.8806705518473508,
+                                          0.7816109297885316],
+                            'converged': True,
+                            'levels': [[180, 138], [128, 192], [64, 64],
+                                       [32, 72], [16, 144], [8, 88], [4, 202],
+                                       [2, 188], [1, 258]],
+                            'linear': [1, 1, 1, 1],
+                            'load': 122.74007864500497,
+                            'newton': 4,
+                            'p_max': 296.1056246105355}},
+ 'film': {'dt': 0.00015398973382026504,
+          'gmres+ndlu': {'C_samples': [0.20000469247296496,
+                                       0.20000529887680246,
+                                       0.20000478917864672,
+                                       0.20000555350981009,
+                                       0.20000504064931243,
+                                       0.20000478608493763, 0.2000052872209118,
+                                       0.2000049454392992, 0.20000535058360136,
+                                       0.20000511977159063,
+                                       0.20000503958625923,
+                                       0.20000515203288455,
+                                       0.20000515269521782,
+                                       0.20000504018268978,
+                                       0.20000512378303725,
+                                       0.20000535299851202,
+                                       0.20000495009781286,
+                                       0.20000529506626816, 0.200004787141867,
+                                       0.20000505029372553,
+                                       0.20000556021310859,
+                                       0.20000479528873394, 0.200005310916057,
+                                       0.2000046924729652],
+                         'H_samples': [1.088747331456, 0.9701114917282551,
+                                       1.0679883932998808, 0.9273948134113119,
+                                       1.017490638945967, 1.068635679602764,
+                                       0.9722596199079911, 1.036098925550378,
+                                       0.9611667321872366, 1.0026880353692948,
+                                       1.017646154370948, 0.9966537472863053,
+                                       0.996525821933112, 1.017534614300789,
+                                       1.0019414783691445, 0.9607479323539151,
+                                       1.0351784122389218, 0.9708796192498584,
+                                       1.0684133561456226, 1.0156445894126247,
+                                       0.9263173104091532, 1.066702735065031,
+                                       0.9680078617802993,
+                                       1.0887473314564406],
+                         'amplitude': 0.09052563615798337,
+                         'converged': [True, True, True, True, True],
+                         'exact': 0.09048374180359596,
+                         'levels': [[24, 108], [256, 186], [128, 72], [64, 96],
+                                    [32, 108], [16, 216], [8, 132], [4, 303],
+                                    [2, 282], [1, 387]],
+                         'newton': [2, 3, 2, 2, 2],
+                         't': 0.0007699486691013252},
+          'n': 64,
+          'n_dof': 49923,
+          'nnz': 2368521,
+          'tpu_direct': {'C_samples': [0.2000046924713563, 0.20000529887500038,
+                                       0.2000047891769227, 0.20000555350799498,
+                                       0.20000504064757693,
+                                       0.20000478608326117,
+                                       0.20000528721905678,
+                                       0.20000494543753686,
+                                       0.20000535058178298, 0.2000051197698286,
+                                       0.20000503958458193, 0.2000051520310659,
+                                       0.20000515269344946, 0.2000050401809565,
+                                       0.20000512378133148,
+                                       0.20000535299675362,
+                                       0.20000495009609745, 0.200005295064463,
+                                       0.20000478714024117,
+                                       0.20000505029204357,
+                                       0.20000556021122762,
+                                       0.20000479528705487,
+                                       0.20000531091419935,
+                                       0.20000469247135635],
+                         'H_samples': [1.088747331478117, 0.970111491715187,
+                                       1.0679883932784582, 0.9273948134135492,
+                                       1.0174906389247809, 1.0686356795825027,
+                                       0.9722596198895144, 1.0360989255209374,
+                                       0.9611667321701726, 1.0026880353612515,
+                                       1.0176461543574835, 0.9966537472695259,
+                                       0.996525821915565, 1.0175346142866493,
+                                       1.0019414783615894, 0.9607479323371406,
+                                       1.0351784122094694, 0.97087961923156,
+                                       1.0684133561247158, 1.015644589391755,
+                                       0.9263173104125905, 1.066702735042247,
+                                       0.9680078617670462,
+                                       1.0887473314781153],
+                         'amplitude': 0.09052563615458814,
+                         'converged': [True, True, True, True, True],
+                         'exact': 0.09048374180359596,
+                         'levels': [[24, 108], [256, 186], [128, 72], [64, 96],
+                                    [32, 108], [16, 216], [8, 132], [4, 303],
+                                    [2, 282], [1, 387]],
+                         'newton': [2, 2, 2, 1, 1],
+                         't': 0.0007699486691013252}},
+ 'small': {'capillary_leveling': {'newton': 40,
+                                  'reading': [0.0008187407262020829]},
+           'closed_cell_imbibition': {'newton': 107,
+                                      'reading': [0.1409740376965769]},
+           'closed_cell_numjac': {'newton': 0,
+                                  'reading': [0.010766423283027198,
+                                              0.8200068996882612]},
+           'end_advective_outflow': {'newton': 1,
+                                     'reading': [0.5000000000000016]},
+           'end_flux_arc': {'newton': 1, 'reading': [-0.30586738060144597]},
+           'end_flux_reynolds': {'newton': 1, 'reading': [-298.6666666666621]},
+           'film_evaporation': {'newton': 14,
+                                'reading': [0.7, 0.1429732225300093]},
+           'flow_developed': {'newton': 0, 'reading': [24999.999999999975]},
+           'gamma1_symm_end': {'newton': 1,
+                               'reading': [0.17706090419948883,
+                                           1.5707438159873894]},
+           'gasn_dissolution': {'newton': 126,
+                                'reading': [0.14111995817424222,
+                                            0.6716798204199335]},
+           'hermite_beam': {'newton': 1,
+                            'reading': [0.028799999999999954,
+                                        0.04799999999999992]},
+           'hex_face_shell': {'newton': 1, 'reading': [0.4999999999999999]},
+           'laplace_beltrami_cylinder': {'newton': 1,
+                                         'reading': [0.001556876034941146]},
+           'lub_curvature_circle': {'newton': 2,
+                                    'reading': [3.3154835908911817]},
+           'lub_film_junction': {'newton': 1,
+                                 'reading': [0.3720930232558165,
+                                             0.006697674418604652]},
+           'open_cell_diffusion': {'newton': 40,
+                                   'reading': [0.0007408379047573403]},
+           'power_law_squeeze_0.5': {'newton': 4,
+                                     'reading': [42.19938163199112]},
+           'power_law_squeeze_1': {'newton': 1,
+                                   'reading': [75.05627813672284]},
+           'reynolds_on_shell': {'newton': 1, 'reading': [4.9999989561933615]},
+           'sheet_end_slope': {'newton': 2, 'reading': [0.05003298812526194]},
+           'sheet_weak_terms': {'newton': 0,
+                                'reading': [0.0024305555555555565,
+                                            -1.4000000000000004,
+                                            -1.0400000000000003]},
+           'shell_bulk_conduction': {'newton': 1,
+                                     'reading': [0.16445142389885864,
+                                                 0.0022810330152199386]},
+           'shell_elastica': {'newton': 4,
+                              'reading': [-0.3144302789466909, 1.0]},
+           'shell_energy_fin': {'newton': 1, 'reading': [0.5003914666102481]},
+           'shell_species_exact': {'newton': 1,
+                                   'reading': [0.23471082706634985]},
+           'shell_species_source': {'newton': 2,
+                                    'reading': [0.24000000000000005]},
+           'surf_div_v': {'newton': 1, 'reading': [0.7000000000000003]},
+           'surface_charge_decay': {'newton': 100,
+                                    'reading': [1.305251921580142]},
+           'tangent_traction_lubp': {'newton': 0,
+                                     'reading': [-2.000000000000001,
+                                                 -1.0400000000000003]},
+           'tension_sheet_parabola': {'newton': 3,
+                                      'reading': [0.025083537454270548]},
+           'tension_sheet_stiffer': {'newton': 2,
+                                     'reading': [0.025083537454270548,
+                                                 0.006251277179301697]},
+           'tensioned_string': {'newton': 1, 'reading': [0.24999999999999822]},
+           'tfmp_free_flux': {'newton': 0,
+                              'reading': [-8.533333333333334e-05,
+                                          -0.000617142857142857]},
+           'tfmp_squeeze': {'newton': 178,
+                            'reading': [0.8571496284479801,
+                                        4.000875517609771]},
+           'two_layer_stack': {'newton': 63,
+                               'reading': [0.4999999999999013,
+                                           0.5000000000000981]},
+           'velo_normal_lub': {'newton': 1,
+                               'reading': [0.007499999945102146]}}}
+# T (bearing), H and C (film) at the record's sampled dofs against
+# goma_tpu's, absolute
+SHELL_X_TOL = 1e-6
+# the bearing's load (mean pad pressure) and p_max against goma_tpu's,
+# relative
+SHELL_P_RTOL = 1e-6
+# the film amplitude against its exact leveling decay 0.1 exp(-lambda t)
+# (tests/test_shell_film.py's gate)
+SHELL_AMP_RTOL = 0.05
+# the small decks' readings against goma_tpu's, relative: float64 on both
+# sides, the same operations
+SHELL_SMALL_RTOL = 1e-8
+
+
+def shell_namespace(device):
+    """scripts/shell_decks.py's package namespace for the port on
+    ``device`` (the decks are written once for both packages)."""
+    import goma_tpu_torch.bc.sheet as sheet
+    import goma_tpu_torch.bc.shell_end as shell_end
+    import goma_tpu_torch.fem as fem
+    import goma_tpu_torch.fem.equations as equations
+    import goma_tpu_torch.fem.fields as fields
+    import goma_tpu_torch.mesh as mesh
+    import goma_tpu_torch.physics as physics
+    import goma_tpu_torch.solvers as solvers
+    import goma_tpu_torch.solvers.transient as transient
+    from scripts import shell_decks
+
+    def arr(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    return shell_decks.namespace(mesh, fem, physics, equations, fields,
+                                 shell_end, sheet, solvers, transient, torch,
+                                 arr, device=device)
+
+
+def shell_setup(deck, dev, ref):
+    """The 64x64 bearing or film deck on the card, checked against
+    goma_tpu's dof and nnz counts. Returns (problem, x0)."""
+    from scripts import shell_decks
+
+    t0 = time.perf_counter()
+    P = shell_namespace(dev)
+    if deck == "bearing":
+        prob, bi = shell_decks.bearing(P, SHELL_N)
+        x0 = np.zeros(prob.dofmap.n_dof)
+    else:
+        prob, bi, x0 = shell_decks.film(P, SHELL_N)
+    blk = prob.mesh.blocks[bi]
+    log(f"{deck} setup: {SHELL_N}x{SHELL_N} HEX27 bulk with no equation, "
+        f"{blk.n_elem} {blk.elem_type} shell elements, "
+        f"{np.unique(blk.conn).size} shell nodes, {prob.dofmap.n_dof} dof "
+        f"(goma_tpu {ref['n_dof']}), {prob.pattern.nnz} nnz (goma_tpu "
+        f"{ref['nnz']}); {time.perf_counter() - t0:.2f} s")
+    if (prob.dofmap.n_dof, prob.pattern.nnz) != (ref["n_dof"], ref["nnz"]):
+        raise RuntimeError(f"{deck} deck: dof or nnz count differs from "
+                           "goma_tpu's")
+    return prob, x0
+
+
+def shell_kernels_after(nd, seen, tree, label, direct, prob,
+                        keys=("first", "last")):
+    """Each kernel against its plain version on the fronts of a run's
+    factorizations ``keys`` (the values ``record_factor_vals`` kept), the
+    substitutions of a solve with the last factor on ``tpu_direct``."""
+    if "first" in keys and seen["first"] is seen["last"]:
+        keys = ("first",)  # one factorization
+    for key in keys:
+        tree["max_abs"] = max(tree["max_abs"], check_real_fronts(
+            nd, seen[key], f"{label} {key} factorization"))
+        tree["gather_abs"] = max(tree["gather_abs"], check_gathers(
+            nd, seen[key], f"{label} {key} factorization"))
+    if direct:
+        calls = []
+        rhs = torch.as_tensor(np.random.default_rng(48).standard_normal(
+            prob.dofmap.n_dof), dtype=prob.dtype, device="cuda")
+        nd.solve(nd.factor(seen["last"]), rhs, trace=calls)
+        last = check_substitutions(calls, f"{label} last factorization")
+        tree["trsv"]["max_abs"] = max(tree["trsv"]["max_abs"], last["max_abs"])
+
+
+def shell_tree(prob, solver, label, direct, vals=None, at="x=0"):
+    """The kernels on the deck's tree at x = 0 or on the CSR values
+    ``vals`` (phases 30-31's ``gmres_tree_phase`` / ``direct_tree_phase``).
+    Returns (NDLU, the numbers the summary reads)."""
+    if direct:
+        tree = direct_tree_phase(prob, solver, label, vals, at)
+        return tree.pop("nd"), tree
+    tree = gmres_tree_phase(prob, solver, label, vals, at)
+    del tree["vals"]
+    return solver.precond, tree
+
+
+def bearing_phase(dev, kind, prob=None):
+    """Phase 48: the 64x64 thermal slider bearing (Reynolds lubrication and
+    shell energy on a QUAD9 surface shell, 33,282 dof) under
+    bench._cavity_opts(kind, tol=1e-9, max_iter=12) restated, float64
+    Jacobian, on ``gmres+ndlu`` and then ``tpu_direct``: the ND tree against
+    goma_tpu's before any solve; the kernels on its real fronts at x = 0;
+    one warm-up solve, ``reset_lagged()``, one timed solve (counts set to 0
+    just before and read just after); goma_tpu's Newton +-1, the load and
+    p_max within SHELL_P_RTOL, T at 24 dofs within SHELL_X_TOL; launches =
+    levels x factorizations (and 2 x levels x solves); each kernel on the
+    fronts of the timed run's first and last factorization."""
+    from goma_tpu_torch.solvers import NewtonSolver
+    from scripts import shell_decks
+
+    label = f"bearing {kind}"
+    t_phase = time.perf_counter()
+    ref = SHELL_REF["bearing"][kind]
+    if prob is None:
+        prob, _ = shell_setup("bearing", dev, SHELL_REF["bearing"])
+    direct = kind == "tpu_direct"
+    solver = NewtonSolver(prob, (direct_opts if direct else cavity_opts)(
+        tol=1e-9, max_iter=12))
+    nd, tree = shell_tree(prob, solver, label, direct)
+    check_ref_levels(nd, ref, label)
+    seen = record_factor_vals(nd)
+    res, sec, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof),
+                                   prob.base_params(), label)
+    check_launches(solver, ln, len(nd.levels), label, direct=direct)
+    if not res.converged or res.res_norms[-1][1] > 1e-9:
+        raise RuntimeError(f"{label} did not converge to 1e-9")
+    if abs(res.iters - ref["newton"]) > 1:
+        raise RuntimeError(f"{label} took {res.iters} Newton iterations, not "
+                           f"goma_tpu's {ref['newton']} +- 1")
+    rd = shell_decks.bearing_readings(prob, res.x)
+    dT = float(np.abs(np.subtract(rd["T_samples"], ref["T_samples"])).max())
+    dp = {k: abs(rd[k] - ref[k]) / abs(ref[k]) for k in ("load", "p_max")}
+    log(f"{label}: Newton {res.iters} (goma_tpu {ref['newton']}), linear "
+        f"{res.linear_iters} (goma_tpu {ref['linear']}); load {rd['load']:.9f} "
+        f"(goma_tpu {ref['load']:.9f}, relative {dp['load']:.2e}), p_max "
+        f"{rd['p_max']:.7f} (goma_tpu {ref['p_max']:.7f}, {dp['p_max']:.2e}), "
+        f"T_min {rd['T_min']:.6f}; T at {len(rd['T_samples'])} dofs max "
+        f"|dT| {dT:.2e}")
+    if max(dp.values()) > SHELL_P_RTOL or dT > SHELL_X_TOL:
+        raise RuntimeError(f"{label}: load/p_max {dp} or T {dT:.2e} off "
+                           "goma_tpu's")
+    del nd.factor  # record_factor_vals's wrapper
+    shell_kernels_after(nd, seen, tree, label, direct, prob)
+    log(f"phase 48 ({label}): {sec / max(res.iters, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"prob": prob, "launches": ln, **tree}
+
+
+def film_phase(dev, kind, prob=None, x0=None):
+    """Phase 49: the 64x64 drying particle-laden film (film pressure,
+    height and particles on a QUAD9 surface shell, 49,923 dof) under the
+    same options, five Crank-Nicolson steps of dt = 0.02/lambda from the
+    leveling mode's initial state, on ``gmres+ndlu`` and then
+    ``tpu_direct``: one warm-up run (it builds the ``tpu_direct`` NDLU from
+    its first values, as the rung does), the tree against goma_tpu's,
+    ``reset_lagged()``, one timed run (counts set to 0 just before and
+    read just after); every step converged with goma_tpu's Newton +-1, the
+    amplitude within SHELL_AMP_RTOL of 0.1 exp(-lambda t), H and C at 24
+    dofs within SHELL_X_TOL; the launch identities; the kernels (as phase
+    48 holds them at x = 0) on the timed run's first factorization, and on
+    its last."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+    from goma_tpu_torch.solvers.transient import TransientSolver
+    from scripts import shell_decks
+
+    label = f"film {kind}"
+    t_phase = time.perf_counter()
+    ref = SHELL_REF["film"][kind]
+    if prob is None:
+        prob, x0 = shell_setup("film", dev, SHELL_REF["film"])
+    direct = kind == "tpu_direct"
+    ts = TransientSolver(prob, (direct_opts if direct else cavity_opts)(
+        tol=1e-9, max_iter=12), shell_decks.film_time_options(
+            shell_namespace(dev)))
+    sv = ts.newton
+    params = prob.base_params()
+    t0 = time.perf_counter()
+    rw = ts.run(x0, params)
+    torch.cuda.synchronize()
+    log(f"{label} warm-up: {time.perf_counter() - t0:.2f} s, Newton "
+        f"{[s.newton_iters for s in rw.steps]}")
+    nd = sv._ndlu if direct else sv.precond
+    check_ref_levels(nd, ref, label)
+    seen = record_factor_vals(nd)
+    sv.reset_lagged()
+    sv.n_factor = sv._ndlu_nfactor = sv.n_discarded = 0
+    if sv._ndlu is not None:
+        sv._ndlu.n_solve = 0
+    per_step = []
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ts.run(x0, params, callback=lambda t, x, xdot, res: per_step.append(res))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+          "gather": front_gather.launches}
+    check_launches(sv, ln, len(nd.levels), label, direct=direct)
+    nit = sum(s.newton_iters for s in r.steps)
+    asm = sum(q.assembly_time for q in per_step)
+    slv = sum(q.solve_time for q in per_step)
+    for s, q in zip(r.steps, per_step):
+        log(f"{label} step t={s.t:.6f}: Newton {s.newton_iters}, linear "
+            f"{q.linear_iters}")
+    newton = [s.newton_iters for s in r.steps]
+    rd = shell_decks.film_readings(prob, r.x, r.t)
+    dH = float(np.abs(np.subtract(rd["H_samples"], ref["H_samples"])).max())
+    dC = float(np.abs(np.subtract(rd["C_samples"], ref["C_samples"])).max())
+    amp = rd["amplitude"] / rd["exact"] - 1
+    log(f"{label}: {len(r.steps)} steps to t = {r.t:.6g}, Newton {newton} "
+        f"(goma_tpu {ref['newton']}), factorizations "
+        f"{sv.n_factor + sv._ndlu_nfactor}, launches front-LU {ln['lu']} "
+        f"front-gather {ln['gather']} substitution {ln['trsv']}; amplitude "
+        f"{rd['amplitude']:.7f} (exact decay {rd['exact']:.7f}, {amp:+.2e}; "
+        f"goma_tpu {ref['amplitude']:.7f}); H, C at 24 dofs max |d| "
+        f"{dH:.2e}, {dC:.2e}; asm {asm / max(nit, 1) * 1e3:.1f} ms + slv "
+        f"{slv / max(nit, 1) * 1e3:.1f} ms per iteration, "
+        f"{sec / max(nit, 1):.4f} s/iter (total {sec:.3f} s)")
+    if (len(r.steps) != shell_decks.FILM_STEPS or r.n_failures
+            or not all(s.converged for s in r.steps)):
+        raise RuntimeError(f"{label}: not {shell_decks.FILM_STEPS} converged "
+                           f"steps: {r.steps}")
+    if any(abs(a - b) > 1 for a, b in zip(newton, ref["newton"])):
+        raise RuntimeError(f"{label}: Newton per step {newton} not within 1 "
+                           f"of goma_tpu's {ref['newton']}")
+    if abs(amp) > SHELL_AMP_RTOL or max(dH, dC) > SHELL_X_TOL:
+        raise RuntimeError(f"{label}: amplitude {amp:+.2e} or H/C {dH:.2e}/"
+                           f"{dC:.2e} off")
+    del nd.factor  # record_factor_vals's wrapper
+    _, tree = shell_tree(prob, sv, label, direct, seen["first"],
+                         "first factorization")
+    shell_kernels_after(nd, seen, tree, label, direct, prob, keys=("last",))
+    log(f"phase 49 ({label}): {sec / max(nit, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"prob": prob, "x0": x0, "launches": ln, **tree}
+
+
+def shell_small_phase():
+    """Phase 50: goma_tpu's shell tests' decks (``scripts/shell_decks.py``
+    ``SMALL``: tests/test_shell.py, test_shell3d.py, test_shell_end.py,
+    test_shell_film.py, test_shell_porous.py, test_shell_breadth2.py,
+    test_sheet_bc.py, test_lub_film_junction.py and two of
+    test_shell_rheo.py) at their own sizes and on their own solvers, on the
+    card: each deck's own exact-solution gate, goma_tpu's Newton count
+    (within 1, and within 2% summed over a transient's steps) and its
+    readings within SHELL_SMALL_RTOL (``SHELL_REF["small"]``). The CPU
+    copies of these decks are the port's tests'."""
+    from scripts import shell_decks
+
+    t0 = time.perf_counter()
+    P = shell_namespace(torch.device("cuda", 0))
+    for name, deck in shell_decks.SMALL.items():
+        t = time.perf_counter()
+        out = deck(P)
+        ref = SHELL_REF["small"][name]
+        dv = float(np.max(np.abs(np.subtract(out["reading"], ref["reading"]))
+                          / np.abs(ref["reading"])))
+        log(f"shell small {name}: Newton {out['newton']} (goma_tpu "
+            f"{ref['newton']}), reading {out['reading']} (relative "
+            f"{dv:.2e}), {time.perf_counter() - t:.2f} s")
+        if abs(out["newton"] - ref["newton"]) > max(1, 0.02 * ref["newton"]):
+            raise RuntimeError(f"shell small {name}: Newton {out['newton']} "
+                               f"vs goma_tpu's {ref['newton']}")
+        if dv > SHELL_SMALL_RTOL:
+            raise RuntimeError(f"shell small {name}: reading {dv:.2e} from "
+                               "goma_tpu's")
+    log(f"phase 50 (small shell decks on the card): "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 
@@ -5303,6 +5839,19 @@ def main() -> int:
     log(f"phases 45-47 (coupling sets): {time.perf_counter() - t_ovs:.1f} s; "
         f"{mem_line()}")
 
+    # ---- 48.-49. the 64x64 thermal slider bearing and drying film (surface
+    # shells) on both rungs; 50. the small shell decks on the card
+    t_sh = time.perf_counter()
+    sbg = bearing_phase(dev, "gmres+ndlu")
+    sbd = bearing_phase(dev, "tpu_direct", sbg.pop("prob"))
+    del sbd["prob"]
+    sfg = film_phase(dev, "gmres+ndlu")
+    sfd = film_phase(dev, "tpu_direct", sfg.pop("prob"), sfg.pop("x0"))
+    del sfd["prob"], sfd["x0"]
+    shell_small_phase()
+    log(f"phases 48-50 (shells and lubrication): "
+        f"{time.perf_counter() - t_sh:.1f} s; {mem_line()}")
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -5325,7 +5874,11 @@ def main() -> int:
                 "continuation tpu_direct": cd["launches"],
                 "augmenting condition gmres_ndlu": ca["launches"],
                 "overset gmres_ndlu": og["launches"],
-                "overset tpu_direct": od["launches"]}
+                "overset tpu_direct": od["launches"],
+                "bearing gmres_ndlu": sbg["launches"],
+                "bearing tpu_direct": sbd["launches"],
+                "film gmres_ndlu": sfg["launches"],
+                "film tpu_direct": sfd["launches"]}
     # a small deck's launches, read as a cross-check: not a main path
     cross_checks = {"bordered ndlu 20x10": bl}
 
@@ -5369,7 +5922,8 @@ def main() -> int:
                            dg["max_abs"], dd["max_abs"], tg["max_abs"],
                            tdr["max_abs"], pg["max_abs"], pdr["max_abs"],
                            cg["max_abs"], cd["max_abs"], og["max_abs"],
-                           od["max_abs"]),
+                           od["max_abs"], sbg["max_abs"], sbd["max_abs"],
+                           sfg["max_abs"], sfd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -5397,6 +5951,8 @@ def main() -> int:
         **deck_keys("tilted", tg, "lu"),
         **deck_keys("periodic", pg, "lu"),
         **deck_keys("overset", og, "lu"),
+        **deck_keys("bearing", sbg, "lu"),
+        **deck_keys("film", sfg, "lu"),
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -5409,7 +5965,8 @@ def main() -> int:
                            vd["trsv"]["max_abs"], td["trsv"]["max_abs"],
                            sd["trsv"]["max_abs"], dd["trsv"]["max_abs"],
                            tdr["trsv"]["max_abs"], pdr["trsv"]["max_abs"],
-                           cd["trsv"]["max_abs"], od["trsv"]["max_abs"]),
+                           cd["trsv"]["max_abs"], od["trsv"]["max_abs"],
+                           sbd["trsv"]["max_abs"], sfd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -5459,6 +6016,8 @@ def main() -> int:
         **deck_keys("tilted", tdr, "trsv"),
         **deck_keys("periodic", pdr, "trsv"),
         **deck_keys("overset", od, "trsv"),
+        **deck_keys("bearing", sbd, "trsv"),
+        **deck_keys("film", sfd, "trsv"),
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -5476,7 +6035,9 @@ def main() -> int:
                            tg["gather_abs"], tdr["gather_abs"],
                            pg["gather_abs"], pdr["gather_abs"],
                            cg["gather_abs"], cd["gather_abs"],
-                           og["gather_abs"], od["gather_abs"]),
+                           og["gather_abs"], od["gather_abs"],
+                           sbg["gather_abs"], sbd["gather_abs"],
+                           sfg["gather_abs"], sfd["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -5501,6 +6062,8 @@ def main() -> int:
         **deck_keys("tilted", tg, "gather"),
         **deck_keys("periodic", pg, "gather"),
         **deck_keys("overset", og, "gather"),
+        **deck_keys("bearing", sbg, "gather"),
+        **deck_keys("film", sfg, "gather"),
     }]}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(gpu_line())

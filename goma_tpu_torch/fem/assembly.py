@@ -56,15 +56,21 @@ gather, a residual per row, ``vmap(jacfwd(...))`` over the combined local
 dofs, and a sum into R and the CSR values through host-built gather plans
 (``fem.sparsity.add_plan``/``add_at``; no atomics). The pattern holds
 their couplings; they are not in the element matvec's aux, so a deck with
-one takes the CSR (ELL) operator, as in goma_tpu. BAR blocks in a 2D mesh
-evaluate through ``fem.fields.eval_curvevars``.
+one takes the CSR (ELL) operator, as in goma_tpu.
+
+Shell blocks (reference dimension below the mesh's) share the bulk's
+boundary nodes: BAR blocks evaluate through ``fem.fields.eval_curvevars``
+(Lagrange and Hermite H3 slots) and QUAD/TRI blocks in a 3D mesh through
+``fem.fields.eval_surfvars``. A bar's endpoints are its point faces: a
+face kernel there sees a unit point measure, the signed unit tangent as
+its outward conormal and tangential gradients (``eval_surfacevars``'
+``psign`` branch).
 
 The public entry points are goma_tpu's: ``assemble(x, params) -> (R,
 vals)``, ``residual(x, params) -> R`` (the residual-only pass) and
 ``bc_dup_report()``. Everything else goma_tpu's Problem supports (the
-overset coupling to a solid, face kernels on bar-endpoint faces, surface
-blocks in 3D and Nedelec blocks) raises ``NotImplementedError``: later
-slices (see ROADMAP).
+overset coupling to a solid and Nedelec blocks) raises
+``NotImplementedError``: later slices (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -86,7 +92,8 @@ from goma_tpu_torch.elements import faces as elem_faces
 from goma_tpu_torch.fem.equations import Equation, FaceKernel, SurfaceVars
 from goma_tpu_torch.fem.fields import (MESH_VAR, BlockTables, _guard_r,
                                        _unpack, build_block_tables,
-                                       eval_curvevars, eval_fieldvars)
+                                       eval_curvevars, eval_fieldvars,
+                                       eval_surfvars)
 from goma_tpu_torch.fem.sparsity import (CSRPattern, add_at, add_plan,
                                          build_pattern, nnz_map_for_gather)
 from goma_tpu_torch.fem.sparsity import transpose_gather as _transpose_gather
@@ -106,15 +113,23 @@ def eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, slots, dim,
     ALE the coordinates are displaced (``X_e + d``), so AD sees the normal's
     and the measure's mesh sensitivities. With an axisymmetric ``coord``
     ``wdA`` carries the raw r = x[:, 1] (dA = r ds: a face on the axis gets
-    zero area), while ``fv.r`` is the guarded radius, as in goma_tpu. Cut
-    to this slice: the planar-face branch for dim 2 and 3; goma_tpu's
-    bar-endpoint ("psign") faces are refused at ``Problem.finalize``.
+    zero area), while ``fv.r`` is the guarded radius, as in goma_tpu.
+
+    A bar's endpoint ("psign" in ``ftab``, the +-1 of its end) is a point
+    face: unit point measure, the signed unit tangent of the curve as the
+    outward conormal, tangential gradients (``invJ`` (nq, 1, dim) = t_hat
+    / |dX/dxi|); the reference's SHELL_GRAD_* endpoint conditions,
+    src/mm_shell_bc.c. Slots without face tables (Hermite H3) are left
+    out there.
     """
     u = _unpack(q_e, slots)
     udot = _unpack(qdot_e, slots)
     Xc = X_e + u[MESH_VAR].T if MESH_VAR in u else X_e
 
     Jmat = torch.einsum("qnd,nk->qkd", ftab["dNg"], Xc)
+    if "psign" in ftab:
+        return _endpoint_vars(u, udot, Xc, Jmat, ftab, fwts, slots, dim,
+                              coord)
     detJ, invJ = det_and_inv(Jmat)
     T = torch.einsum("qkd,dm->qkm", Jmat, ftab["refjac"])
 
@@ -144,6 +159,40 @@ def eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, slots, dim,
         Ni, dNi = ftab[f"N:{s.interp}"], ftab[f"dN:{s.interp}"]
         if s.interp not in gphi_cache:
             gphi_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, invJ)
+        gp = gphi_cache[s.interp]
+        fv.phi[s.var] = Ni
+        fv.gphi[s.var] = gp
+        fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
+        fv.grad[s.var] = torch.einsum("qnk,cn->qck", gp, u[s.var])
+        fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
+    return fv
+
+
+def _endpoint_vars(u, udot, Xc, Jmat, ftab, fwts, slots, dim, coord):
+    """``eval_surfacevars`` at a bar's endpoint (see there)."""
+    tvec = Jmat[:, :, 0]  # dX/dxi (nq = 1, dim)
+    arclen = torch.sqrt(torch.sum(tvec**2, dim=1) + 1e-300)
+    that = tvec / arclen[:, None]
+    fv = SurfaceVars()
+    fv.dim = dim
+    fv.normal = ftab["psign"] * that
+    fv.wdA = fwts
+    fv.detJ = arclen
+    fv.h_elem = arclen
+    fv.tangents = that[:, :, None]
+    fv.invJ = (that / arclen[:, None])[:, None, :]  # (nq, 1, dim)
+    fv.x = torch.einsum("qn,nk->qk", ftab["Ng"], Xc)
+    if coord in ("cylindrical", "swirling"):
+        fv.coord = coord
+        fv.r = _guard_r(fv.x[:, 1])
+        fv.wdA = fv.wdA * fv.x[:, 1]
+    gphi_cache = {}
+    for s in slots:
+        if f"N:{s.interp}" not in ftab:
+            continue
+        Ni, dNi = ftab[f"N:{s.interp}"], ftab[f"dN:{s.interp}"]
+        if s.interp not in gphi_cache:
+            gphi_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, fv.invJ)
         gp = gphi_cache[s.interp]
         fv.phi[s.var] = Ni
         fv.gphi[s.var] = gp
@@ -445,10 +494,8 @@ class Problem:
                 continue
             if bd.edge_signs is not None:
                 raise NotImplementedError(f"Nedelec (edge-signed) blocks: {_LATER}")
-            edim = element_type(bd.elem_type).dim
-            if edim < mesh.dim and (edim != 1 or mesh.dim != 2):
-                raise NotImplementedError(f"surface blocks in 3D: {_LATER}")
-            if edim < mesh.dim and self.coord != "cartesian":
+            if (element_type(bd.elem_type).dim < mesh.dim
+                    and self.coord != "cartesian"):
                 raise NotImplementedError(
                     "shell/curve blocks are not supported in axisymmetric "
                     "coordinates yet")
@@ -661,13 +708,12 @@ class Problem:
             blk = mesh.blocks[bi]
             bd = self.dofmap.blocks[bi]
             et = element_type(blk.elem_type)
-            if et.family == "bar":
-                raise NotImplementedError(
-                    f"face kernels on bar-endpoint faces: {_LATER}")
             gi = geom_interp(et)
             fpts, fwts = face_rule(et.family, self.quad_order)
             all_faces = elem_faces(et.family)
-            interps = {s.interp for s in bd.slots}
+            # Hermite (H3) traces would need the per-element arc-length
+            # slope scaling: left out, as in goma_tpu
+            interps = {s.interp for s in bd.slots if s.interp != "H3"}
             Ngs, dNgs, refjacs = [], [], []
             Ni: dict[str, list] = {i: [] for i in interps}
             dNi: dict[str, list] = {i: [] for i in interps}
@@ -684,6 +730,10 @@ class Problem:
                     dNi[itp].append(dN)
             ftabs = {"Ng": np.stack(Ngs), "dNg": np.stack(dNgs),
                      "refjac": np.stack(refjacs)}
+            if et.family == "bar":
+                # outward sign of the endpoint conormal (+-xi end)
+                ftabs["psign"] = np.array(
+                    [[[all_faces[f].ref_origin[0]]] for _, f in lst])
             for itp in interps:
                 ftabs[f"N:{itp}"] = np.stack(Ni[itp])
                 ftabs[f"dN:{itp}"] = np.stack(dNi[itp])
@@ -1098,15 +1148,18 @@ class Problem:
         mat = self.materials[bi]
         dtype = dtype or self.dtype
         ext_names, coord = self.external_fields, self.coord
-        # a BAR block in a 2D mesh (finalize refuses other lower-dimension
-        # blocks) evaluates on the curve
-        curve = element_type(bd.elem_type).dim < self.mesh.dim
+        # shell blocks: a BAR evaluates on the curve, a QUAD/TRI in 3D on
+        # the surface
+        edim = element_type(bd.elem_type).dim
+        shell = None
+        if edim < self.mesh.dim:
+            shell = eval_curvevars if edim == 1 else eval_surfvars
 
         def elem_res(q_e, hist_e, X_e, ext_e, params):
             qdot_e = params["ct"] * q_e + hist_e
-            if curve:
-                fv = eval_curvevars(q_e, qdot_e, X_e, tables, bd.slots, dtype,
-                                    ext_e, ext_names)
+            if shell is not None:
+                fv = shell(q_e, qdot_e, X_e, tables, bd.slots, dtype, ext_e,
+                           ext_names)
             else:
                 fv = eval_fieldvars(q_e, qdot_e, X_e, tables, bd.slots, dtype,
                                     ext_e, ext_names, coord)
@@ -1117,7 +1170,8 @@ class Problem:
                 a = torch.einsum("q,qcn->cn", w, contrib).reshape(-1)
                 acc[eq.var] = acc[eq.var] + a if eq.var in acc else a
             r = torch.cat([acc[s.var] if s.var in acc   # slots in start order
-                           else q_e.new_zeros(s.size) for s in bd.slots])
+                           else q_e.new_zeros(s.size) for s in bd.slots]
+                          or [q_e.new_zeros(0)])
             return r, r
 
         return elem_res
@@ -1388,6 +1442,11 @@ class Problem:
         from torch.func import jacfwd, vmap
 
         axes = (0, 0, 0, 0, None)
+        if g.shape[1] == 0:
+            # a block that carries no dof (a shell's bulk with no equation)
+            jdt = dtype if mixed is None else mixed[3]
+            return (x.new_zeros((g.shape[0], 0)),
+                    torch.zeros((g.shape[0], 0, 0), dtype=jdt, device=x.device))
         elem_res = self._elem_residual_fn(bi, dtype)
         Xref = self._coords(T, bi, dtype)
         ext = self._ext_gather(params, T[f"c{bi}"]).to(dtype)

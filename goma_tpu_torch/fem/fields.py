@@ -19,12 +19,15 @@ Axisymmetric coordinates (``coord="cylindrical"``/``"swirling"``, q =
 radius ``fv.r``; frozen external nodal fields (``ext_e``) are interpolated
 with the geometric basis into ``fv.ext``/``fv.ext_grad``.
 
-BAR blocks embedded in a 2D mesh (the immersed curves of the overset
-coupling) evaluate through ``eval_curvevars``: arc-length measure, unit
-tangent and normal, tangential gradients. Cut to this slice: Lagrange
-interpolations; the N1 (Nedelec) and H3 (Hermite) tables raise
-``NotImplementedError`` here, and ``Problem.finalize`` refuses surface
-blocks in 3D (``eval_surfvars``, a later slice, see ROADMAP).
+Lower-dimension (shell) blocks share the bulk's boundary nodes, so a
+variable shared with the bulk couples through the node-major dof map. BAR
+blocks embedded in a 2D mesh (the immersed curves of the overset coupling,
+the curve shells) evaluate through ``eval_curvevars``: arc-length measure,
+unit tangent and normal, tangential gradients, and the Hermite cubic (H3)
+slot with its second arc-length derivatives. QUAD/TRI blocks embedded in 3D
+(surface shells) evaluate through ``eval_surfvars``: surface gradients
+``J_s G^-1 dN`` and the measure ``sqrt(det G)``. The N1 (Nedelec) tables
+raise ``NotImplementedError`` (a later slice, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from goma_tpu_torch.elements import (element_type, eval_basis, geom_interp,
                                      volume_rule)
+from goma_tpu_torch.elements.shapes import eval_hermite_bar
 from goma_tpu_torch.fem.dofmap import LocalSlot
 from goma_tpu_torch.utils.la import det_and_inv
 
@@ -56,17 +60,23 @@ class BlockTables:
     dNg: np.ndarray  # (nq, n_geom_nodes, dim)
     N: dict[str, np.ndarray]  # interp -> (nq, nbf)
     dN: dict[str, np.ndarray]  # interp -> (nq, nbf, dim) (reference coords)
+    # Hermite (H3) raw xi-tables: interp -> (N, dN, d2N), each (nq, 4)
+    H3: dict[str, tuple] = field(default_factory=dict)
     _on: dict = field(default_factory=dict, repr=False)
 
     def on(self, dtype, device) -> dict:
         """The tables as tensors at ``dtype`` on ``device`` (made once per
-        pair): ``qwts``, ``Ng``, ``dNg`` and ``N:<interp>``/``dN:<interp>``."""
+        pair): ``qwts``, ``Ng``, ``dNg``, ``N:<interp>``/``dN:<interp>`` and
+        the Hermite ``H3N:``/``H3dN:``/``H3d2N:<interp>``."""
         key = (dtype, torch.device(device))
         if key not in self._on:
             arrs = {"qwts": self.qwts, "Ng": self.Ng, "dNg": self.dNg}
             for itp in self.N:
                 arrs[f"N:{itp}"] = self.N[itp]
                 arrs[f"dN:{itp}"] = self.dN[itp]
+            for itp, (Nh, dNh, d2Nh) in self.H3.items():
+                arrs[f"H3N:{itp}"], arrs[f"H3dN:{itp}"] = Nh, dNh
+                arrs[f"H3d2N:{itp}"] = d2Nh
             self._on[key] = {k: torch.as_tensor(np.ascontiguousarray(a),
                                                 dtype=dtype, device=device)
                              for k, a in arrs.items()}
@@ -79,13 +89,18 @@ def build_block_tables(elem_type_name: str, interps: set[str],
     qpts, qwts = volume_rule(et.family, quad_order)
     gi = geom_interp(et)
     Ng, dNg = eval_basis(et.family, gi, qpts)
-    N, dN = {}, {}
+    N, dN, H3 = {}, {}, {}
     for itp in sorted(interps | {gi}):
-        if itp in ("N1", "H3"):
+        if itp == "N1":
             raise NotImplementedError(f"interpolation {itp}: {_LATER}")
+        if itp == "H3":
+            if et.family != "bar":
+                raise ValueError("I_H3 Hermite interpolation is bar-only")
+            H3[itp] = eval_hermite_bar(qpts)
+            continue
         N[itp], dN[itp] = eval_basis(et.family, itp, qpts)
     return BlockTables(elem_type_name, et.dim, qpts.shape[0], qwts, Ng, dNg,
-                       N, dN)
+                       N, dN, H3)
 
 
 class FieldVars:
@@ -242,33 +257,92 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
 
 
 class CurveVars(FieldVars):
-    """FieldVars for curve elements (reference dimension below the space
-    dimension): BAR blocks embedded in a 2D mesh (goma_tpu's
-    ``CurveVars``; reference shell machinery ``src/mm_fill_shell.c``).
+    """FieldVars for shell elements (reference dimension below the space
+    dimension): BAR blocks embedded in a 2D mesh and QUAD/TRI blocks
+    embedded in 3D (goma_tpu's ``CurveVars``; reference shell machinery
+    ``src/mm_fill_shell.c``).
 
     Extra attributes:
-      tangent  (nq, dim)  unit tangent along the curve
-      normal   (nq, dim)  unit normal (tangent rotated -90 deg)
-      wds      (nq,)      arc-length quadrature weight (``wdetJ`` aliases it)
-      dphi_ds[v] (nq, nbf) arc-length derivative of the basis
-      grad_s[v] (nq, ncomp) arc-length derivative of the fields
+      tangent  (nq, dim)  unit tangent along a curve
+      tangents (nq, 3, 2) the tangent map J_s of a surface shell
+      normal   (nq, dim)  unit normal (a curve's tangent rotated -90 deg; a
+                          surface's t_xi x t_eta normalized)
+      wds      (nq,)      arc-length / area quadrature weight (``wdetJ``
+                          aliases it)
+      dphi_ds[v] (nq, nbf) arc-length derivative of the basis (curves)
+      grad_s[v] (nq, ncomp) arc-length derivative of the fields (curves)
+      d2phi_ds2[v], d2s[v]  second arc-length derivatives (Hermite H3)
     """
 
     def __init__(self):
         super().__init__()
         self.tangent = None
+        self.tangents = None
         self.normal = None
         self.wds = None
         self.dphi_ds: dict[str, Any] = {}
         self.grad_s: dict[str, Any] = {}
         self.curvature = None
+        self.d2s: dict[str, Any] = {}
+        self.d2phi_ds2: dict[str, Any] = {}
+
+
+def eval_surfvars(q_e, qdot_e, X_e, tables: BlockTables, slots, dtype,
+                  ext_e=None, ext_names: tuple[str, ...] = ()) -> CurveVars:
+    """Field evaluation on a QUAD/TRI shell element embedded in 3D
+    (reference BILINEAR/BIQUAD_SHELL, TRISHELL, src/el_elm_info.c).
+    Gradients are surface gradients (tangent-plane 3-vectors): grad_s u =
+    J_s G^-1 du/dxi with J_s the (3, 2) tangent map and G = J_s^T J_s the
+    first fundamental form; ``wdetJ`` integrates with sqrt(det G) dA."""
+    u = _unpack(q_e, slots)
+    udot = _unpack(qdot_e, slots)
+    tb = tables.on(dtype, q_e.device)
+    Xc = X_e + u[MESH_VAR].T if MESH_VAR in u else X_e
+
+    fv = CurveVars()
+    fv.dim = Xc.shape[1]
+    Js = torch.einsum("qnd,nk->qkd", tb["dNg"], Xc)  # (nq, 3, 2)
+    G = torch.einsum("qkd,qke->qde", Js, Js)  # (nq, 2, 2) metric
+    detG = G[:, 0, 0] * G[:, 1, 1] - G[:, 0, 1] * G[:, 1, 0]
+    inv00 = G[:, 1, 1] / detG
+    inv11 = G[:, 0, 0] / detG
+    inv01 = -G[:, 0, 1] / detG
+    Ginv = torch.stack([torch.stack([inv00, inv01], dim=1),
+                        torch.stack([inv01, inv11], dim=1)], dim=1)
+    dA = torch.sqrt(torch.clamp_min(detG, 1e-300))
+    fv.wds = tb["qwts"] * dA
+    fv.wdetJ = fv.wds
+    fv.detJ = dA
+    fv.tangents = Js
+    cr = torch.linalg.cross(Js[:, :, 0], Js[:, :, 1], dim=1)
+    fv.normal = cr / torch.linalg.vector_norm(cr, dim=1, keepdim=True)
+    fv.x = torch.einsum("qn,nk->qk", tb["Ng"], Xc)
+    fv.h_elem = torch.sqrt(torch.sum(fv.wds)) * torch.ones_like(dA)
+
+    proj = torch.einsum("qkd,qde->qke", Js, Ginv)  # J_s G^-1
+    for s in slots:
+        Ni = tb[f"N:{s.interp}"]
+        gphi = torch.einsum("qke,qne->qnk", proj, tb[f"dN:{s.interp}"])
+        fv.phi[s.var] = Ni
+        fv.gphi[s.var] = gphi
+        fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
+        fv.grad[s.var] = torch.einsum("qnk,cn->qck", gphi, u[s.var])
+        fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
+    if ext_names:
+        gphi_g = torch.einsum("qke,qne->qnk", proj, tb["dNg"])
+        for k, name in enumerate(ext_names):
+            e = ext_e[:, k]
+            fv.ext[name] = torch.einsum("qn,n->q", tb["Ng"], e)
+            fv.ext_grad[name] = torch.einsum("qnk,n->qk", gphi_g, e)
+    return fv
 
 
 def eval_curvevars(q_e, qdot_e, X_e, tables: BlockTables, slots, dtype,
                    ext_e=None, ext_names: tuple[str, ...] = ()) -> CurveVars:
-    """Field evaluation on a BAR element embedded in 2D (goma_tpu's
-    ``eval_curvevars`` without its Hermite branch, whose tables this slice
-    refuses): gradients are tangential, ``(dphi/ds) t``."""
+    """Field evaluation on a BAR element embedded in 2D: gradients are
+    tangential, ``(dphi/ds) t``. A Hermite cubic (H3) slot carries dofs
+    [v1, v2, s1, s2] with s the physical arc-length slope: its slope basis
+    scales by ds/dxi, its derivatives divide by it."""
     u = _unpack(q_e, slots)
     udot = _unpack(qdot_e, slots)
     tb = tables.on(dtype, q_e.device)
@@ -286,6 +360,26 @@ def eval_curvevars(q_e, qdot_e, X_e, tables: BlockTables, slots, dtype,
     fv.detJ = mag
     fv.h_elem = torch.sum(fv.wds)  # element length
     for s in slots:
+        if s.interp == "H3":
+            Nh, dNh, d2Nh = (tb[f"{k}:{s.interp}"] for k in ("H3N", "H3dN",
+                                                             "H3d2N"))
+            ones = torch.ones_like(mag)[:, None]
+            sc = torch.cat([ones, ones, mag[:, None], mag[:, None]], dim=1)
+            phi = Nh * sc
+            dphi = dNh * sc / mag[:, None]
+            d2phi = d2Nh * sc / (mag**2)[:, None]
+            c = u[s.var].reshape(-1)  # [v1, v2, s1, s2]
+            fv.phi[s.var] = phi
+            fv.dphi_ds[s.var] = dphi
+            fv.d2phi_ds2[s.var] = d2phi
+            fv.gphi[s.var] = dphi[:, :, None] * fv.tangent[:, None, :]
+            fv.val[s.var] = torch.einsum("qn,n->q", phi, c)[:, None]
+            fv.grad_s[s.var] = torch.einsum("qn,n->q", dphi, c)[:, None]
+            fv.d2s[s.var] = torch.einsum("qn,n->q", d2phi, c)[:, None]
+            fv.grad[s.var] = fv.grad_s[s.var][:, :, None] * fv.tangent[:, None, :]
+            fv.dot[s.var] = torch.einsum("qn,n->q", phi,
+                                         udot[s.var].reshape(-1))[:, None]
+            continue
         Ni = tb[f"N:{s.interp}"]
         dphi = tb[f"dN:{s.interp}"][:, :, 0] / mag[:, None]
         fv.phi[s.var] = Ni

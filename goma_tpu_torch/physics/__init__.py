@@ -50,3 +50,21 @@ from goma_tpu_torch.physics.level_set import (
 )
 from goma_tpu_torch.physics.interface import InterfaceExchange
 from goma_tpu_torch.physics.overset import OversetLM, OversetNoSlip
+from goma_tpu_torch.physics.lubrication import (LubricationCurvature,
+                                                ReynoldsFilm,
+                                                ReynoldsFilmPowerLaw)
+from goma_tpu_torch.physics.shell import (ShellAngle, ShellConduction,
+                                          ShellCoordinates, ShellCurvaturePair,
+                                          ShellDiffKinematic,
+                                          ShellDiffusionFlux, ShellNormal,
+                                          ShellSurfCurv, SurfaceCharge,
+                                          TensionedString, attach_shell_block,
+                                          tie_fluid_shell)
+from goma_tpu_torch.physics.shell_film import (FilmHeight, FilmParticles,
+                                               FilmPressure, ShellEnergy,
+                                               ShellSpecies)
+from goma_tpu_torch.physics.shell_porous import (LubPorousSink,
+                                                 PorousShellClosed,
+                                                 PorousShellGasN,
+                                                 PorousShellOpen,
+                                                 PorousShellStackLayer)

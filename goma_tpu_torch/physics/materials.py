@@ -28,6 +28,13 @@ def prop(mat: dict, name: str, fv, params, default=None):
     return v
 
 
+def as_field(v, shape, like):
+    """``v`` (a python scalar, a numpy array or a tensor) at ``like``'s
+    dtype and device, broadcast to ``shape`` (goma_tpu's
+    ``jnp.broadcast_to(jnp.asarray(v), shape)``)."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device).expand(shape)
+
+
 def shear_rate(fv, var: str = "velocity"):
     """Scalar shear rate sqrt(2 D:D), D = (grad u + grad u^T)/2."""
     g = fv.grad[var]  # (nq, dim, dim)

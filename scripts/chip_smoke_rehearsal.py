@@ -11,6 +11,7 @@ shapes before a run on the card.
                                             [--only-bc]
                                             [--only-continuation]
                                             [--only-overset]
+                                            [--only-shell]
 
 What it fakes: ``torch.cuda`` reports a device, its events time the host
 clock and ``synchronize`` does nothing; the script's CUDA tensors are made
@@ -19,8 +20,8 @@ launch; the kernels' launch plans are the wrappers' own; ``device_ms`` and
 ``graph_ms`` return 0 ms; nvcc is not run; the sync debug mode is a no-op (0
 syncs).
 The decks are cut to 8x8 (cavity, buoyant, static bubble, tilted cavity,
-lid-speed continuation), 16x16 (Bratu), 20x10 with 28 segments (the
-immersed cylinder),
+lid-speed continuation, the shell bearing and film), 16x16 (Bratu), 20x10
+with 28 segments (the immersed cylinder),
 8x4 (viscoelastic), 16x4 (slot coater) and 16x8 (axisymmetric die,
 periodic channel), the checks that need the full size
 (Ghia, the buoyant Newton count, the paths' agreement, the Laplace jump,
@@ -28,8 +29,8 @@ x against goma_tpu's record) are widened, and the linear iteration counts, the s
 and free-surface heights and the die's, the tilted cavity's, the periodic
 channel's, the continuation decks' and the immersed cylinder's records the
 script requires are those of the cut decks (goma_tpu's at 16x4, 16x8, 8x8,
-16x16 and 20x10, CPU). Every time it prints is a CPU time, not a device
-number.
+16x16, 20x10 and the shells' 8x8, CPU). Every time it prints is a CPU
+time, not a device number.
 """
 
 import argparse
@@ -84,6 +85,146 @@ def _fake_cuda():
         setattr(mod, name, _counted(getattr(mod, name)))
     for mod in (batched_lu, batched_trsv):
         mod.kernel_plan = lambda nn, m, dt, _mod=mod: _mod._plan(nn, m, dt) + (1,)
+
+
+# goma_tpu's record of the cut shell decks of phases 48-49
+# (scripts/shell_reference.py --part bearing --n 8 / --part film --n 8, CPU)
+SHELL_REF_8 = {'bearing': {'gmres+ndlu': {'T_min': 0.7854186086515456,
+                            'T_samples': [1.0, 0.8052715684394627,
+                                          0.8533932283382293,
+                                          0.9388363072944469,
+                                          0.7854561899214899,
+                                          0.8149847287098936,
+                                          0.868269883503081,
+                                          0.9582910282288675,
+                                          0.7868350805799451,
+                                          0.8262329838780768,
+                                          0.884299160244403,
+                                          0.9787314371311134,
+                                          0.7907674708069309,
+                                          0.8389555279200597,
+                                          0.9015092612301031, 1.0,
+                                          0.7969524839857254,
+                                          0.8531072984762559,
+                                          0.9198292891076388,
+                                          0.785447775548084, 0.805170178229853,
+                                          0.8685830820030755,
+                                          0.9390426693365169,
+                                          0.7854657590626369],
+                            'converged': True,
+                            'levels': [[4, 134], [2, 16], [1, 48]],
+                            'linear': [1, 31, 20, 21, 15],
+                            'load': 108.62669697925821,
+                            'newton': 5,
+                            'p_max': 293.1693535767728},
+             'n': 8,
+             'n_dof': 578,
+             'nnz': 16900,
+             'tpu_direct': {'T_min': 0.78541860865617,
+                            'T_samples': [1.0, 0.8052715684432574,
+                                          0.8533932283394304,
+                                          0.9388363072940967,
+                                          0.7854561899256143,
+                                          0.8149847287123663,
+                                          0.8682698835042753,
+                                          0.9582910282283705,
+                                          0.7868350805837411,
+                                          0.8262329838804281,
+                                          0.884299160245653,
+                                          0.9787314371302843,
+                                          0.7907674708104043,
+                                          0.8389555279221963,
+                                          0.9015092612306614, 1.0,
+                                          0.7969524839887681,
+                                          0.853107298477543,
+                                          0.9198292891076076,
+                                          0.7854477755526376,
+                                          0.8051701782326365, 0.86858308200319,
+                                          0.9390426693359353,
+                                          0.7854657590677443],
+                            'converged': True,
+                            'levels': [[4, 134], [2, 16], [1, 48]],
+                            'linear': [1, 1, 1, 1],
+                            'load': 108.6266969703192,
+                            'newton': 4,
+                            'p_max': 293.1693535453397}},
+ 'film': {'dt': 0.00015398973382026504,
+          'gmres+ndlu': {'C_samples': [0.20000469252813557,
+                                       0.20000550380068982, 0.2000051296744966,
+                                       0.20000478576809935,
+                                       0.20000563189810752,
+                                       0.20000536757257145, 0.2000050646633184,
+                                       0.20000489373825217,
+                                       0.20000541244808215,
+                                       0.20000520401710167,
+                                       0.20000509557986362, 0.2000051296744966,
+                                       0.20000512994713968, 0.20000511344981,
+                                       0.20000523725263716,
+                                       0.20000541830016622, 0.2000049164153213,
+                                       0.20000513084270782,
+                                       0.20000543671655563,
+                                       0.20000475979715876,
+                                       0.20000483370483954,
+                                       0.20000522499188253, 0.20000557644927,
+                                       0.20000469252813585],
+                         'H_samples': [1.0887476276010624, 0.9354413027155154,
+                                       1.0006192290266638, 1.068714056946712,
+                                       0.9149489100812923, 0.9582766529440289,
+                                       1.0129633910268767, 1.0464093400214725,
+                                       0.9506116090401866, 0.9871744494982952,
+                                       1.0072017045973232, 1.000619229026286,
+                                       1.0005970042855348, 1.003878860039232,
+                                       0.9811601151089335, 0.9496227655338404,
+                                       1.0418624960791179, 1.0005246507855745,
+                                       0.9465661824997951, 1.0742122097535103,
+                                       1.0586966816621304, 0.9832249013815413,
+                                       0.9237157483415323,
+                                       1.0887476276003825],
+                         'amplitude': 0.09052660047462152,
+                         'converged': [True, True, True, True, True],
+                         'exact': 0.09048374180359596,
+                         'levels': [[2, 105], [4, 192], [2, 24], [1, 72]],
+                         'newton': [2, 3, 2, 2, 2],
+                         't': 0.0007699486691013252},
+          'n': 8,
+          'n_dof': 867,
+          'nnz': 38025,
+          'tpu_direct': {'C_samples': [0.20000469252814032,
+                                       0.20000550380070128,
+                                       0.20000512967450212,
+                                       0.20000478576809758, 0.2000056318981238,
+                                       0.200005367572577, 0.20000506466332135,
+                                       0.20000489373825012, 0.2000054124480867,
+                                       0.20000520401710845,
+                                       0.20000509557986718,
+                                       0.20000512967450212, 0.200005129947146,
+                                       0.2000051134498129, 0.20000523725264305,
+                                       0.20000541830017307,
+                                       0.20000491641532042, 0.2000051308427136,
+                                       0.20000543671656446,
+                                       0.20000475979715643,
+                                       0.20000483370483607, 0.2000052249918871,
+                                       0.2000055764492802,
+                                       0.20000469252814046],
+                         'H_samples': [1.0887476277576835, 0.9354413027609418,
+                                       1.0006192290039904, 1.0687140569568514,
+                                       0.9149489101024623, 0.9582766529576505,
+                                       1.012963390895992, 1.046409339941167,
+                                       0.9506116090644903, 0.987174449424756,
+                                       1.007201704430329, 1.000619229003989,
+                                       1.0005970042449002, 1.0038788598737074,
+                                       0.9811601150631376, 0.9496227655711755,
+                                       1.0418624959725598, 1.0005246506897068,
+                                       0.9465661825327044, 1.0742122098161808,
+                                       1.058696681604184, 0.983224901385817,
+                                       0.9237157483585494,
+                                       1.0887476277576755],
+                         'amplitude': 0.09052660054958522,
+                         'converged': [True, True, True, True, True],
+                         'exact': 0.09048374180359596,
+                         'levels': [[2, 105], [4, 192], [2, 24], [1, 72]],
+                         'newton': [2, 2, 1, 1, 1],
+                         't': 0.0007699486691013252}}}
 
 
 BUOY_LINEAR_8 = [1, 4, 7, 6, 10, 6]
@@ -362,6 +503,8 @@ def load_smoke():
     cs.CONT_N, cs.CONT_BRATU_N, cs.CONT_REF = 8, 16, CONT_REF_8
     cs.GHIA400_RTOL = 1.0
     cs.OVS_NX, cs.OVS_NY, cs.OVS_NSEG, cs.OVS_REF = 20, 10, 28, OVS_REF_20
+    cs.SHELL_N = 8
+    cs.SHELL_REF = dict(SHELL_REF_8, small=cs.SHELL_REF["small"])
     return cs
 
 
@@ -383,6 +526,8 @@ def main() -> int:
                     help="run phases 39-44 only")
     ap.add_argument("--only-overset", action="store_true",
                     help="run phases 45-47 only")
+    ap.add_argument("--only-shell", action="store_true",
+                    help="run phases 48-50 only")
     args = ap.parse_args()
     _fake_cuda()
     cs = load_smoke()
@@ -462,6 +607,13 @@ def main() -> int:
         og = cs.overset_phase(dev, "gmres+ndlu")
         cs.overset_phase(dev, "tpu_direct", og.pop("prob"), og.pop("bi"))
         cs.overset_small_phase()
+    elif args.only_shell:
+        dev = torch.device("cpu")
+        bg = cs.bearing_phase(dev, "gmres+ndlu")
+        cs.bearing_phase(dev, "tpu_direct", bg.pop("prob"))
+        fg = cs.film_phase(dev, "gmres+ndlu")
+        cs.film_phase(dev, "tpu_direct", fg.pop("prob"), fg.pop("x0"))
+        cs.shell_small_phase()
     else:
         cs.main()
     print(f"rehearsal passed in {time.perf_counter() - t0:.1f} s (CPU)")

@@ -184,7 +184,17 @@ EXPORTS = {
                 "stress_var", "NormalModeContinuity", "NormalModeEnergy",
                 "NormalModeMomentum", "NormalModeW", "CapillaryZNormal",
                 "ContinuityZ", "MeshZ", "MomentumZ", "ScalarZ", "WMomentum",
-                "embed_state", "zmode_equations"],
+                "embed_state", "zmode_equations",
+                # the shell, film, porous-shell and lubrication layer
+                "LubricationCurvature", "ReynoldsFilm", "ReynoldsFilmPowerLaw",
+                "ShellAngle", "ShellConduction", "ShellCoordinates",
+                "ShellCurvaturePair", "ShellDiffKinematic",
+                "ShellDiffusionFlux", "ShellNormal", "ShellSurfCurv",
+                "SurfaceCharge", "TensionedString", "attach_shell_block",
+                "tie_fluid_shell", "FilmHeight", "FilmParticles",
+                "FilmPressure", "ShellEnergy", "ShellSpecies",
+                "LubPorousSink", "PorousShellClosed", "PorousShellGasN",
+                "PorousShellOpen", "PorousShellStackLayer"],
     "continuation": ["ArcStep", "ContinuationStep", "arclength_continue",
                      "continue_problem", "AugmentedNewtonSolver",
                      "AugmentedResult", "AugmentingCondition",
@@ -195,7 +205,8 @@ EXPORTS = {
     "post": ["variable_stats", "format_stats", "flow_rate", "heat_flux",
              "sideset_integral", "stream_function", "traction_integrand",
              "volume_integral"],
-    "bc": ["CapillaryBC", "KinematicBC", "NormalFlux", "Traction"],
+    "bc": ["CapillaryBC", "KinematicBC", "NormalFlux", "Traction",
+           "EndpointAdvectiveOutflow", "EndpointFlux", "shell_end_sidesets"],
     "utils": ["det_and_inv"],
 }
 

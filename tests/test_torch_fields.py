@@ -87,13 +87,19 @@ def test_eval_fieldvars_matches():
 
 
 def test_fields_outside_slice_raise():
-    """Nedelec and Hermite tables raise; a mesh-displacement (ALE) variable,
-    refused before the slot coater's slice, now evaluates (at zero
-    displacement: F = I and the reference frame equals the current one)."""
+    """Nedelec tables raise. Hermite (H3) tables, refused before the shell
+    slice, are goma_tpu's on a bar and refused on any other family with
+    goma_tpu's ValueError. A mesh-displacement (ALE) variable, refused
+    before the slot coater's slice, evaluates (at zero displacement: F = I
+    and the reference frame equals the current one)."""
     with pytest.raises(NotImplementedError):
         tfields.build_block_tables("QUAD9", {"N1"}, 3)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bar-only"):
         tfields.build_block_tables("QUAD9", {"H3"}, 3)
+    tb = tfields.build_block_tables("BAR2", {"H3"}, 3).H3["H3"]
+    jb = jfields.build_block_tables("BAR2", {"H3"}, 3).H3["H3"]
+    for t, j in zip(tb, jb):
+        np.testing.assert_array_equal(t, j)
     mesh_m, fem, phys = TORCH_PKG
     prob = fem.Problem(mesh_m.rectangle_mesh(1, 1, elem="QUAD9"),
                        [phys.Energy()], device="cpu")

@@ -417,14 +417,16 @@ def test_newton_options_outside_slice_raise(kw):
 
 
 @pytest.mark.parametrize("feature", ["edge", "interface", "overset_solid",
-                                     "shell3d"])
+                                     "shell3d", "nedelec"])
 def test_problem_outside_slice_raises(feature):
     """Problem features outside the port's slices refuse: the overset
-    coupling to a solid (``add_overset(solid=...)``) and a surface (shell)
-    block in a 3D mesh. Edge and interface kernels, refused before, are
-    ported: on a small deck of each, ``finalize`` builds the set and R at a
-    seeded state is goma_tpu's within 1e-10 (tests/test_torch_interface.py
-    holds every kernel against goma_tpu)."""
+    coupling to a solid (``add_overset(solid=...)``) and a Nedelec (N1,
+    edge-signed) block. Edge and interface kernels and surface (shell)
+    blocks in a 3D mesh, refused before, are ported: on a small deck of
+    each, ``finalize`` builds the set (or the surface block's tables) and
+    R at a seeded state is goma_tpu's within 1e-10
+    (tests/test_torch_interface.py and tests/test_torch_shell.py hold
+    every kernel against goma_tpu)."""
     mesh_m, fem, phys = TORCH_PKG
     if feature == "overset_solid":
         mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
@@ -434,16 +436,17 @@ def test_problem_outside_slice_raises(feature):
             prob.add_overset(1, 0, phys.OversetNoSlip(dim=2),
                              solid=(2, "top"))
         return
-    if feature == "shell3d":
-        mesh = mesh_m.box_mesh(1, 1, 1, elem="HEX8")
-        quad = mesh.sidesets["top"]
-        conn = mesh.blocks[0].conn[quad.elems][:, [4, 5, 6, 7]]
-        mesh.blocks.append(goma_tpu_torch.mesh.Block("shell", "QUAD4",
-                                                     conn.astype(np.int32)))
-        prob = fem.Problem(mesh, [[phys.Energy(interp="Q1")],
-                                  [phys.Energy(interp="Q1")]], {"k": 1.0},
+    if feature == "nedelec":
+        from goma_tpu_torch.fem.equations import Equation
+
+        class EdgeField(Equation):
+            def residual(self, fv, mat, params):
+                raise AssertionError("not reached")
+
+        mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
+        prob = fem.Problem(mesh, [EdgeField("e_edge", 1, "N1")], {},
                            device="cpu")
-        with pytest.raises(NotImplementedError, match="surface blocks in 3D"):
+        with pytest.raises(NotImplementedError, match="later slice"):
             prob.finalize()
         return
     import torch
@@ -456,7 +459,16 @@ def test_problem_outside_slice_raises(feature):
     R = []
     for pkg, edge, mi in ((JAX_PKG, jedge, jmi), (TORCH_PKG, tedge, tmi)):
         mesh_m, fem, phys = pkg
-        if feature == "edge":
+        if feature == "shell3d":
+            mesh = mesh_m.box_mesh(1, 1, 1, elem="HEX8")
+            quad = mesh.sidesets["top"]
+            conn = mesh.blocks[0].conn[quad.elems][:, [4, 5, 6, 7]]
+            mesh.blocks.append(mesh_m.Block("shell", "QUAD4",
+                                            conn.astype(np.int32)))
+            prob = fem.Problem(mesh, [[phys.Energy(interp="Q1")],
+                                      [phys.Energy(interp="Q1")]], {"k": 1.0},
+                               **cpu(pkg))
+        elif feature == "edge":
             mesh = mesh_m.box_mesh(1, 1, 1, elem="HEX27")
             prob = fem.Problem(mesh, [phys.Energy(interp="Q2")], {"k": 1.0},
                                **cpu(pkg))
