@@ -184,6 +184,8 @@ def eval_edgevars(q_e, qdot_e, X_e, etab, ewts, slots, dtype) -> EdgeVars:
 
     gphi_cache = {}
     for s in slots:
+        if s.interp == "N1":
+            continue  # no trace of an edge (Nedelec) variable
         Niq = etab[f"N:{s.interp}"]
         dNiq = etab[f"dN:{s.interp}"]
         if s.interp not in gphi_cache:

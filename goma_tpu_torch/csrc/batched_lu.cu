@@ -16,7 +16,16 @@
 // chain of m dependent column steps of each front, and on the top levels
 // the few fronts (1-8) for 132 SMs.
 //
-// Design, per panel of NB columns (NB = 32 float32, 16 float64):
+// The kernel factors in float64; the wrapper (solvers/batched_lu.py) hands
+// it float32 fronts promoted and rounds their factor once. A float32
+// factorization rounds every update and, on fronts whose unpivoted
+// elimination grows the entries 100-700x (the edge-element cavity, the
+// viscoelastic channel), the blocked update order and the plain column
+// order land up to 2.3x apart in their distance from the float64 factor:
+// the float64 one is the float32 factor's best (PERF.md has what it costs
+// in time).
+//
+// Design, per panel of NB = 16 columns:
 //  1. every CTA of the front's cluster loads the (m - j0) x NB panel into
 //     shared memory (column-major, odd leading dimension: conflict-free both
 //     ways) and factors it REDUNDANTLY in registers, each thread owning up
@@ -35,8 +44,8 @@
 //  3. one cluster barrier; then each CTA writes its share of the factored
 //     panel rows back (after the barrier: a slower CTA may still be reading
 //     the unfactored panel before it).
-// The front lives in the output buffer (L2-resident: 764 KB at m = 437 in
-// float32); every read of it goes through __ldcg (L2, not the SM's L1),
+// The front lives in the output buffer (L2-resident: 1.5 MB at m = 437);
+// every read of it goes through __ldcg (L2, not the SM's L1),
 // because another SM of the cluster may have written the line. The first
 // panel step reads A itself, so there is no copy pass. The host side picks
 // the cluster size C from nn (largest of 16, 8, 4, 2 with nn * C <= 132,
@@ -55,10 +64,6 @@ namespace {
 
 template <typename T>
 struct Cfg;
-template <>
-struct Cfg<float> {
-  static constexpr int NB = 32;
-};
 template <>
 struct Cfg<double> {
   static constexpr int NB = 16;
@@ -103,10 +108,6 @@ __device__ __forceinline__ int panel_row(int t, int s) {
 
 template <typename T>
 __device__ __forceinline__ T fma_t(T a, T b, T c);
-template <>
-__device__ __forceinline__ float fma_t<float>(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
 template <>
 __device__ __forceinline__ double fma_t<double>(double a, double b, double c) {
   return fma(a, b, c);
@@ -460,18 +461,9 @@ extern "C" {
 // A, out: (nn, m, m) contiguous device arrays; out must not alias A;
 // 1 <= m <= 1024. Returns the cudaError_t of the launch (0 = cudaSuccess);
 // a launch the card refuses (cluster or shared memory) returns its error.
-int batched_lu_f32(const void* A, void* out, int64_t nn, int m,
-                   double pivot_tol, void* stream) {
-  return launch<float>(A, out, nn, m, pivot_tol, stream);
-}
-
 int batched_lu_f64(const void* A, void* out, int64_t nn, int m,
                    double pivot_tol, void* stream) {
   return launch<double>(A, out, nn, m, pivot_tol, stream);
-}
-
-int batched_lu_plan_f32(int64_t nn, int m, int* out5) {
-  return plan<float>(nn, m, out5);
 }
 
 int batched_lu_plan_f64(int64_t nn, int m, int* out5) {

@@ -57,7 +57,14 @@
 // is written out is x rounded to the working dtype. The upper sweep
 // multiplies by the reciprocal pivot; for float64 fronts one Newton step on
 // the quotient makes it the correctly rounded division in all but rare
-// cases.
+// cases. A float64 front has no wider accumulator, and the solver's
+// sequential sums over the near and in-block columns (up to 95 terms) sat
+// up to 3x farther from the exact substitution than the plain version's on
+// ill-conditioned fronts: for float64 the solver carries each row sum as a
+// compensated pair (hi, lo), every product's and every addition's rounding
+// error kept in lo (TwoProduct by FMA, TwoSum), and hands out hi + lo. That
+// lengthens the float64 chain (no main path substitutes in float64; the
+// float32 chain is unchanged).
 //
 // Few fronts: the chain lives in one warp, so a thread-block cluster per
 // front could only split the updaters' work, which already runs ahead of
@@ -125,6 +132,30 @@ __device__ __forceinline__ void fold(double (&p)[kNB], int lane) {
   }
 }
 
+// TwoSum: s = fl(a + b) and its rounding error e, a + b = s + e exactly
+// (explicit round-to-nearest operations: no contraction into an FMA)
+__device__ __forceinline__ double two_sum(double a, double b, double& e) {
+  const double s = __dadd_rn(a, b);
+  const double bp = __dsub_rn(s, a);
+  e = __dadd_rn(__dsub_rn(a, __dsub_rn(s, bp)), __dsub_rn(b, bp));
+  return s;
+}
+
+// hi += a * b: an FMA, or for a compensated sum (kComp) the product and the
+// addition each with its rounding error added to lo
+template <bool kComp>
+__device__ __forceinline__ void mac(double& hi, double& lo, double a,
+                                    double b) {
+  if (!kComp) {
+    hi = fma(a, b, hi);
+    return;
+  }
+  const double p = __dmul_rn(a, b);
+  double e;
+  hi = two_sum(hi, p, e);
+  lo = __dadd_rn(lo, __dadd_rn(e, fma(a, b, -p)));
+}
+
 // The chain: the 32 steps of one diagonal block, in the solver warp, two at
 // a time. Lane i holds row i (acc) and row i of the next kNear blocks
 // (accn); S is the block's ring slot: the diagonal tile, the tiles below it
@@ -134,12 +165,16 @@ __device__ __forceinline__ void fold(double (&p)[kNB], int lane) {
 // x_{k+1} = acc_{k+1} - M[k+1,k] x_k itself (the FMA lane k+1 would do) and
 // applies both columns, so the chain pays one shuffle and two FMAs per two
 // steps, and each row still takes the same FMAs in the same order.
-// kRagged: only jb < 32 steps exist (checked per pair, uniformly).
+// kRagged: only jb < 32 steps exist (checked per pair, uniformly). A
+// float64 front carries each sum as (acc, lo) pairs (see mac).
 template <typename T, bool kLower, bool kRagged>
 __device__ __forceinline__ void solve_block(const double* S, int jb, double dg,
                                             double rd, int lane, double& acc,
+                                            double& acclo,
                                             double (&accn)[kNear],
+                                            double (&accnlo)[kNear],
                                             double& xfin) {
+  constexpr bool kComp = sizeof(T) == 8;
   const double* D = S + lane * kLd;  // this lane's row of each tile
   // v / pivot through the reciprocal; a float64 front adds one Newton step
   const auto quot = [](double v, double d, double r) {
@@ -175,8 +210,9 @@ __device__ __forceinline__ void solve_block(const double* S, int jb, double dg,
     // the block's first shuffle, or in front of this pair's).
     double xk = 0.0, y = 0.0;
     if (!kRagged || k < jb) {
-      xk = __shfl_sync(kFull, kLower ? acc : quot(acc, dg, rd), k);
-      y = __shfl_sync(kFull, acc, k + 1);
+      const double v = kComp ? __dadd_rn(acc, acclo) : acc;
+      xk = __shfl_sync(kFull, kLower ? v : quot(v, dg, rd), k);
+      y = __shfl_sync(kFull, v, k + 1);
     }
     asm volatile("" : "+d"(xk), "+d"(y)::"memory");
     Pair nxt = cur;
@@ -186,17 +222,17 @@ __device__ __forceinline__ void solve_block(const double* S, int jb, double dg,
       const bool two = !kRagged || k + 1 < jb;
       double x1 = fma(-cur.l, xk, y);
       if (!kLower) x1 = quot(x1, cur.pd, cur.pr);
-      if (lane > k) acc = fma(-cur.d[0][0], xk, acc);
+      if (lane > k) mac<kComp>(acc, acclo, -cur.d[0][0], xk);
       if (lane == k) xfin = xk;
 #pragma unroll
       for (int h = 0; h < kNear; ++h)
-        accn[h] = fma(-cur.d[h + 1][0], xk, accn[h]);
+        mac<kComp>(accn[h], accnlo[h], -cur.d[h + 1][0], xk);
       if (two) {
-        if (lane > k + 1) acc = fma(-cur.d[0][1], x1, acc);
+        if (lane > k + 1) mac<kComp>(acc, acclo, -cur.d[0][1], x1);
         if (lane == k + 1) xfin = x1;
 #pragma unroll
         for (int h = 0; h < kNear; ++h)
-          accn[h] = fma(-cur.d[h + 1][1], x1, accn[h]);
+          mac<kComp>(accn[h], accnlo[h], -cur.d[h + 1][1], x1);
       }
     }
     cur = nxt;
@@ -248,10 +284,11 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 192 ? 2 : 1)
 
   if (warp == 0) {
     // ---- the solver
-    // the next kNear blocks' rows against the columns solved so far
-    A accn[kNear];
+    // the next kNear blocks' rows against the columns solved so far, with
+    // their rounding errors (float64 fronts, see mac)
+    A accn[kNear], accnlo[kNear];
 #pragma unroll
-    for (int h = 0; h < kNear; ++h) accn[h] = A(0);
+    for (int h = 0; h < kNear; ++h) accn[h] = accnlo[h] = A(0);
     // the first blocks take b itself: fetched now, off the chain
     A bfirst[1 + kNear];
 #pragma unroll
@@ -278,10 +315,15 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 192 ? 2 : 1)
         for (int h = 1; h <= kNear; ++h)
           if (K == h) base = bfirst[h];
       }
-      A acc = base + accn[0];
+      A e;
+      A acc = two_sum(base, accn[0], e);
+      A acclo = sizeof(T) == 8 ? __dadd_rn(accnlo[0], e) : A(0);
 #pragma unroll
-      for (int h = 0; h + 1 < kNear; ++h) accn[h] = accn[h + 1];
-      accn[kNear - 1] = A(0);
+      for (int h = 0; h + 1 < kNear; ++h) {
+        accn[h] = accn[h + 1];
+        accnlo[h] = accnlo[h + 1];
+      }
+      accn[kNear - 1] = accnlo[kNear - 1] = A(0);
       const A* S = s_tile + (K % kSlots) * kSlot;
       A dg = A(1), rd = A(1);
       if (!kLower) {
@@ -290,9 +332,11 @@ __global__ void __launch_bounds__(THREADS, THREADS <= 192 ? 2 : 1)
       }
       A xfin = A(0);
       if (jb == kNB)
-        solve_block<T, kLower, false>(S, jb, dg, rd, lane, acc, accn, xfin);
+        solve_block<T, kLower, false>(S, jb, dg, rd, lane, acc, acclo, accn,
+                                      accnlo, xfin);
       else
-        solve_block<T, kLower, true>(S, jb, dg, rd, lane, acc, accn, xfin);
+        solve_block<T, kLower, true>(S, jb, dg, rd, lane, acc, acclo, accn,
+                                     accnlo, xfin);
       if (valid) s_x[t] = T(xfin);
       publish(s_done, K + 1, lane);
     }

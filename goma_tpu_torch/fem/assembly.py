@@ -66,11 +66,20 @@ face kernel there sees a unit point measure, the signed unit tangent as
 its outward conormal and tangential gradients (``eval_surfacevars``'
 ``psign`` branch).
 
+H(curl) edge (Nedelec, N1) blocks: a mesh whose element edges oppose the
+global low-to-high orientation carries per-element signs
+(``dofmap.edge_signs``, (ne, nl)); the element residual conjugates the
+local dofs, history and residual by them (``q_e * s``, ``hist_e * s``,
+``r * s``), so ``jacfwd`` gives S J S and every consumer of the element
+Jacobian (CSR values, row sums, ``element_matvec``, the mixed-precision
+prep) sees the signed arrays. N1 slots have no face trace: face, interface,
+edge and overset sets leave them out, as goma_tpu does.
+
 The public entry points are goma_tpu's: ``assemble(x, params) -> (R,
 vals)``, ``residual(x, params) -> R`` (the residual-only pass) and
-``bc_dup_report()``. Everything else goma_tpu's Problem supports (the
-overset coupling to a solid and Nedelec blocks) raises
-``NotImplementedError``: later slices (see ROADMAP).
+``bc_dup_report()``. The one thing goma_tpu's Problem supports that the
+port does not, the overset coupling to a solid, raises
+``NotImplementedError`` (a later slice, see ROADMAP).
 """
 
 from __future__ import annotations
@@ -492,8 +501,6 @@ class Problem:
             if m is not None:
                 self._fast_meta[bi] = m
                 continue
-            if bd.edge_signs is not None:
-                raise NotImplementedError(f"Nedelec (edge-signed) blocks: {_LATER}")
             if (element_type(bd.elem_type).dim < mesh.dim
                     and self.coord != "cartesian"):
                 raise NotImplementedError(
@@ -711,9 +718,11 @@ class Problem:
             gi = geom_interp(et)
             fpts, fwts = face_rule(et.family, self.quad_order)
             all_faces = elem_faces(et.family)
-            # Hermite (H3) traces would need the per-element arc-length
-            # slope scaling: left out, as in goma_tpu
-            interps = {s.interp for s in bd.slots if s.interp != "H3"}
+            # edge (N1) slots have no scalar face trace; Hermite (H3)
+            # traces would need the per-element arc-length slope scaling:
+            # both left out, as in goma_tpu
+            interps = {s.interp for s in bd.slots
+                       if s.interp not in ("N1", "H3")}
             Ngs, dNgs, refjacs = [], [], []
             Ni: dict[str, list] = {i: [] for i in interps}
             dNi: dict[str, list] = {i: [] for i in interps}
@@ -763,8 +772,8 @@ class Problem:
             fpts, fwts = face_rule(et_a.family, self.quad_order)
             faces_a = elem_faces(et_a.family)
             faces_b = elem_faces(et_b.family)
-            interps_a = {s.interp for s in bd_a.slots}
-            interps_b = {s.interp for s in bd_b.slots}
+            interps_a = {s.interp for s in bd_a.slots if s.interp != "N1"}
+            interps_b = {s.interp for s in bd_b.slots if s.interp != "N1"}
             ta = {"Ng": [], "dNg": [], "refjac": []}
             tb = {"Ng": [], "dNg": [], "refjac": []}
             Na = {i: [] for i in interps_a}
@@ -856,7 +865,8 @@ class Problem:
                 raise ValueError("overset multiplier block must be a BAR block")
             qpts, qwts = volume_rule("bar", qo or self.quad_order)
             Ng, dNg = eval_basis("bar", geom_interp(et_b), qpts)
-            interps_f = sorted({s.interp for s in bd_f.slots})
+            interps_f = sorted({s.interp for s in bd_f.slots
+                                if s.interp != "N1"})
             cents = mesh.coords[blk_f.conn].mean(axis=1)
             tree = cKDTree(cents)
             rows_g, xs, ws = [], [], []
@@ -911,6 +921,8 @@ class Problem:
                 # (the external fields' gather)
                 T[f"x{bi}"] = put(self.mesh.coords[blk.conn], dt)
                 T[f"c{bi}"] = put(blk.conn.astype(np.int64))
+                if bd.edge_signs is not None:
+                    T[f"sg{bi}"] = put(bd.edge_signs, dt)
                 continue
             tabs, static = fastns.build_tables(self, bi)
             self._fast_static[bi] = static
@@ -1135,10 +1147,12 @@ class Problem:
 
     def _elem_residual_fn(self, bi: int, dtype=None):
         """The generic element residual of block ``bi`` at ``dtype``:
-        ``elem_res(q_e, hist_e, X_e, ext_e, params) -> (r, r)`` for ONE
-        element (local dofs, history, node coordinates, external fields at
-        the nodes), the residual doubled as
-        the aux output of ``jacfwd(..., has_aux=True)``. Each equation's
+        ``elem_res(q_e, hist_e, X_e, ext_e, sgn_e, params) -> (r, r)`` for
+        ONE element (local dofs, history, node coordinates, external fields
+        at the nodes, the edge orientation signs or 1.0), the residual
+        doubled as the aux output of ``jacfwd(..., has_aux=True)``. The
+        signs conjugate the local dofs, the history and the residual
+        (Nedelec orientation; ``_signs`` gives them). Each equation's
         integrand is contracted with its measure, and ``r`` is built out of
         place in slot order (an in-place add into a fresh tensor does not
         map under ``torch.func.vmap``)."""
@@ -1155,8 +1169,9 @@ class Problem:
         if edim < self.mesh.dim:
             shell = eval_curvevars if edim == 1 else eval_surfvars
 
-        def elem_res(q_e, hist_e, X_e, ext_e, params):
-            qdot_e = params["ct"] * q_e + hist_e
+        def elem_res(q_e, hist_e, X_e, ext_e, sgn_e, params):
+            q_e = q_e * sgn_e
+            qdot_e = params["ct"] * q_e + hist_e * sgn_e
             if shell is not None:
                 fv = shell(q_e, qdot_e, X_e, tables, bd.slots, dtype, ext_e,
                            ext_names)
@@ -1171,10 +1186,18 @@ class Problem:
                 acc[eq.var] = acc[eq.var] + a if eq.var in acc else a
             r = torch.cat([acc[s.var] if s.var in acc   # slots in start order
                            else q_e.new_zeros(s.size) for s in bd.slots]
-                          or [q_e.new_zeros(0)])
+                          or [q_e.new_zeros(0)]) * sgn_e
             return r, r
 
         return elem_res
+
+    def _signs(self, T, bi, dtype):
+        """(signs, their vmap axis) of block ``bi`` for ``elem_res``: the
+        per-element edge signs (ne, nl) at ``dtype`` mapped over elements,
+        or 1.0 unmapped for a consistently oriented block."""
+        if self.dofmap.blocks[bi].edge_signs is None:
+            return 1.0, None
+        return T[f"sg{bi}"].to(dtype), 0
 
     def _face_residual_fn(self, j: int, dtype=None):
         """The residual of ONE face of face set ``j`` at ``dtype``:
@@ -1291,6 +1314,8 @@ class Problem:
             ov.x = xp
             ov.w = wp
             for sl in bd_f.slots:
+                if sl.interp == "N1":
+                    continue
                 N = Nf[sl.interp]  # (nbf,)
                 qv = qf[sl.start:sl.start + sl.size].reshape(sl.ncomp, sl.nbf)
                 ov.vals[sl.var] = qv @ N
@@ -1441,7 +1466,6 @@ class Problem:
         (x, hist, params, dtype) of a separate Jacobian pass, or None."""
         from torch.func import jacfwd, vmap
 
-        axes = (0, 0, 0, 0, None)
         if g.shape[1] == 0:
             # a block that carries no dof (a shell's bulk with no equation)
             jdt = dtype if mixed is None else mixed[3]
@@ -1450,15 +1474,19 @@ class Problem:
         elem_res = self._elem_residual_fn(bi, dtype)
         Xref = self._coords(T, bi, dtype)
         ext = self._ext_gather(params, T[f"c{bi}"]).to(dtype)
+        sg, sax = self._signs(T, bi, dtype)
+        axes = (0, 0, 0, 0, sax, None)
         if mixed is None:
             J, r = vmap(jacfwd(elem_res, argnums=0, has_aux=True),
-                        in_dims=axes)(x[g], hist[g], Xref, ext, params)
+                        in_dims=axes)(x[g], hist[g], Xref, ext, sg, params)
             return r, J
-        r, _ = vmap(elem_res, in_dims=axes)(x[g], hist[g], Xref, ext, params)
+        r, _ = vmap(elem_res, in_dims=axes)(x[g], hist[g], Xref, ext, sg,
+                                            params)
         xj, histj, params_j, jdt = mixed
         J, _ = vmap(jacfwd(self._elem_residual_fn(bi, jdt), argnums=0,
                            has_aux=True), in_dims=axes)(
-            xj[g], histj[g], self._coords(T, bi, jdt), ext.to(jdt), params_j)
+            xj[g], histj[g], self._coords(T, bi, jdt), ext.to(jdt),
+            self._signs(T, bi, jdt)[0], params_j)
         return r, J
 
     def _face_rj(self, j, T, x, hist, params, dtype, mixed):
@@ -1548,8 +1576,10 @@ class Problem:
                     dtype, with_jac=False)
             else:
                 ext = self._ext_gather(params, T[f"c{bi}"]).to(dtype)
-                r, _ = vmap(self._elem_residual_fn(bi, dtype), in_dims=axes)(
-                    x[g], hist[g], self._coords(T, bi, dtype), ext, params)
+                sg, sax = self._signs(T, bi, dtype)
+                r, _ = vmap(self._elem_residual_fn(bi, dtype),
+                            in_dims=(0, 0, 0, 0, sax, None))(
+                    x[g], hist[g], self._coords(T, bi, dtype), ext, sg, params)
             parts.append(r)
         for j, fs in enumerate(self.face_sets):
             g = T[f"fg{j}"]

@@ -26,8 +26,17 @@ the curve shells) evaluate through ``eval_curvevars``: arc-length measure,
 unit tangent and normal, tangential gradients, and the Hermite cubic (H3)
 slot with its second arc-length derivatives. QUAD/TRI blocks embedded in 3D
 (surface shells) evaluate through ``eval_surfvars``: surface gradients
-``J_s G^-1 dN`` and the measure ``sqrt(det G)``. The N1 (Nedelec) tables
-raise ``NotImplementedError`` (a later slice, see ROADMAP).
+``J_s G^-1 dN`` and the measure ``sqrt(det G)``.
+
+H(curl) edge (Nedelec, N1) slots carry one tangential circulation per
+element edge (on the edge's midside node). Their reference vector basis
+maps covariantly, ``N_phys = N_ref . J^-1``; the curl is ``curl_ref /
+detJ`` in 2D (a scalar) and ``J . curl_ref / detJ`` in 3D (a vector).
+``fv.val``/``fv.dot`` of an N1 variable are vectors (nq, dim), ``fv.phi``
+its vector test functions (nq, nbf, dim), ``fv.curl``/``fv.curl_phi`` the
+curls ((nq,) and (nq, nbf) in 2D; (nq, 3) and (nq, nbf, 3) in 3D); it has
+no ``grad``. The element's edge orientation signs are applied by the
+assembler, outside this function.
 """
 
 from __future__ import annotations
@@ -40,12 +49,11 @@ import torch
 
 from goma_tpu_torch.elements import (element_type, eval_basis, geom_interp,
                                      volume_rule)
-from goma_tpu_torch.elements.shapes import eval_hermite_bar
+from goma_tpu_torch.elements.shapes import eval_hermite_bar, eval_nedelec
 from goma_tpu_torch.fem.dofmap import LocalSlot
 from goma_tpu_torch.utils.la import det_and_inv
 
 MESH_VAR = "mesh_displacement"
-_LATER = "later slice of the port, see ROADMAP"
 
 
 @dataclass
@@ -62,18 +70,26 @@ class BlockTables:
     dN: dict[str, np.ndarray]  # interp -> (nq, nbf, dim) (reference coords)
     # Hermite (H3) raw xi-tables: interp -> (N, dN, d2N), each (nq, 4)
     H3: dict[str, tuple] = field(default_factory=dict)
+    # H(curl) edge (N1) tables: interp -> (nq, nbf, dim) reference vector
+    # basis, and its reference curl (nq, nbf) in 2D, (nq, nbf, 3) in 3D
+    Nvec: dict[str, np.ndarray] = field(default_factory=dict)
+    Ncurl: dict[str, np.ndarray] = field(default_factory=dict)
     _on: dict = field(default_factory=dict, repr=False)
 
     def on(self, dtype, device) -> dict:
         """The tables as tensors at ``dtype`` on ``device`` (made once per
-        pair): ``qwts``, ``Ng``, ``dNg``, ``N:<interp>``/``dN:<interp>`` and
-        the Hermite ``H3N:``/``H3dN:``/``H3d2N:<interp>``."""
+        pair): ``qwts``, ``Ng``, ``dNg``, ``N:<interp>``/``dN:<interp>``,
+        the Hermite ``H3N:``/``H3dN:``/``H3d2N:<interp>`` and the Nedelec
+        ``Nvec:``/``Ncurl:<interp>``."""
         key = (dtype, torch.device(device))
         if key not in self._on:
             arrs = {"qwts": self.qwts, "Ng": self.Ng, "dNg": self.dNg}
             for itp in self.N:
                 arrs[f"N:{itp}"] = self.N[itp]
                 arrs[f"dN:{itp}"] = self.dN[itp]
+            for itp in self.Nvec:
+                arrs[f"Nvec:{itp}"] = self.Nvec[itp]
+                arrs[f"Ncurl:{itp}"] = self.Ncurl[itp]
             for itp, (Nh, dNh, d2Nh) in self.H3.items():
                 arrs[f"H3N:{itp}"], arrs[f"H3dN:{itp}"] = Nh, dNh
                 arrs[f"H3d2N:{itp}"] = d2Nh
@@ -89,10 +105,11 @@ def build_block_tables(elem_type_name: str, interps: set[str],
     qpts, qwts = volume_rule(et.family, quad_order)
     gi = geom_interp(et)
     Ng, dNg = eval_basis(et.family, gi, qpts)
-    N, dN, H3 = {}, {}, {}
+    N, dN, H3, Nvec, Ncurl = {}, {}, {}, {}, {}
     for itp in sorted(interps | {gi}):
         if itp == "N1":
-            raise NotImplementedError(f"interpolation {itp}: {_LATER}")
+            Nvec[itp], Ncurl[itp] = eval_nedelec(et.family, qpts)
+            continue
         if itp == "H3":
             if et.family != "bar":
                 raise ValueError("I_H3 Hermite interpolation is bar-only")
@@ -100,7 +117,7 @@ def build_block_tables(elem_type_name: str, interps: set[str],
             continue
         N[itp], dN[itp] = eval_basis(et.family, itp, qpts)
     return BlockTables(elem_type_name, et.dim, qpts.shape[0], qwts, Ng, dNg,
-                       N, dN, H3)
+                       N, dN, H3, Nvec, Ncurl)
 
 
 class FieldVars:
@@ -139,8 +156,11 @@ class FieldVars:
     include/mm_as_structs.h:1046):
       ext[name]      (nq,)
       ext_grad[name] (nq, dim)
-    (goma_tpu's node-anchored ``q_nodal``/``lnodes`` and the Nedelec
-    attributes belong to branches this slice does not carry.)
+    H(curl) edge (N1) variables (see the module docstring):
+      curl[v]        (nq,) 2D | (nq, 3) 3D
+      curl_phi[v]    (nq, nbf) 2D | (nq, nbf, 3) 3D
+    (goma_tpu's node-anchored ``q_nodal``/``lnodes`` belong to a branch
+    the port does not carry.)
     """
 
     def __init__(self):
@@ -164,6 +184,8 @@ class FieldVars:
         self.F = None
         self.ext: dict[str, Any] = {}
         self.ext_grad: dict[str, Any] = {}
+        self.curl: dict[str, Any] = {}
+        self.curl_phi: dict[str, Any] = {}
 
 
 def _unpack(q_e, slots: list[LocalSlot]):
@@ -227,6 +249,9 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
     gphi_cache: dict[str, Any] = {}
     gphi0_cache: dict[str, Any] = {}
     for s in slots:
+        if s.interp == "N1":
+            _nedelec_slot(fv, s, u, udot, tb, Jmat, detJ, invJ)
+            continue
         Ni, dNi = tb[f"N:{s.interp}"], tb[f"dN:{s.interp}"]
         if s.interp not in gphi_cache:
             gphi_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, invJ)
@@ -254,6 +279,27 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
             fv.ext[name] = torch.einsum("qn,n->q", tb["Ng"], e)
             fv.ext_grad[name] = torch.einsum("qnk,n->qk", gphi_g, e)
     return fv
+
+
+def _nedelec_slot(fv, s, u, udot, tb, Jmat, detJ, invJ):
+    """An N1 slot of ``eval_fieldvars``: the covariant (Piola) map of the
+    reference vector basis, N_phys[q,i,k] = N_ref[q,i,d] invJ[q,d,k], and
+    the curl, curl_ref / detJ in 2D, J . curl_ref / detJ in 3D."""
+    Nv, Cv = tb[f"Nvec:{s.interp}"], tb[f"Ncurl:{s.interp}"]
+    Nphys = torch.einsum("qid,qdk->qik", Nv, invJ)
+    if fv.dim == 3:
+        Cphys = torch.einsum("qkd,qid->qik", Jmat, Cv) / detJ[:, None, None]
+    else:
+        Cphys = Cv / detJ[:, None]
+    c = u[s.var][0]  # (nbf,) edge circulations
+    fv.phi[s.var] = Nphys
+    fv.curl_phi[s.var] = Cphys
+    fv.val[s.var] = torch.einsum("qik,i->qk", Nphys, c)
+    if fv.dim == 3:
+        fv.curl[s.var] = torch.einsum("qik,i->qk", Cphys, c)
+    else:
+        fv.curl[s.var] = torch.einsum("qi,i->q", Cphys, c)
+    fv.dot[s.var] = torch.einsum("qik,i->qk", Nphys, udot[s.var][0])
 
 
 class CurveVars(FieldVars):

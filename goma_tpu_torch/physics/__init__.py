@@ -1,5 +1,12 @@
 from goma_tpu_torch.physics.fluid import Continuity, Momentum, SwirlMomentum
-from goma_tpu_torch.physics.scalar_transport import Energy, Species
+from goma_tpu_torch.physics.scalar_transport import (BondEvolution, Energy,
+                                                     LightIntensity,
+                                                     ResidenceTime, Species)
+from goma_tpu_torch.physics.species_flux import (
+    GeneralizedFickianSpecies,
+    HydroSpecies,
+    StefanMaxwellSpecies,
+)
 from goma_tpu_torch.physics import materials
 from goma_tpu_torch.physics.mesh_motion import (EllipticMesh, LinearElasticMesh,
                                                 PseudoSolidMesh)
@@ -48,7 +55,13 @@ from goma_tpu_torch.physics.level_set import (
     XFEMPressureMomentum,
     sharp_heaviside,
 )
+from goma_tpu_torch.physics.acoustic import (AcousticHelmholtz,
+                                             ProjectionEquation, SommerfeldBC)
+from goma_tpu_torch.physics.electro import (ButlerVolmerBC, HORFlux, ORRFlux,
+                                            Potential)
 from goma_tpu_torch.physics.interface import InterfaceExchange
+from goma_tpu_torch.physics.em import (EMAbsorbingBC, EMAbsorbingBCH, EMWave,
+                                       EMWaveEdge, EMWaveH)
 from goma_tpu_torch.physics.overset import OversetLM, OversetNoSlip
 from goma_tpu_torch.physics.lubrication import (LubricationCurvature,
                                                 ReynoldsFilm,

@@ -16,8 +16,12 @@ from the caller's saddle-last (``defer_dofs``) ordering.
   right-looking LU, each panel of ``nb`` columns factored in registers and
   shared memory by every CTA of a thread-block cluster of ``C`` CTAs per
   front, the trailing update split over the cluster in register tiles of
-  full-precision FMA, one cluster barrier per panel. :func:`_plan` gives
-  the launch plan; a launch the card refuses raises.
+  full-precision FMA, one cluster barrier per panel. The kernel computes
+  in float64: a float32 batch is promoted, factored and its packed LU
+  rounded to float32 once, so the float32 factor is the float64 one's
+  rounding (a float32 elimination in any update order lands 2x farther
+  from it on fronts whose entries grow 100-700x). :func:`_plan` gives the
+  launch plan; a launch the card refuses raises.
 - For a CPU tensor it runs :func:`batched_lu_reference`, the plain PyTorch
   twin. Nothing on the CUDA path calls the twin; it is what the CPU tests
   hold against goma_tpu and what the GPU kernel is checked against.
@@ -34,12 +38,11 @@ import torch
 
 from goma_tpu_torch import cuda_build
 
-_FN = {torch.float32: "batched_lu_f32", torch.float64: "batched_lu_f64"}
-_PLAN_FN = {torch.float32: "batched_lu_plan_f32",
-            torch.float64: "batched_lu_plan_f64"}
-# mirrored from csrc/batched_lu.cu: panel width per dtype, U12 columns
-# staged at once, the card's SMs, the largest m and shared memory per CTA
-_NB = {torch.float32: 32, torch.float64: 16}
+_DTYPES = (torch.float32, torch.float64)
+# mirrored from csrc/batched_lu.cu (float64 arithmetic for both dtypes):
+# panel width, U12 columns staged at once, the card's SMs, the largest m
+# and shared memory per CTA
+_NB = 16
 _UCOLS = 128
 _SMS = 132
 MAX_M = 1024
@@ -47,8 +50,9 @@ MAX_SMEM = 232448
 
 
 def _plan(nn: int, m: int, dtype) -> tuple[int, int, int, int]:
-    """The kernel's launch plan for nn fronts of size m: (cluster size C,
-    panel width nb, threads per CTA, dynamic shared bytes per CTA).
+    """The kernel's launch plan for nn fronts of size m of ``dtype`` (the
+    same for float32 and float64: the kernel computes in float64): (cluster
+    size C, panel width nb, threads per CTA, dynamic shared bytes per CTA).
 
     C is the largest of 16, 8, 4, 2 with nn * C <= 132 (so the clusters
     fill the SMs without a second wave), else 1, and 1 when the front is a
@@ -61,13 +65,14 @@ def _plan(nn: int, m: int, dtype) -> tuple[int, int, int, int]:
     reduction and a ready counter.
     ``csrc/batched_lu.cu::make_plan`` computes the same; ``kernel_plan``
     reads it back from the library."""
-    nb = _NB[dtype]
+    if dtype not in _DTYPES:
+        raise TypeError(f"batched_lu: dtype {dtype} (float32/float64 only)")
+    nb = _NB
     threads = 128 if m <= 224 else (256 if m <= 480 else 512)
     cluster = 1
     if m > nb:
         cluster = next((c for c in (16, 8, 4, 2) if nn * c <= _SMS), 1)
-    esize = torch.empty((), dtype=dtype).element_size()
-    smem = esize * (nb * ((m | 1) + _UCOLS + nb + 1) + 33)
+    smem = 8 * (nb * ((m | 1) + _UCOLS + nb + 1) + 33)
     return cluster, nb, threads, smem
 
 
@@ -75,7 +80,9 @@ def kernel_plan(nn: int, m: int, dtype) -> tuple[int, int, int, int, int]:
     """The library's own plan for (nn, m, dtype), as :func:`_plan`, and
     the number of such clusters the card holds at once
     (``cudaOccupancyMaxActiveClusters``). Needs the card."""
-    fn = getattr(cuda_build.load("batched_lu"), _PLAN_FN[dtype])
+    if dtype not in _DTYPES:
+        raise TypeError(f"batched_lu: dtype {dtype} (float32/float64 only)")
+    fn = cuda_build.load("batched_lu").batched_lu_plan_f64
     fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 5)()
@@ -85,9 +92,9 @@ def kernel_plan(nn: int, m: int, dtype) -> tuple[int, int, int, int, int]:
     return tuple(out)
 
 
-def _kernel(dtype):
-    """The C entry point for ``dtype`` (builds the library on first use)."""
-    fn = getattr(cuda_build.load("batched_lu"), _FN[dtype])
+def _kernel():
+    """The C entry point (float64; builds the library on first use)."""
+    fn = cuda_build.load("batched_lu").batched_lu_f64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -119,7 +126,7 @@ def batched_lu(A, pivot_tol: float = 1e-8):
         return batched_lu_reference(A, pivot_tol)
     if A.device.type != "cuda":
         raise ValueError(f"batched_lu: unsupported device {A.device}")
-    if A.dtype not in _FN:
+    if A.dtype not in _DTYPES:
         raise TypeError(f"batched_lu: dtype {A.dtype} (float32/float64 only)")
     if A.ndim != 3 or A.shape[1] != A.shape[2]:
         raise ValueError(f"batched_lu: expected (nn, m, m), got {tuple(A.shape)}")
@@ -128,15 +135,17 @@ def batched_lu(A, pivot_tol: float = 1e-8):
     nn, m, _ = A.shape
     if m > MAX_M:
         raise ValueError(f"batched_lu: m = {m} > {MAX_M}")
-    out = torch.empty_like(A)
-    fn = _kernel(A.dtype)
+    work = A.double()  # A itself when it is float64 (the kernel never writes it)
+    out = torch.empty_like(work)
+    fn = _kernel()
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream(A.device).cuda_stream
-        err = fn(A.data_ptr(), out.data_ptr(), nn, m, float(pivot_tol), stream)
+        err = fn(work.data_ptr(), out.data_ptr(), nn, m, float(pivot_tol),
+                 stream)
     if err != 0:
         raise RuntimeError(f"batched_lu kernel launch failed: cudaError {err}")
     batched_lu.launches += 1
-    return out
+    return out.to(A.dtype)
 
 
 batched_lu.launches = 0

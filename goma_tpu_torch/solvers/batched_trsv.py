@@ -20,13 +20,15 @@ front (nn, m):
   and the other warps take the row sums against the columns three or more
   blocks back, read along the rows, ahead of the chain; the warps meet
   through release/acquire counters. Every sum is float64, for float32
-  fronts too. :func:`_plan` gives the launch plan; a launch the card
-  refuses raises.
+  fronts too; a float64 front's solver sums are compensated (each rounding
+  error carried beside the sum). :func:`_plan` gives the launch plan; a
+  launch the card refuses raises.
 - For a CPU tensor it runs :func:`batched_trsv_reference`, the plain
   PyTorch twin. Nothing on the CUDA path calls the twin.
   :func:`batched_trsv_blocked_reference` is plain PyTorch in the kernel's
-  blocked order and precision (float64 sums, near and far columns apart,
-  reciprocal pivots), for the CPU tests; nothing on any path calls it.
+  blocked order and precision (float64 sums, compensated for float64 fronts,
+  near and far columns apart, reciprocal pivots), for the CPU tests;
+  nothing on any path calls it.
 
 ``batched_trsv.launches`` counts kernel launches (and nothing else), so a
 run can show that its substitutions went through the kernel.
@@ -137,6 +139,35 @@ def batched_trsv_reference(lu, b, lower: bool = True):
     return y
 
 
+def _two_sum(a, b):
+    """s = fl(a + b) and its rounding error: a + b = s + e exactly."""
+    s = a + b
+    bp = s - a
+    return s, (a - (s - bp)) + (b - bp)
+
+
+def _two_prod(a, b):
+    """p = fl(a * b) and its rounding error (Dekker's splitting; the kernel
+    takes the error with one FMA)."""
+    p = a * b
+
+    def split(v):
+        c = 134217729.0 * v  # 2^27 + 1
+        hi = c - (c - v)
+        return hi, v - hi
+
+    ah, al = split(a)
+    bh, bl = split(b)
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def _mac_comp(hi, lo, a, b):
+    """(hi, lo) += a * b, compensated: both rounding errors go to lo."""
+    p, pe = _two_prod(a, b)
+    hi, e = _two_sum(hi, p)
+    return hi, lo + (e + pe)
+
+
 def batched_trsv_blocked_reference(lu, b, lower: bool = True, block: int = 32,
                                    near: int = 2):
     """Plain PyTorch in the kernel's order and precision: the sweep in blocks
@@ -145,12 +176,14 @@ def batched_trsv_blocked_reference(lu, b, lower: bool = True, block: int = 32,
     ``near`` + 1 blocks back, with x as the other warps see it: rounded to
     the working dtype), then against the ``near`` nearest blocks' columns
     (with the solver's unrounded float64 x), then the substitution inside
-    the block. The upper sweep runs from the last block down and multiplies
-    by the reciprocal of the stored pivot; float64 fronts add one Newton
-    step on the quotient (the kernel fuses its two multiply-adds, this does
-    not). The result is rounded to the working dtype once."""
+    the block; for float64 fronts those last two sums are compensated, a
+    (hi, lo) pair per row, as the kernel's solver carries them. The upper
+    sweep runs from the last block down and multiplies by the reciprocal of
+    the stored pivot; float64 fronts add one Newton step on the quotient
+    (the kernel fuses its two multiply-adds, this does not). The result is
+    rounded to the working dtype once."""
     m = lu.shape[-1]
-    newton = lu.dtype == torch.float64
+    newton = comp = lu.dtype == torch.float64
     # both sweeps in a logical index that counts from the end they start at
     M = (lu if lower else lu.flip(1, 2)).double()
     rhs = (b if lower else b.flip(1)).double()
@@ -161,9 +194,15 @@ def batched_trsv_blocked_reference(lu, b, lower: bool = True, block: int = 32,
         f1 = max(r0 - near * block, 0)
         far = rhs[:, r0:r1] - torch.einsum("nij,nj->ni", M[:, r0:r1, :f1],
                                            x_seen[:, :f1])
-        acc = far - torch.einsum("nij,nj->ni", M[:, r0:r1, f1:r0], x[:, f1:r0])
+        if comp:
+            acc, lo = far.clone(), torch.zeros_like(far)
+            for j in range(f1, r0):
+                acc, lo = _mac_comp(acc, lo, -M[:, r0:r1, j], x[:, j, None])
+        else:
+            acc = far - torch.einsum("nij,nj->ni", M[:, r0:r1, f1:r0],
+                                     x[:, f1:r0])
         for k in range(r0, r1):
-            xk = acc[:, k - r0]
+            xk = acc[:, k - r0] + lo[:, k - r0] if comp else acc[:, k - r0]
             if not lower:
                 d = M[:, k, k]
                 r = 1.0 / d
@@ -171,7 +210,12 @@ def batched_trsv_blocked_reference(lu, b, lower: bool = True, block: int = 32,
                 if newton:
                     xk = xk + (v - d * xk) * r
             x[:, k] = xk
-            acc[:, k + 1 - r0:] -= M[:, k + 1:r1, k] * xk[:, None]
+            if comp:
+                acc[:, k + 1 - r0:], lo[:, k + 1 - r0:] = _mac_comp(
+                    acc[:, k + 1 - r0:], lo[:, k + 1 - r0:],
+                    -M[:, k + 1:r1, k], xk[:, None])
+            else:
+                acc[:, k + 1 - r0:] -= M[:, k + 1:r1, k] * xk[:, None]
         x_seen[:, r0:r1] = x[:, r0:r1].to(b.dtype).double()
     out = x_seen.to(b.dtype)
     return out if lower else out.flip(1)

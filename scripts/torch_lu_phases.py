@@ -8,9 +8,9 @@ Needs a CUDA device (H100) and nvcc. Builds an instrumented copy of
 thread 0 of block 0 reads ``clock64()`` at each phase boundary of every
 panel step (panel load, panel factor, panel store, U12 solve, trailing
 update, cluster barrier, write-back) and the sums are read back after one
-launch per float32 level shape of the 64x64 cavity and 48x48 buoyant
-trees. Prints the cycles of each phase and the factor phase's cycles per
-column. The instrumented build is for this breakdown only; its stores to
+launch per level shape of the 64x64 cavity and 48x48 buoyant trees (the
+kernel computes in float64; float32 fronts reach it promoted). Prints the
+cycles of each phase and the factor phase's cycles per column. The instrumented build is for this breakdown only; its stores to
 the counters slow it slightly.
 
 Variants (text substitutions in the copy, each printed as its own table;
@@ -18,7 +18,6 @@ their results are wrong and only their cycles count):
   recip    one division per column step (l = v * (1 / piv))
   slot0    only slot 0 of each thread's panel rows is updated
   warp0    only warp 0 (the pivot rows) updates its panel rows
-  nb16     float32 panel width 16 instead of 32
 """
 
 import argparse
@@ -47,8 +46,6 @@ VARIANTS = {
                "          if (s == 0 && r > k && r < rows) {\n            const T l")],
     "warp0": [("          if (r > k && r < rows) {\n            const T l",
                "          if (tid < 32 && r > k && r < rows) {\n            const T l")],
-    "nb16": [("struct Cfg<float> {\n  static constexpr int NB = 32;",
-              "struct Cfg<float> {\n  static constexpr int NB = 16;")],
 }
 
 
@@ -100,16 +97,16 @@ def build(variant):
 
 def run(variant):
     lib = build(variant)
-    fn = lib.batched_lu_f32
+    fn = lib.batched_lu_f64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int, ctypes.c_double, ctypes.c_void_p]
     counts = (ctypes.c_longlong * 8)()
-    print(f"== variant {variant}: cycles of block 0 per launch, float32")
+    print(f"== variant {variant}: cycles of block 0 per launch, float64")
     for nn, m in SHAPES:
         rng = np.random.default_rng(m)
         A = rng.standard_normal((nn, m, m))
         A[:, np.arange(m), np.arange(m)] += 2.0 * m
-        A = torch.as_tensor(A, dtype=torch.float32, device="cuda")
+        A = torch.as_tensor(A, dtype=torch.float64, device="cuda")
         out = torch.empty_like(A)
         lib.read_phases(counts)
         before = list(counts)

@@ -128,12 +128,14 @@ VE_LEVELS = [(80, 142), (126, 192), (64, 178), (32, 150), (16, 214),
                          + [(1, 2), (1, 1000)])
 def test_launch_plan_fits_the_card(nn, m, dtype):
     """The cluster fills at most the 132 SMs, the panel rows fit the block
-    (two rows a thread) and the shared memory fits one CTA."""
+    (two rows a thread) and the shared memory fits one CTA; float32 fronts
+    take the float64 kernel's plan (the kernel computes in float64)."""
     cluster, nb, threads, smem = _plan(nn, m, dtype)
     assert cluster in (1, 2, 4, 8, 16)
     assert cluster == 1 or nn * cluster <= 132
     assert cluster == 1 or m > nb
-    assert nb == (32 if dtype == torch.float32 else 16)
+    assert nb == 16
+    assert (cluster, nb, threads, smem) == _plan(nn, m, torch.float64)
     assert threads in (128, 256, 512) and m <= 2 * threads
     assert smem <= MAX_SMEM
 
@@ -142,7 +144,7 @@ def test_launch_plan_fills_the_top_levels():
     """The top levels of the trees get more than one CTA per front."""
     assert [_plan(nn, m, torch.float32)[0] for nn, m in BUOYANT_LEVELS] == \
         [2, 1, 2, 4, 8, 16, 16, 16, 16]
-    assert _plan(1, 32, torch.float32)[0] == 1  # a single panel
+    assert _plan(1, 16, torch.float32)[0] == 1  # a single panel
 
 
 @pytest.mark.gpu

@@ -194,7 +194,15 @@ EXPORTS = {
                 "tie_fluid_shell", "FilmHeight", "FilmParticles",
                 "FilmPressure", "ShellEnergy", "ShellSpecies",
                 "LubPorousSink", "PorousShellClosed", "PorousShellGasN",
-                "PorousShellOpen", "PorousShellStackLayer"],
+                "PorousShellOpen", "PorousShellStackLayer",
+                # EM, acoustics, electrochemistry, non-Fickian species flux
+                # and the scalar transport fields
+                "EMAbsorbingBC", "EMAbsorbingBCH", "EMWave", "EMWaveEdge",
+                "EMWaveH", "AcousticHelmholtz", "ProjectionEquation",
+                "SommerfeldBC", "ButlerVolmerBC", "HORFlux", "ORRFlux",
+                "Potential", "GeneralizedFickianSpecies", "HydroSpecies",
+                "StefanMaxwellSpecies", "BondEvolution", "LightIntensity",
+                "ResidenceTime"],
     "continuation": ["ArcStep", "ContinuationStep", "arclength_continue",
                      "continue_problem", "AugmentedNewtonSolver",
                      "AugmentedResult", "AugmentingCondition",

@@ -87,13 +87,17 @@ def test_eval_fieldvars_matches():
 
 
 def test_fields_outside_slice_raise():
-    """Nedelec tables raise. Hermite (H3) tables, refused before the shell
-    slice, are goma_tpu's on a bar and refused on any other family with
-    goma_tpu's ValueError. A mesh-displacement (ALE) variable, refused
-    before the slot coater's slice, evaluates (at zero displacement: F = I
-    and the reference frame equals the current one)."""
-    with pytest.raises(NotImplementedError):
-        tfields.build_block_tables("QUAD9", {"N1"}, 3)
+    """Nedelec (N1) tables, refused before the EM slice, are goma_tpu's
+    (tests/test_torch_em.py holds their field evaluation). Hermite (H3)
+    tables, refused before the shell slice, are goma_tpu's on a bar and
+    refused on any other family with goma_tpu's ValueError. A
+    mesh-displacement (ALE) variable, refused before the slot coater's
+    slice, evaluates (at zero displacement: F = I and the reference frame
+    equals the current one)."""
+    tn = tfields.build_block_tables("QUAD9", {"N1"}, 3)
+    jn = jfields.build_block_tables("QUAD9", {"N1"}, 3)
+    np.testing.assert_array_equal(tn.Nvec["N1"], jn.Nvec["N1"])
+    np.testing.assert_array_equal(tn.Ncurl["N1"], jn.Ncurl["N1"])
     with pytest.raises(ValueError, match="bar-only"):
         tfields.build_block_tables("QUAD9", {"H3"}, 3)
     tb = tfields.build_block_tables("BAR2", {"H3"}, 3).H3["H3"]

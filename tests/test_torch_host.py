@@ -419,14 +419,15 @@ def test_newton_options_outside_slice_raise(kw):
 @pytest.mark.parametrize("feature", ["edge", "interface", "overset_solid",
                                      "shell3d", "nedelec"])
 def test_problem_outside_slice_raises(feature):
-    """Problem features outside the port's slices refuse: the overset
-    coupling to a solid (``add_overset(solid=...)``) and a Nedelec (N1,
-    edge-signed) block. Edge and interface kernels and surface (shell)
-    blocks in a 3D mesh, refused before, are ported: on a small deck of
-    each, ``finalize`` builds the set (or the surface block's tables) and
-    R at a seeded state is goma_tpu's within 1e-10
-    (tests/test_torch_interface.py and tests/test_torch_shell.py hold
-    every kernel against goma_tpu)."""
+    """The one Problem feature outside the port's slices refuses: the
+    overset coupling to a solid (``add_overset(solid=...)``). Edge and
+    interface kernels, surface (shell) blocks in a 3D mesh and Nedelec
+    (N1, edge-signed) blocks, refused before, are ported: on a small deck
+    of each (for N1 both parts of ``EMWaveEdge`` on a TRI6 mesh, whose
+    elements carry edge signs), ``finalize`` builds the set (or the
+    block's tables) and R at a seeded state is goma_tpu's within 1e-10
+    (tests/test_torch_interface.py, tests/test_torch_shell.py and
+    tests/test_torch_em.py hold every kernel against goma_tpu)."""
     mesh_m, fem, phys = TORCH_PKG
     if feature == "overset_solid":
         mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
@@ -435,19 +436,6 @@ def test_problem_outside_slice_raises(feature):
         with pytest.raises(NotImplementedError, match="later slice"):
             prob.add_overset(1, 0, phys.OversetNoSlip(dim=2),
                              solid=(2, "top"))
-        return
-    if feature == "nedelec":
-        from goma_tpu_torch.fem.equations import Equation
-
-        class EdgeField(Equation):
-            def residual(self, fv, mat, params):
-                raise AssertionError("not reached")
-
-        mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
-        prob = fem.Problem(mesh, [EdgeField("e_edge", 1, "N1")], {},
-                           device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            prob.finalize()
         return
     import torch
 
@@ -468,6 +456,13 @@ def test_problem_outside_slice_raises(feature):
             prob = fem.Problem(mesh, [[phys.Energy(interp="Q1")],
                                       [phys.Energy(interp="Q1")]], {"k": 1.0},
                                **cpu(pkg))
+        elif feature == "nedelec":
+            mesh = mesh_m.rectangle_mesh(2, 2, elem="TRI6")
+            prob = fem.Problem(mesh, [phys.EMWaveEdge("real", 2.0),
+                                      phys.EMWaveEdge("imag", 2.0)],
+                               {"sigma_em": 0.3, "J_im": (0.4, -0.2)},
+                               **cpu(pkg))
+            prob.add_dirichlet("left", "em_edge_real", 0, 0.0)
         elif feature == "edge":
             mesh = mesh_m.box_mesh(1, 1, 1, elem="HEX27")
             prob = fem.Problem(mesh, [phys.Energy(interp="Q2")], {"k": 1.0},
@@ -482,6 +477,8 @@ def test_problem_outside_slice_raises(feature):
                                       phys.InterfaceExchange("temperature",
                                                              coeff=3.0))
         prob.finalize()
+        if feature == "nedelec":
+            assert prob.dofmap.blocks[0].edge_signs is not None
         x = np.random.default_rng(2).standard_normal(prob.dofmap.n_dof)
         if pkg is TORCH_PKG:
             R.append(prob.residual(torch.as_tensor(x), prob.base_params()).numpy())

@@ -153,6 +153,45 @@ def test_blocked_reference_float32_is_as_accurate_as_the_twin(nn, m, lower):
     assert k64 <= 2.0 * max(t64, 2.0 ** -24)
 
 
+def _extended_substitution(lu, b, lower):
+    """The substitution in numpy's extended precision (longdouble)."""
+    L = lu.numpy().astype(np.longdouble)
+    x = np.zeros(b.shape, dtype=np.longdouble)
+    bb = b.numpy().astype(np.longdouble)
+    m = bb.shape[1]
+    for i in (range(m) if lower else range(m - 1, -1, -1)):
+        if lower:
+            x[:, i] = bb[:, i] - np.sum(L[:, i, :i] * x[:, :i], axis=1)
+        else:
+            x[:, i] = (bb[:, i] - np.sum(L[:, i, i + 1:] * x[:, i + 1:],
+                                         axis=1)) / L[:, i, i]
+    return x
+
+
+@pytest.mark.parametrize("lower", [True, False])
+@pytest.mark.parametrize("nn,m", [(16, 116), (8, 142), (4, 86), (1, 406)])
+def test_blocked_reference_float64_is_as_accurate_as_the_twin(nn, m, lower):
+    """The kernel's order for float64 fronts (compensated solver sums): on
+    LUs of weakly weighted fronts (growth up to ~120) the float64 result is
+    at most twice as far from the extended-precision substitution as the
+    float64 twin's (``chip_smoke.py``'s float64 gate)."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu_reference
+
+    rng = np.random.default_rng(500 + m)
+    A = rng.standard_normal((nn, m, m)) + np.sqrt(m) * np.eye(m)
+    lu = batched_lu_reference(torch.as_tensor(A))
+    b = torch.as_tensor(rng.standard_normal((nn, m)))
+    ext = _extended_substitution(lu, b, lower)
+
+    def dist(x):
+        return float(np.abs(x.numpy().astype(np.longdouble) - ext).max()
+                     / np.abs(ext).max())
+
+    got = batched_trsv_blocked_reference(lu, b, lower=lower)
+    twin = batched_trsv_reference(lu, b, lower=lower)
+    assert dist(got) <= 2.0 * max(dist(twin), 2.0 ** -52)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("nn,m", CAVITY_LEVELS + BUOYANT_LEVELS + VE_LEVELS + PLAN_EDGES)
 def test_plan_fits_the_card(nn, m, dtype):
