@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Thirty-two main paths of the three
+failure and when CUDA is unavailable. Thirty-six main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -22,7 +22,9 @@ channel's (phases 36-37) two rungs; the lid-speed continuation of the
 rungs (phases 45-46); the 64x64 thermal slider bearing (phase 48) and
 drying film (phase 49) on 3D surface shells, each on both rungs; the
 128x128 edge-element cavity (phase 51) and the 160x32 nodal waveguide
-(phase 52), each on both rungs; the bordered solver's ``ndlu`` base on the 20x10
+(phase 52), each on both rungs; the 128x64 conforming FSI column (phase
+54) and the 128x128 Richards infiltration (phase 55), each on both rungs;
+the bordered solver's ``ndlu`` base on the 20x10
 cylinder (phase 47) is read the same way as a cross-check, not a main
 path; then goma_tpu's other preconditioners and linear
 solvers, which run no hand kernel (their stages are torch ops): every
@@ -414,9 +416,46 @@ counts under it. Phases:
     elements, acoustics, electrode kinetics, species flux models and the
     scalar transport fields) at their own sizes on the card: each test's
     own gate, goma_tpu's Newton count and its readings within
-    EM_SMALL_RTOL.
+    EM_SMALL_RTOL;
+54. the conforming FSI column (``scripts/solid_decks.py``: a Stokes fluid
+    on [0, 1]^2 pressurized by ``FlowPressure`` pushes a Q2 solid on
+    [1, 2] x [0, 1] through ``tie_fluid_solid``; 128x64 QUAD9, 70,789
+    dof, row injections, so the full prep and the ELL operator) under
+    bench._cavity_opts(kind, tol=1e-9, max_iter=12) restated, float64
+    Jacobian: (a) the linear solid at P0 = 0.2 on ``tpu_direct`` against
+    the exact uniaxial-strain displacement (within 2e-5 P0), the tree,
+    the launches and x against goma_tpu's, and the kernels against
+    their plain versions on the fronts of its timed solve's one
+    factorization and on one solve's substitutions; (b) the St.
+    Venant-Kirchhoff solid at P0 = 2 on ``gmres+ndlu`` then
+    ``tpu_direct``: the tree against goma_tpu's record (``SOLID_REF``,
+    from scripts/solid_reference.py) before any solve; the kernels on its
+    real fronts at x = 0; a warm-up solve, ``reset_lagged()``, a timed
+    solve with the counts set to 0 just before and read just after;
+    goma_tpu's Newton count (exactly on ``tpu_direct``, +-1 on
+    ``gmres+ndlu``), x at 24 dofs within SOLID_X_RTOL of max |x| from
+    goma_tpu's rung and its float64 solution; the launch identities; the
+    kernels on the timed run's first and last factorization;
+55. the Richards infiltration slab (Celia et al.'s van Genuchten soil,
+    Q2 ``PorousFlow`` on a 128x128 QUAD9 100 cm square, 66,049 dof),
+    thirty backward-Euler steps from dt = 50 s without adaptation, 40
+    Newton iterations allowed a step, on both rungs (the transient
+    driver; the wetting front moves about five elements): the tree
+    against goma_tpu's; the kernels on its real fronts at x = 0;
+    ``reset_lagged()`` and the timed run (no warm-up: it would double the
+    phase) with the counts set to 0 just before and read just after;
+    goma_tpu's step records (t, dt and the Newton count of every step,
+    exactly on ``tpu_direct``, +-1 a step on ``gmres+ndlu``), x at 24 dofs
+    and the head down the wetted top within SOLID_X_RTOL of max |x|, the
+    front's depth goma_tpu's; the launch identities; the kernels on the
+    timed run's first and last factorization;
+56. goma_tpu's tests' decks of solid mechanics and porous media
+    (``solid_decks.SMALL``) at their own sizes on cuda and on cpu: each
+    test's own gate, goma_tpu's Newton count, its readings within
+    SOLID_SMALL_RTOL on the card, and the same Newton count and x within
+    SOLID_SMALL_X_TOL on both devices.
 
-Each of phases 39-53 prints its time, and the run its total, before the
+Each of phases 39-56 prints its time, and the run its total, before the
 last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
 power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -983,6 +1022,22 @@ def timed_build(name):
     return time.perf_counter() - t0, report
 
 
+def build_kernels():
+    """Phase 1: build every kernel, all nvcc runs started together, and
+    load each. Returns {name: (seconds, nvcc/ptxas report)}."""
+    from goma_tpu_torch import cuda_build
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
+    for name, (sec, report) in builds.items():
+        cuda_build.load(name)
+        log(f"build: {name}.cu in {sec:.2f} s")
+        log(report)
+    log(f"build: all {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    return builds
+
+
 def median_ms(fn, reps):
     """Median of per-call CUDA-event times (ms) after one warm-up call."""
     fn()
@@ -1043,7 +1098,7 @@ def lu_shapes(shapes, label, time_twin):
             _, _, a_err, rel = check_kernel(A, f"{label} {dt} ({nn},{m})")
             max_abs = max(max_abs, a_err)
             k_ms = median_ms(lambda: batched_lu(A), 20)
-            p_ms = median_ms(lambda: batched_lu_reference(A), 5) if time_twin \
+            p_ms = median_ms(lambda: batched_lu_reference(A), 3) if time_twin \
                 else float("nan")
             # the library's unpivoted batched LU: no GESP boost, so it
             # computes the same function only where no pivot is boosted
@@ -6017,11 +6072,784 @@ def em_small_phase():
 
 
 
+# ---- phases 54-56: solid mechanics and porous media
+FSI_NX, FSI_NY = 128, 64
+RICH_N = 128
+FSI_P0 = {"linear": 0.2, "nonlinear": 2.0}
+# goma_tpu's record of the 128x64 FSI column (run (a) on tpu_direct, run
+# (b) on both device rungs and on the float64 host direct rung), of the
+# 128x128 Richards slab on both rungs and of the small decks
+# (``python3 scripts/solid_reference.py --part fsi --nx 128 --ny 64``,
+# ``GOMA_BENCH_BUDGET_S=100000 ... --part richards --n 128`` and ``--part
+# small``; goma_tpu on a CPU, float64 state and Jacobian, float32 NDLU
+# factors)
+SOLID_REF = {'fsi': {'linear': {'tpu_direct': {'exact_err': 8.472046397756117e-10,
+                                   'levels': [[346, 171], [256, 192],
+                                              [128, 76], [64, 102], [32, 151],
+                                              [16, 186], [8, 224], [4, 232],
+                                              [2, 597], [1, 348]],
+                                   'linear': [1],
+                                   'newton': 1,
+                                   'x_max': 0.20000001250681648,
+                                   'x_norm': 13.013700267877713,
+                                   'x_samples': [0.0, 0.006624999262164813,
+                                                 3.586689221976906e-15,
+                                                 0.003812499461014706,
+                                                 -1.1040004385694801e-13,
+                                                 7.512757704871498e-15,
+                                                 -1.8149078416870679e-12,
+                                                 8.612670522297762e-15,
+                                                 0.002874999564930794,
+                                                 -1.3086925774761838e-13,
+                                                 7.943817573183812e-15,
+                                                 0.004687499350601976,
+                                                 6.55505887490599e-14,
+                                                 2.877691441855707e-12,
+                                                 4.30025517065789e-15,
+                                                 0.19999999999983975,
+                                                 0.0037499994427075997,
+                                                 -1.815214667220021e-14,
+                                                 0.0009374998470159099,
+                                                 -1.1219317241516755e-11,
+                                                 0.1999999999997886,
+                                                 1.1883437744032404e-12,
+                                                 2.0583740870900262e-15,
+                                                 0.0]}},
+         'n_dof': 70789,
+         'nnz': 2562463,
+         'nonlinear': {'direct': {'newton': 4,
+                                  'x_max': 2.000000000000023,
+                                  'x_norm': 130.1827984557997,
+                                  'x_samples': [0.0, 0.07653247975422267,
+                                                7.432002755383119e-18,
+                                                0.044042276084977225,
+                                                6.895052735956519e-17,
+                                                5.934136954317094e-17,
+                                                1.9977803133670042e-17,
+                                                -1.410546818399785e-16,
+                                                0.033212208195228736,
+                                                1.0524086597168907e-16,
+                                                2.3949359136604777e-16,
+                                                0.05415033944874252,
+                                                -1.6214183926750555e-16,
+                                                -5.410065167024401e-17,
+                                                -2.2020420822386082e-17,
+                                                1.9999999999999998,
+                                                0.04332027155899406,
+                                                -1.3236827215235599e-16,
+                                                0.010830067889748503,
+                                                2.0746016217053804e-17, 2.0,
+                                                -2.6739957879441885e-17,
+                                                -2.056130833488359e-17,
+                                                -8.271806125530277e-25]},
+                       'gmres+ndlu': {'dx_direct': 2.4516041280397687e-10,
+                                      'levels': [[346, 171], [256, 192],
+                                                 [128, 76], [64, 102],
+                                                 [32, 151], [16, 186],
+                                                 [8, 224], [4, 232], [2, 597],
+                                                 [1, 348]],
+                                      'linear': [1, 7, 8, 6],
+                                      'newton': 4,
+                                      'x_max': 2.000000000002329,
+                                      'x_norm': 130.1827984559435,
+                                      'x_samples': [0.0, 0.07653248020245987,
+                                                    9.766198993045435e-18,
+                                                    0.04404227657529805,
+                                                    7.558582041992336e-17,
+                                                    4.5219282314300865e-17,
+                                                    -1.1462960071407889e-10,
+                                                    -1.4006539973854474e-16,
+                                                    0.033212208491854425,
+                                                    1.125193817007855e-16,
+                                                    2.2829336519280056e-16,
+                                                    0.054150339580364096,
+                                                    -1.6248330109276052e-16,
+                                                    2.820904095550411e-10,
+                                                    -2.2601118415782224e-17,
+                                                    2.0000000000000004,
+                                                    0.04332027153410206,
+                                                    -1.2731904722973353e-16,
+                                                    0.010830067961857058,
+                                                    -3.6120606289264157e-10,
+                                                    2.0000000000000004,
+                                                    8.847181778864538e-11,
+                                                    -2.1970554472934198e-17,
+                                                    0.0]},
+                       'tpu_direct': {'dx_direct': 3.74700270810986e-16,
+                                      'levels': [[346, 171], [256, 192],
+                                                 [128, 76], [64, 102],
+                                                 [32, 151], [16, 186],
+                                                 [8, 224], [4, 232], [2, 597],
+                                                 [1, 348]],
+                                      'linear': [1, 1, 1, 1],
+                                      'newton': 4,
+                                      'x_max': 2.0000000000000235,
+                                      'x_norm': 130.1827984557997,
+                                      'x_samples': [0.0, 0.07653247975422192,
+                                                    1.1681188029523921e-17,
+                                                    0.04404227608497666,
+                                                    7.268603744878779e-17,
+                                                    6.733717998364271e-17,
+                                                    2.2061460479016005e-17,
+                                                    -1.3634985437651783e-16,
+                                                    0.03321220819522828,
+                                                    1.0844621047106377e-16,
+                                                    2.346346274660119e-16,
+                                                    0.05415033944874184,
+                                                    -1.5522770149088354e-16,
+                                                    -4.814448938675374e-17,
+                                                    -2.1994101429242512e-17,
+                                                    2.0, 0.043320271558993484,
+                                                    -1.3248913565950642e-16,
+                                                    0.010830067889748343,
+                                                    1.3762511123789939e-18,
+                                                    2.0,
+                                                    -2.370469233560564e-17,
+                                                    -2.3571315454656113e-17,
+                                                    0.0]}}},
+ 'richards': {'gmres+ndlu': {'failures': 0,
+                             'front_depth': 1.171875,
+                             'levels': [[384, 165], [256, 192], [128, 54],
+                                        [64, 77], [32, 84], [16, 143],
+                                        [8, 183], [4, 272], [2, 165],
+                                        [1, 257]],
+                             'profile': [-75.0, -86.75973864241962,
+                                         -123.23454998761714,
+                                         -371.5606268572672,
+                                         -1338.5659704667999,
+                                         -1009.8888291540188,
+                                         -1010.4477039782452,
+                                         -1001.7048965920745,
+                                         -999.6029740336018,
+                                         -1000.1852137474672,
+                                         -999.8712973581402,
+                                         -1000.0199476054023,
+                                         -999.9794827729788,
+                                         -1000.0025977151142,
+                                         -999.9969977423364,
+                                         -1000.0003531342162,
+                                         -999.9995845867461,
+                                         -1000.000044317029,
+                                         -999.9999468717513,
+                                         -1000.0000050024693,
+                                         -999.9999937589572,
+                                         -1000.0000005122174,
+                                         -999.9999993239024,
+                                         -1000.0000000475862,
+                                         -999.9999999327034,
+                                         -1000.0000000037784,
+                                         -999.9999999940875,
+                                         -1000.0000000001778,
+                                         -999.9999999996161,
+                                         -999.9999999999802,
+                                         -1000.0000000000025,
+                                         -999.9999999999916,
+                                         -1000.0000000000069,
+                                         -999.9999999999978,
+                                         -1000.0000000000014,
+                                         -999.9999999999993, -1000.0,
+                                         -999.9999999999999,
+                                         -999.9999999999999, -1000.0,
+                                         -999.9999999999998, -75.0,
+                                         -86.75973864241813,
+                                         -123.23454998761963,
+                                         -371.5606268572286,
+                                         -1338.5659704667328,
+                                         -1009.888829154043,
+                                         -1010.4477039782164,
+                                         -1001.7048965920775,
+                                         -999.6029740335981,
+                                         -1000.1852137474671,
+                                         -999.8712973581394,
+                                         -1000.0199476054024,
+                                         -999.9794827729788,
+                                         -1000.0025977151142,
+                                         -999.9969977423364,
+                                         -1000.0003531342161,
+                                         -999.9995845867461,
+                                         -1000.0000443170289,
+                                         -999.9999468717513,
+                                         -1000.0000050024693,
+                                         -999.9999937589573,
+                                         -1000.0000005122175,
+                                         -999.9999993239023,
+                                         -1000.0000000475862,
+                                         -999.9999999327034,
+                                         -1000.0000000037782,
+                                         -999.9999999940875,
+                                         -1000.0000000001778,
+                                         -999.9999999996161,
+                                         -999.9999999999802,
+                                         -1000.0000000000025,
+                                         -999.9999999999917,
+                                         -1000.000000000007,
+                                         -999.9999999999981,
+                                         -1000.0000000000017,
+                                         -999.9999999999993,
+                                         -1000.0000000000001,
+                                         -999.9999999999999, -1000.0, -1000.0,
+                                         -1000.0],
+                             'steps': [[12.5, 12.5, 19, True],
+                                       [18.75, 6.25, 13, True],
+                                       [21.875, 3.125, 11, True],
+                                       [25.0, 3.125, 5, True],
+                                       [28.125, 3.125, 4, True],
+                                       [31.25, 3.125, 5, True],
+                                       [34.375, 3.125, 4, True],
+                                       [37.5, 3.125, 4, True],
+                                       [40.625, 3.125, 4, True],
+                                       [43.75, 3.125, 3, True],
+                                       [46.875, 3.125, 4, True],
+                                       [50.0, 3.125, 5, True],
+                                       [53.125, 3.125, 4, True],
+                                       [56.25, 3.125, 6, True],
+                                       [59.375, 3.125, 5, True],
+                                       [62.5, 3.125, 5, True],
+                                       [65.625, 3.125, 5, True],
+                                       [68.75, 3.125, 5, True],
+                                       [71.875, 3.125, 5, True],
+                                       [75.0, 3.125, 4, True],
+                                       [78.125, 3.125, 4, True],
+                                       [81.25, 3.125, 4, True],
+                                       [84.375, 3.125, 4, True],
+                                       [87.5, 3.125, 4, True],
+                                       [90.625, 3.125, 4, True],
+                                       [93.75, 3.125, 5, True],
+                                       [96.875, 3.125, 5, True],
+                                       [100.0, 3.125, 5, True],
+                                       [103.125, 3.125, 6, True],
+                                       [106.25, 3.125, 6, True]],
+                             'x_max': 1338.5659704668549,
+                             'x_norm': 255496.4845051551,
+                             'x_samples': [-1000.0, -1000.0, -1000.0, -1000.0,
+                                           -999.9999999999999, -1000.0,
+                                           -1000.0, -1000.0, -1000.0, -1000.0,
+                                           -1000.0, -999.9999999999998,
+                                           -1000.0, -1000.0, -1000.0, -1000.0,
+                                           -1000.0, -1000.0, -1000.0, -1000.0,
+                                           -999.9999999999981,
+                                           -999.9999993239024,
+                                           -1000.0199476054025, -75.0]},
+              'n_dof': 66049,
+              'nnz': 1050625,
+              'tpu_direct': {'failures': 0,
+                             'front_depth': 2.734375,
+                             'levels': [[384, 165], [256, 192], [128, 54],
+                                        [64, 77], [32, 84], [16, 143],
+                                        [8, 183], [4, 272], [2, 165],
+                                        [1, 257]],
+                             'profile': [-75.0, -79.17021221386406,
+                                         -84.53379340807328,
+                                         -91.77046540492621,
+                                         -102.21059431267525,
+                                         -120.25909361209958,
+                                         -162.64841709214053,
+                                         -375.28363888235214,
+                                         -1049.8727299805169,
+                                         -1012.114074774711,
+                                         -996.4667202261852,
+                                         -999.8865446167553,
+                                         -999.6615343212588,
+                                         -999.9735868817194,
+                                         -999.9789626569102,
+                                         -999.9979380832265,
+                                         -999.9989261304869,
+                                         -999.9998661199096,
+                                         -999.9999544440208,
+                                         -999.9999921659044,
+                                         -999.9999985609574,
+                                         -999.9999995630972,
+                                         -1000.0000000015415,
+                                         -999.9999999739069,
+                                         -1000.0000000074581,
+                                         -999.9999999981741,
+                                         -1000.0000000011383,
+                                         -999.9999999998613,
+                                         -1000.0000000001273,
+                                         -999.9999999999902,
+                                         -1000.0000000000116,
+                                         -999.9999999999992,
+                                         -1000.0000000000006,
+                                         -999.9999999999998,
+                                         -999.9999999999998, -1000.0,
+                                         -999.9999999999998, -1000.0,
+                                         -999.9999999999998, -1000.0,
+                                         -999.9999999999998, -75.0,
+                                         -79.17021221386406,
+                                         -84.53379340807327,
+                                         -91.77046540492607,
+                                         -102.21059431267516,
+                                         -120.25909361209948,
+                                         -162.64841709214016,
+                                         -375.2836388823481,
+                                         -1049.872729980516,
+                                         -1012.1140747747113,
+                                         -996.466720226185, -999.8865446167553,
+                                         -999.6615343212586,
+                                         -999.9735868817193,
+                                         -999.9789626569101,
+                                         -999.9979380832265,
+                                         -999.9989261304868,
+                                         -999.9998661199097,
+                                         -999.9999544440209,
+                                         -999.9999921659044,
+                                         -999.9999985609575,
+                                         -999.9999995630974,
+                                         -1000.0000000015418,
+                                         -999.9999999739073,
+                                         -1000.0000000074585,
+                                         -999.9999999981741,
+                                         -1000.0000000011382,
+                                         -999.9999999998613,
+                                         -1000.0000000001276,
+                                         -999.9999999999903,
+                                         -1000.0000000000117,
+                                         -999.9999999999992,
+                                         -1000.0000000000006,
+                                         -999.9999999999998,
+                                         -999.9999999999999, -1000.0, -1000.0,
+                                         -1000.0, -1000.0, -1000.0, -1000.0],
+                             'steps': [[25.0, 25.0, 14, True],
+                                       [50.0, 25.0, 11, True],
+                                       [75.0, 25.0, 15, True],
+                                       [100.0, 25.0, 17, True],
+                                       [125.0, 25.0, 5, True],
+                                       [137.5, 12.5, 20, True],
+                                       [150.0, 12.5, 5, True],
+                                       [162.5, 12.5, 4, True],
+                                       [175.0, 12.5, 4, True],
+                                       [187.5, 12.5, 5, True],
+                                       [200.0, 12.5, 5, True],
+                                       [212.5, 12.5, 4, True],
+                                       [225.0, 12.5, 4, True],
+                                       [237.5, 12.5, 4, True],
+                                       [250.0, 12.5, 4, True],
+                                       [262.5, 12.5, 6, True],
+                                       [275.0, 12.5, 4, True],
+                                       [287.5, 12.5, 4, True],
+                                       [300.0, 12.5, 4, True],
+                                       [312.5, 12.5, 4, True],
+                                       [325.0, 12.5, 3, True],
+                                       [337.5, 12.5, 4, True],
+                                       [350.0, 12.5, 4, True],
+                                       [362.5, 12.5, 4, True],
+                                       [375.0, 12.5, 4, True],
+                                       [387.5, 12.5, 4, True],
+                                       [400.0, 12.5, 4, True],
+                                       [412.5, 12.5, 4, True],
+                                       [425.0, 12.5, 4, True],
+                                       [437.5, 12.5, 4, True]],
+                             'x_max': 1049.872729980527,
+                             'x_norm': 253140.11953929614,
+                             'x_samples': [-1000.0, -1000.0, -1000.0, -1000.0,
+                                           -999.9999999999998, -1000.0,
+                                           -1000.0, -1000.0, -1000.0,
+                                           -999.9999999999998, -1000.0,
+                                           -999.9999999999998,
+                                           -999.9999999999998,
+                                           -999.9999999999999,
+                                           -999.9999999999998,
+                                           -999.9999999999998,
+                                           -999.9999999999998, -1000.0,
+                                           -1000.0, -1000.0,
+                                           -999.9999999999998,
+                                           -1000.0000000015418,
+                                           -999.8865446167554, -75.0]}},
+ 'small': {'bar_vibration': {'newton': 240,
+                             'reading': [-0.0008136277530390386]},
+           'contact_floor': {'newton': 2, 'reading': [-0.05008000000000002]},
+           'contact_separated': {'newton': 1,
+                                 'reading': [0.05000000000000016]},
+           'coulomb_acoustic': {'newton': 2,
+                                'reading': [0.0018357679125827677]},
+           'coulomb_block': {'newton': 2, 'reading': [0.0038350298472111174]},
+           'elec_capacitor': {'newton': 2, 'reading': [-9.000000000000007]},
+           'flow_gradv_outflow': {'newton': 1,
+                                  'reading': [-5.599999999999984,
+                                              16.799999999999965]},
+           'force_sic': {'newton': 2,
+                         'reading': [0.0029945240921076402,
+                                     -0.004137344909095722]},
+           'fsi_pressurized': {'newton': 1, 'reading': [0.008000000000000037]},
+           'hyst_loop': {'newton': 0,
+                         'reading': [0.26199082252610484, 0.9999999999999997]},
+           'hyst_main_curves': {'newton': 0,
+                                'reading': [0.95, 0.19517831998159696]},
+           'hyst_richards': {'newton': 27,
+                             'reading': [0.8211989377124301,
+                                         0.6215396181456134,
+                                         0.5460186936255553,
+                                         0.7165596604542963, 0.790112128374074,
+                                         0.8752883487159192]},
+           'hyst_threshold': {'newton': 0,
+                              'reading': [0.95, 0.34972220141897714, 0.95]},
+           'kelvin_density': {'newton': 0,
+                              'reading': [0.02349997274713496,
+                                          0.02525859995188838,
+                                          0.02525859995188838]},
+           'latent_heat_slab': {'newton': 1, 'reading': [0.6250000000000041]},
+           'overset_fsi_wall': {'newton': 1, 'reading': [0.06000000000000018]},
+           'plane_strain_stretch': {'newton': 1,
+                                    'reading': [0.02000000000000001,
+                                                0.002500000000000032]},
+           'porous_flux_extraction': {'newton': 2,
+                                      'reading': [0.8571428571428551]},
+           'porous_flux_saturated': {'newton': 2,
+                                     'reading': [1.199999999999996]},
+           'porous_ls_wicking': {'newton': 2,
+                                 'reading': [2.499999999999995,
+                                             0.6999999999999978]},
+           'sink_conservation': {'newton': 44,
+                                 'reading': [0.28861309700971094,
+                                             0.2892525833331287]},
+           'sink_exponential': {'newton': 60, 'reading': [0.5402413499891561]},
+           'slope_ramp': {'newton': 3, 'reading': [0.049971414358039465]},
+           'surface_viscosity_moment': {'newton': 0,
+                                        'reading': [1.1899999999999997]},
+           'total_ale_tie': {'newton': 3, 'reading': [0.05]},
+           'traction_bar': {'newton': 1, 'reading': [0.06250000000000032]},
+           'two_phase_closed': {'newton': 203,
+                                'reading': [0.2762082310015096,
+                                            0.27620412507884995]},
+           'two_phase_hydrostatic': {'newton': 4,
+                                     'reading': [-0.9999999999999732,
+                                                 0.39999999999999997]},
+           'two_phase_numjac': {'newton': 0, 'reading': [648.0]},
+           'vnorm_leak': {'newton': 1, 'reading': [0.29999999999999993]}}}
+# x at the record's sampled dofs against goma_tpu's rung (and its float64
+# solution), max |dx| / max |x|: the rungs stop at ||R|| <= 1e-9 after
+# float32-factored steps (goma_tpu's own gmres+ndlu rung reads 2.5e-10
+# from its float64 solution on the FSI column)
+SOLID_X_RTOL = 1e-6
+# the exact uniaxial-strain displacement of run (a), relative to P0 (the
+# test's own gate)
+FSI_EXACT_RTOL = 2e-5
+# the small decks' readings against goma_tpu's, relative (float64 on both
+# sides, the same operations: within 1e-12 on the CPU), and x on cuda
+# against cpu, max |dx| / (1 + |x|)
+SOLID_SMALL_RTOL = 1e-8
+SOLID_SMALL_X_TOL = 1e-8
+
+
+def solid_namespace(device):
+    """scripts/solid_decks.py's namespace for the port on ``device``."""
+    from scripts import solid_decks
+
+    def arr(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    return solid_decks.namespace("goma_tpu_torch", torch, arr, device=device)
+
+
+def solid_setup(deck, dev, model=None):
+    """The 128x64 FSI column (``model`` "linear" or "nonlinear") or the
+    128x128 Richards slab on the card, checked against goma_tpu's dof and
+    nnz counts. Returns (problem, x0)."""
+    from scripts import solid_decks
+
+    t0 = time.perf_counter()
+    P = solid_namespace(dev)
+    ref = SOLID_REF[deck]
+    if deck == "fsi":
+        prob = solid_decks.fsi_column(P, FSI_NX, FSI_NY, model, FSI_P0[model])
+        x0 = np.zeros(prob.dofmap.n_dof)
+        what = (f"{FSI_NX}x{FSI_NY} QUAD9, Stokes Q2/Q1 fluid + {model} Q2 "
+                f"solid, P0 = {FSI_P0[model]}, {len(prob._inject_specs)} row "
+                "injections")
+    else:
+        prob, x0 = solid_decks.richards(P, RICH_N)
+        what = f"{RICH_N}x{RICH_N} QUAD9, Q2 PorousFlow (van Genuchten)"
+    log(f"{deck} setup: {what}, {prob.dofmap.n_dof} dof (goma_tpu "
+        f"{ref['n_dof']}), {prob.pattern.nnz} nnz (goma_tpu {ref['nnz']}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if (prob.dofmap.n_dof, prob.pattern.nnz) != (ref["n_dof"], ref["nnz"]):
+        raise RuntimeError(f"{deck} deck: dof or nnz count differs from "
+                           "goma_tpu's")
+    return prob, x0
+
+
+def csr_tree(prob, solver, label, direct, ref):
+    """The kernels on the tree of a deck that takes the full prep (a row
+    injection): the tree against goma_tpu's record, the front LU on its
+    real fronts at x = 0 (the full prep's values, what the first factor
+    sees) and at its level shapes, the factorization split, the gather
+    exact and timed; on ``tpu_direct`` also the substitutions of one
+    solve (``direct_tree_phase``). Returns (NDLU, the numbers the summary
+    reads)."""
+    if direct:
+        tree = direct_tree_phase(prob, solver, label)
+        nd = tree.pop("nd")
+        check_ref_levels(nd, ref, label)
+        return nd, tree
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+    vals = solver._prepare(x0, prob.base_params())[1]
+    nd = solver.precond
+    levels = check_ref_levels(nd, ref, label)
+    shapes = [(nn, m) for nn, m, _ in levels]
+    tree = {"max_abs": check_real_fronts(nd, vals, f"{label} x=0"),
+            "gather_abs": check_gathers(nd, vals, f"{label} tree")}
+    lu_abs, tree["lu_ms"] = lu_shapes(shapes, label, time_twin=True)
+    tree["max_abs"] = max(tree["max_abs"], lu_abs)
+    tree["lu_bound"] = lu_bound(shapes)
+    tree["g_times"], tree["g_bound"] = gather_times(nd, vals, f"{label} tree")
+    factor_split_ms(nd, vals, f"{label} tree")
+    return nd, tree
+
+
+def x_against(rd, ref, label, direct_rec=None):
+    """max |dx| / max |x| at the 24 sampled dofs from goma_tpu's rung (and
+    its float64 solution); raises beyond SOLID_X_RTOL."""
+    scale = (direct_rec or ref)["x_max"]
+    dx = float(np.abs(np.subtract(rd["x_samples"], ref["x_samples"])).max()
+               / scale)
+    d64 = (float(np.abs(np.subtract(rd["x_samples"],
+                                    direct_rec["x_samples"])).max() / scale)
+           if direct_rec else 0.0)
+    log(f"{label}: ||x|| {rd['x_norm']:.10g} (goma_tpu {ref['x_norm']:.10g}), "
+        f"max |x| {rd['x_max']:.6e}; x at 24 dofs max |dx| / max |x| "
+        f"{dx:.2e} from goma_tpu's rung"
+        + (f", {d64:.2e} from its float64 solution" if direct_rec else ""))
+    if max(dx, d64) > SOLID_X_RTOL:
+        raise RuntimeError(f"{label}: x {dx:.2e} / {d64:.2e} from goma_tpu's "
+                           f"> {SOLID_X_RTOL:.0e}")
+    return dx
+
+
+def fsi_phase(dev, model, kind, prob=None):
+    """Phase 54: the 128x64 conforming FSI column, run (a) (``model``
+    "linear", P0 = 0.2, ``tpu_direct`` only) or run (b) ("nonlinear",
+    P0 = 2) on ``kind``, under bench._cavity_opts(kind, tol=1e-9,
+    max_iter=12) restated, float64 Jacobian (see the module docstring).
+    Run (a) factors once a solve, at x = 0: the kernels are held against
+    their plain versions on the fronts of its timed solve's factorization
+    and on one solve's substitutions (run (b) holds them at its level
+    shapes, times them and splits the factorization)."""
+    from goma_tpu_torch.solvers import NewtonSolver
+    from scripts import solid_decks
+
+    label = f"fsi {model} {kind}"
+    t_phase = time.perf_counter()
+    ref = SOLID_REF["fsi"][model][kind]
+    if prob is None:
+        prob, _ = solid_setup("fsi", dev, model)
+    direct = kind == "tpu_direct"
+    solver = NewtonSolver(prob, (direct_opts if direct else cavity_opts)(
+        tol=1e-9, max_iter=12))
+    if solver._use_elem_mv or solver._elem_asm_only:
+        raise RuntimeError(f"{label}: a row injection must take the full prep "
+                           "and the CSR operator")
+    if model == "nonlinear":
+        nd, tree = csr_tree(prob, solver, label, direct, ref)
+    else:
+        x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+        nd = solver._direct_ndlu(solver._prepare(x0, prob.base_params())[1])
+        check_ref_levels(nd, ref, label)
+        tree = {"max_abs": 0.0, "gather_abs": 0.0, "trsv": {"max_abs": 0.0}}
+    seen = record_factor_vals(nd)
+    res, sec, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof),
+                                   prob.base_params(), label)
+    check_launches(solver, ln, len(nd.levels), label, direct=direct)
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: the solution has the wrong shape or "
+                           "non-finite values")
+    if not res.converged or res.res_norms[-1][1] > 1e-9:
+        raise RuntimeError(f"{label} did not converge to 1e-9")
+    log(f"{label}: Newton {res.iters} (goma_tpu {ref['newton']}), linear "
+        f"{res.linear_iters} (goma_tpu {ref['linear']})")
+    newton_ok = (res.iters == ref["newton"] if direct
+                 else abs(res.iters - ref["newton"]) <= 1)
+    if not newton_ok:
+        raise RuntimeError(f"{label} took {res.iters} Newton iterations, not "
+                           f"goma_tpu's {ref['newton']}"
+                           + ("" if direct else " +- 1"))
+    x_against(solid_decks.readings(x), ref, label,
+              SOLID_REF["fsi"][model].get("direct"))
+    if model == "linear":
+        P0 = FSI_P0[model]
+        eu, umax, ep = solid_decks.fsi_exact_error(prob, x, P0)
+        log(f"{label}: solid max |u - P0 (L - x)/(2G + lambda)| {eu:.3e} "
+            f"(gate {FSI_EXACT_RTOL * P0:.1e}, goma_tpu {ref['exact_err']:.3e}),"
+            f" fluid max |u| {umax:.2e}, max |p - P0| {ep:.2e}")
+        if eu > FSI_EXACT_RTOL * P0 or umax > 1e-6 or ep > 1e-6:
+            raise RuntimeError(f"{label}: not the exact uniaxial-strain "
+                               "solution with a static fluid")
+    log(f"phase 54 ({label}): {sec / max(res.iters, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    del nd.factor  # record_factor_vals's wrapper
+    if (solver._ndlu if direct else solver.precond) is not nd:
+        raise RuntimeError(f"{label}: the rung factored another NDLU")
+    # run (a): the timed solve's one factorization (the warm-up's is "first")
+    shell_kernels_after(nd, seen, tree, label, direct, prob,
+                        keys=("first", "last") if model == "nonlinear"
+                        else ("last",))
+    return {"prob": prob, "launches": ln, **tree}
+
+
+def richards_phase(dev, kind, prob=None, x0=None):
+    """Phase 55: the 128x128 Richards slab on ``kind`` (see the module
+    docstring): the transient driver with bench._cavity_opts(kind,
+    tol=1e-9, max_iter=solid_decks.RICHARDS_MAX_ITER) restated, float64
+    Jacobian. Gates: goma_tpu's step records, the end state's 24 sampled
+    dofs and its head down the wetted top (``solid_decks.profile``) within
+    SOLID_X_RTOL of max |x|, and the front's depth goma_tpu's."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+    from goma_tpu_torch.solvers.transient import TransientSolver
+    from scripts import solid_decks
+
+    label = f"richards {kind}"
+    t_phase = time.perf_counter()
+    ref = SOLID_REF["richards"][kind]
+    if prob is None:
+        prob, x0 = solid_setup("richards", dev)
+    direct = kind == "tpu_direct"
+    P = solid_namespace(dev)
+    ts = TransientSolver(prob, (direct_opts if direct else cavity_opts)(
+        tol=1e-9, max_iter=solid_decks.RICHARDS_MAX_ITER),
+        solid_decks.richards_time(P))
+    sv = ts.newton
+    nd, tree = shell_tree(prob, sv, label, direct)
+    check_ref_levels(nd, ref, label)
+    params = prob.base_params()
+    seen = record_factor_vals(nd)
+    sv.reset_lagged()
+    sv.n_factor = sv._ndlu_nfactor = sv.n_discarded = 0
+    sv.direct_log = []
+    if sv._ndlu is not None:
+        sv._ndlu.n_solve = 0
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    per_step = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ts.run(x0, params, callback=lambda t, x, xdot, res: per_step.append(res))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+          "gather": front_gather.launches}
+    check_launches(sv, ln, len(nd.levels), label, direct=direct)
+    steps = solid_decks.step_records(r)
+    nit = sum(s[2] for s in steps if s[3])
+    asm = sum(x.assembly_time for x in per_step)
+    slv = sum(x.solve_time for x in per_step)
+    for s, x in zip(r.steps, per_step):
+        log(f"{label} step t={s.t:.1f} dt={s.dt:.4g}: Newton {s.newton_iters},"
+            f" linear {x.linear_iters}")
+    log(f"{label}: {len(steps)} steps to t = {r.t:.1f} s, {r.n_failures} "
+        f"failed attempts, {nit} Newton iterations, factorizations "
+        f"{sv.n_factor + sv._ndlu_nfactor}, launches front-LU {ln['lu']} "
+        f"front-gather {ln['gather']} substitution {ln['trsv']}; asm "
+        f"{asm / max(nit, 1) * 1e3:.1f} ms + slv {slv / max(nit, 1) * 1e3:.1f}"
+        f" ms per iteration, {sec / max(nit, 1):.4f} s/iter (total "
+        f"{sec:.3f} s)")
+    rs = ref["steps"]
+    ok = (len(steps) == len(rs) and r.n_failures == ref["failures"]
+          and all(abs(a[0] - b[0]) <= 1e-9 * b[0] and a[1] == b[1] and a[3]
+                  for a, b in zip(steps, rs))
+          and all((a[2] == b[2]) if direct else abs(a[2] - b[2]) <= 1
+                  for a, b in zip(steps, rs)))
+    if not ok:
+        raise RuntimeError(f"{label}: step records {steps} (failures "
+                           f"{r.n_failures}) are not goma_tpu's {rs} "
+                           f"(failures {ref['failures']})")
+    if r.x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(r.x)):
+        raise RuntimeError(f"{label}: the end state has the wrong shape or "
+                           "non-finite values")
+    x_against(solid_decks.readings(r.x), ref, label)
+    front = solid_decks.front_depth(prob, r.x)
+    prof = solid_decks.profile(prob, r.x)
+    dp = float(np.abs(np.subtract(prof, ref["profile"])).max() / ref["x_max"])
+    log(f"{label}: head at the {len(prof)} nodes of x = 0 and x = 50 within "
+        f"{solid_decks.PROFILE_DEPTH:g} cm of the top, max |dh| / max |x| "
+        f"{dp:.2e} from goma_tpu's; heads from the top down at x = 50: "
+        + ", ".join(f"{v:.1f}" for v in prof[len(prof) // 2:]))
+    if len(prof) != len(ref["profile"]) or dp > SOLID_X_RTOL:
+        raise RuntimeError(f"{label}: the head down the wetted top is "
+                           f"{dp:.2e} from goma_tpu's > {SOLID_X_RTOL:.0e}")
+    if front != ref["front_depth"]:
+        raise RuntimeError(f"{label}: the wetting front is {front} cm deep, "
+                           f"goma_tpu's {ref['front_depth']} cm")
+    del nd.factor  # record_factor_vals's wrapper
+    shell_kernels_after(nd, seen, tree, label, direct, prob)
+    log(f"phase 55 ({label}): {sec / max(nit, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"prob": prob, "x0": x0, "launches": ln, **tree}
+
+
+def solid_small_phase(devices=("cuda", "cpu")):
+    """Phase 56: goma_tpu's tests' decks of solid mechanics and porous
+    media (``solid_decks.SMALL``: tests/test_solid.py, test_contact.py,
+    test_fsi_conforming.py, test_bc_traction.py but its air film,
+    test_overset.py's elastic wall, test_porous_sink.py,
+    test_porous_twophase.py, test_hysteresis.py, the porous decks of
+    test_ca_edge_porous.py and test_lub_film_junction.py's wicking flux) at
+    their own sizes and on their own solvers, on cuda and cpu: each deck's
+    own gate, goma_tpu's Newton count, the readings within
+    SOLID_SMALL_RTOL on the card, and the same Newton count and x within
+    SOLID_SMALL_X_TOL on both devices."""
+    from scripts import solid_decks
+
+    t0 = time.perf_counter()
+    spaces = {d: solid_namespace(torch.device(d)) for d in devices}
+    for name, deck in solid_decks.SMALL.items():
+        ref = SOLID_REF["small"][name]
+        outs = {}
+        for d, P in spaces.items():
+            t = time.perf_counter()
+            outs[d] = deck(P)
+            outs[d]["seconds"] = time.perf_counter() - t
+        out = outs[devices[0]]
+        dv = float(np.max(np.abs(np.subtract(out["reading"], ref["reading"]))
+                          / np.maximum(np.abs(ref["reading"]), 1e-300)))
+        dx = max(float(np.max(np.abs(o["x"] - out["x"])
+                              / (1.0 + np.abs(out["x"]))))
+                 for o in outs.values())
+        log(f"solid small {name}: Newton " + ", ".join(
+            f"{d} {o['newton']}" for d, o in outs.items())
+            + f" (goma_tpu {ref['newton']}), reading {out['reading']} "
+            f"(relative {dv:.2e}), x {devices} max |dx| / (1 + |x|) "
+            f"{dx:.2e}; " + ", ".join(f"{d} {o['seconds']:.2f} s"
+                                      for d, o in outs.items()))
+        if any(o["newton"] != ref["newton"] for o in outs.values()):
+            raise RuntimeError(f"solid small {name}: Newton counts "
+                               f"{[o['newton'] for o in outs.values()]} vs "
+                               f"goma_tpu's {ref['newton']}")
+        if not dv <= SOLID_SMALL_RTOL:
+            raise RuntimeError(f"solid small {name}: reading {dv:.2e} from "
+                               "goma_tpu's")
+        if not dx <= SOLID_SMALL_X_TOL:
+            raise RuntimeError(f"solid small {name}: x {dx:.2e} between "
+                               "devices")
+    log(f"phase 56 (small solid and porous decks on {' and '.join(devices)})"
+        f": {time.perf_counter() - t0:.1f} s")
+
+
+def solid_phases(dev):
+    """Phases 54-56 in order: the FSI column's run (a) and run (b) on both
+    rungs, the Richards slab on both rungs, the small decks on cuda and
+    cpu. Returns the five main paths' records (run (a), FSI ``gmres+ndlu``
+    and ``tpu_direct``, Richards ``gmres+ndlu`` and ``tpu_direct``)."""
+    t_sol = time.perf_counter()
+    fsa = fsi_phase(dev, "linear", "tpu_direct")
+    fsg = fsi_phase(dev, "nonlinear", "gmres+ndlu")
+    fsd = fsi_phase(dev, "nonlinear", "tpu_direct", fsg.pop("prob"))
+    rcg = richards_phase(dev, "gmres+ndlu")
+    rcd = richards_phase(dev, "tpu_direct", rcg.pop("prob"), rcg.pop("x0"))
+    for rec in (fsa, fsd, rcd):
+        rec.pop("prob")
+        rec.pop("x0", None)
+    solid_small_phase()
+    log(f"phases 54-56 (solid mechanics and porous media): "
+        f"{time.perf_counter() - t_sol:.1f} s; {mem_line()}")
+    return fsa, fsg, fsd, rcg, rcd
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
                          "runs the port on a GPU only)")
-    from goma_tpu_torch import cuda_build
     from goma_tpu_torch.solvers import NewtonSolver
     from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
     from goma_tpu_torch.solvers.twolevel import _saddle_mask
@@ -6032,14 +6860,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
     # ---- 1. (and 7.) build every kernel, all nvcc runs started together
-    t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
-        builds = dict(zip(KERNELS, pool.map(timed_build, KERNELS)))
-    for name, (sec, report) in builds.items():
-        cuda_build.load(name)
-        log(f"build: {name}.cu in {sec:.2f} s")
-        log(report)
-    log(f"build: all {len(KERNELS)} kernels in {time.perf_counter() - t0:.2f} s")
+    build_kernels()
 
     # ---- 2. main deck set-up (host)
     t0 = time.perf_counter()
@@ -6377,6 +7198,9 @@ def main() -> int:
     log(f"phases 51-53 (Nedelec, EM and electrochemistry): "
         f"{time.perf_counter() - t_em:.1f} s; {mem_line()}")
 
+    # ---- 54-56. solid mechanics and porous media
+    fsa, fsg, fsd, rcg, rcd = solid_phases(dev)
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -6407,7 +7231,12 @@ def main() -> int:
                 "em cavity gmres_ndlu": ecg["launches"],
                 "em cavity tpu_direct": ecd["launches"],
                 "em waveguide gmres_ndlu": ewg["launches"],
-                "em waveguide tpu_direct": ewd["launches"]}
+                "em waveguide tpu_direct": ewd["launches"],
+                "fsi linear tpu_direct": fsa["launches"],
+                "fsi gmres_ndlu": fsg["launches"],
+                "fsi tpu_direct": fsd["launches"],
+                "richards gmres_ndlu": rcg["launches"],
+                "richards tpu_direct": rcd["launches"]}
     # a small deck's launches, read as a cross-check: not a main path
     cross_checks = {"bordered ndlu 20x10": bl}
 
@@ -6453,7 +7282,10 @@ def main() -> int:
                            cg["max_abs"], cd["max_abs"], og["max_abs"],
                            od["max_abs"], sbg["max_abs"], sbd["max_abs"],
                            sfg["max_abs"], sfd["max_abs"], ecg["max_abs"],
-                           ecd["max_abs"], ewg["max_abs"], ewd["max_abs"]),
+                           ecd["max_abs"], ewg["max_abs"], ewd["max_abs"],
+                           fsa["max_abs"], fsg["max_abs"], fsd["max_abs"],
+                           rcg["max_abs"],
+                           rcd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -6485,6 +7317,8 @@ def main() -> int:
         **deck_keys("film", sfg, "lu"),
         **deck_keys("em_cavity", ecg, "lu"),
         **deck_keys("em_waveguide", ewg, "lu"),
+        **deck_keys("fsi", fsg, "lu"),
+        **deck_keys("richards", rcg, "lu"),
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -6499,7 +7333,9 @@ def main() -> int:
                            tdr["trsv"]["max_abs"], pdr["trsv"]["max_abs"],
                            cd["trsv"]["max_abs"], od["trsv"]["max_abs"],
                            sbd["trsv"]["max_abs"], sfd["trsv"]["max_abs"],
-                           ecd["trsv"]["max_abs"], ewd["trsv"]["max_abs"]),
+                           ecd["trsv"]["max_abs"], ewd["trsv"]["max_abs"],
+                           fsa["trsv"]["max_abs"], fsd["trsv"]["max_abs"],
+                           rcd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -6553,6 +7389,8 @@ def main() -> int:
         **deck_keys("film", sfd, "trsv"),
         **deck_keys("em_cavity", ecd, "trsv"),
         **deck_keys("em_waveguide", ewd, "trsv"),
+        **deck_keys("fsi", fsd, "trsv"),
+        **deck_keys("richards", rcd, "trsv"),
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -6574,7 +7412,10 @@ def main() -> int:
                            sbg["gather_abs"], sbd["gather_abs"],
                            sfg["gather_abs"], sfd["gather_abs"],
                            ecg["gather_abs"], ecd["gather_abs"],
-                           ewg["gather_abs"], ewd["gather_abs"]),
+                           ewg["gather_abs"], ewd["gather_abs"],
+                           fsa["gather_abs"], fsg["gather_abs"],
+                           fsd["gather_abs"],
+                           rcg["gather_abs"], rcd["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -6603,6 +7444,8 @@ def main() -> int:
         **deck_keys("film", sfg, "gather"),
         **deck_keys("em_cavity", ecg, "gather"),
         **deck_keys("em_waveguide", ewg, "gather"),
+        **deck_keys("fsi", fsg, "gather"),
+        **deck_keys("richards", rcg, "gather"),
     }]}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(gpu_line())

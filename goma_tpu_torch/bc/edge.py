@@ -29,6 +29,7 @@ import torch
 
 from goma_tpu_torch.elements import element_type, eval_basis, faces as elem_faces, geom_interp
 from goma_tpu_torch.fem.equations import EdgeKernel
+from goma_tpu_torch.physics.materials import _clip
 
 
 @dataclass
@@ -293,12 +294,6 @@ def contact_line_normal(efv):
     ncl = ncl / torch.linalg.vector_norm(ncl, dim=1, keepdim=True)
     sgn = torch.sign(torch.einsum("qk,qk->q", ncl, efv.normal_a))
     return ncl * sgn[:, None]
-
-
-def _clip(a, lo: float, hi: float):
-    """jnp.clip's form (a maximum, then a minimum), whose derivative at a
-    bound matches goma_tpu's."""
-    return torch.minimum(torch.maximum(a, a.new_full((), lo)), a.new_full((), hi))
 
 
 class VarCAEdge(CAEdge):

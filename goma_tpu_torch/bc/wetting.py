@@ -25,16 +25,7 @@ import torch
 
 from goma_tpu_torch.fem.equations import FaceKernel
 from goma_tpu_torch.physics.level_set import FILL_VAR, delta
-
-
-def _clip(a, lo: float, hi: float):
-    """jnp.clip's form (a maximum, then a minimum)."""
-    return torch.minimum(torch.maximum(a, a.new_full((), lo)), a.new_full((), hi))
-
-
-def _floor(a, lo: float):
-    """max(a, lo) with jnp.maximum's derivative."""
-    return torch.maximum(a, a.new_full((), lo))
+from goma_tpu_torch.physics.materials import _clip, _floor
 
 
 def hoffman_correlation_ca(cos_theta, n_iter: int = 40):

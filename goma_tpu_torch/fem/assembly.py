@@ -77,9 +77,7 @@ edge and overset sets leave them out, as goma_tpu does.
 
 The public entry points are goma_tpu's: ``assemble(x, params) -> (R,
 vals)``, ``residual(x, params) -> R`` (the residual-only pass) and
-``bc_dup_report()``. The one thing goma_tpu's Problem supports that the
-port does not, the overset coupling to a solid, raises
-``NotImplementedError`` (a later slice, see ROADMAP).
+``bc_dup_report()``.
 """
 
 from __future__ import annotations
@@ -108,9 +106,6 @@ from goma_tpu_torch.fem.sparsity import (CSRPattern, add_at, add_plan,
 from goma_tpu_torch.fem.sparsity import transpose_gather as _transpose_gather
 from goma_tpu_torch.mesh.mesh import Mesh
 from goma_tpu_torch.utils.la import det_and_inv
-
-_LATER = "later slice of the port, see ROADMAP"
-
 
 def eval_surfacevars(q_e, qdot_e, X_e, ftab, fwts, slots, dim,
                      dtype, coord: str = "cartesian") -> SurfaceVars:
@@ -249,11 +244,14 @@ class _OvsSet:
     bar_block: int
     fluid_block: int
     kernels: list
-    gather: np.ndarray  # (nr, nlb + nlf) combined dof gather
+    gather: np.ndarray  # (nr, nlb + nlf [+ nls]) combined dof gather
     nlb: int
     xq: np.ndarray  # (nr, dim) physical points
     wq: np.ndarray  # (nr,) arc-length quadrature weights
     Nf: dict[str, np.ndarray]  # fluid interp -> (nr, nbf) basis at the point
+    # optional solid side (two-way FSI): parent-element basis at the points
+    solid_block: int = -1
+    Ns: dict[str, np.ndarray] | None = None  # solid interp -> (nr, nbf)
 
 
 def _cast_floats(params: dict, dtype) -> dict:
@@ -396,12 +394,16 @@ class Problem:
         there to the boundary motion (reference ``src/bc_contact.c:79``,
         ``src/mm_augc_util.c:2914``). ``quad_order=1`` collocates one
         constraint at each segment midpoint; higher orders (default: the
-        problem's) enforce segment averages. The two-way coupling to a
-        solid (``solid=(block, sideset)``) is a later slice."""
-        if solid is not None:
-            raise NotImplementedError(
-                f"add_overset(solid=...) (two-way solid coupling): {_LATER}")
-        self._ovs_specs.append((bar_block, fluid_block, kernel, quad_order))
+        problem's) enforce segment averages.
+
+        ``solid=(solid_block, sideset)`` makes the coupling TWO-WAY (the
+        BAAIJENS_SOLID_FLUID pair, ``physics.overset.OversetFSI``): the bar
+        block must have been built by ``attach_shell_block(mesh, sideset)``
+        so bar element i is face i of the side set; the solid parent
+        element's dofs join the combined gather, and the kernel may return
+        a third contribution dict for the solid rows."""
+        self._ovs_specs.append((bar_block, fluid_block, kernel, quad_order,
+                                solid))
 
     def add_periodic(self, nodeset_a: str, nodeset_b: str, translation=None,
                      tol: float = 1e-8):
@@ -840,8 +842,10 @@ class Problem:
         the background element holding each point (centroid kd-tree +
         isoparametric Newton inversion, the host analog of the reference's
         point search in src/bc_contact.c), the background basis at the
-        landed reference point, and the combined [bar, fluid] dof gather.
-        Host numpy, goma_tpu's construction."""
+        landed reference point, and the combined [bar, fluid] dof gather;
+        with a solid side, the point inverted into its solid parent element
+        too, that element's basis there and its dofs appended to the
+        gather. Host numpy, goma_tpu's construction."""
         if not self._ovs_specs:
             return []
         from scipy.spatial import cKDTree
@@ -852,12 +856,12 @@ class Problem:
         mesh = self.mesh
         name2bi = {b.name: i for i, b in enumerate(mesh.blocks)}
         bykey: dict[tuple, list] = {}
-        for bb, fb, k, qo in self._ovs_specs:
+        for bb, fb, k, qo, solid in self._ovs_specs:
             bb = name2bi[bb] if isinstance(bb, str) else int(bb)
             fb = name2bi[fb] if isinstance(fb, str) else int(fb)
-            bykey.setdefault((bb, fb, qo), []).append(k)
+            bykey.setdefault((bb, fb, qo, solid), []).append(k)
         out = []
-        for (bb, fb, qo), kernels in bykey.items():
+        for (bb, fb, qo, solid), kernels in bykey.items():
             blk_b, blk_f = mesh.blocks[bb], mesh.blocks[fb]
             bd_b, bd_f = self.dofmap.blocks[bb], self.dofmap.blocks[fb]
             et_b, et_f = element_type(blk_b.elem_type), element_type(blk_f.elem_type)
@@ -869,8 +873,24 @@ class Problem:
                                 if s.interp != "N1"})
             cents = mesh.coords[blk_f.conn].mean(axis=1)
             tree = cKDTree(cents)
+            # the optional solid side: bar element i is side-set face i
+            sb, interps_s = -1, []
+            if solid is not None:
+                sb, ssname = solid
+                sb = name2bi[sb] if isinstance(sb, str) else int(sb)
+                ss = mesh.sidesets[ssname]
+                if len(ss.elems) != blk_b.n_elem:
+                    raise ValueError(
+                        "overset solid coupling: bar block must be the shell "
+                        "block attached to the given sideset (one bar element "
+                        "per face)")
+                blk_s, bd_s = mesh.blocks[sb], self.dofmap.blocks[sb]
+                et_s = element_type(blk_s.elem_type)
+                interps_s = sorted({s.interp for s in bd_s.slots
+                                    if s.interp != "N1"})
             rows_g, xs, ws = [], [], []
             Nfs: dict[str, list] = {i: [] for i in interps_f}
+            Nss: dict[str, list] = {i: [] for i in interps_s}
             for le in range(blk_b.n_elem):
                 Xb = mesh.coords[blk_b.conn[le]]
                 xq = Ng @ Xb  # (nq, dim)
@@ -890,8 +910,21 @@ class Problem:
                         raise RuntimeError(
                             f"overset point {xq[iq]} lies outside the "
                             f"background block '{blk_f.name}'")
-                    rows_g.append(np.concatenate([bd_b.gather[le],
-                                                  bd_f.gather[fe]]))
+                    row = [bd_b.gather[le], bd_f.gather[fe]]
+                    if solid is not None:
+                        se = int(mesh.global_elem_block(int(ss.elems[le]))[1])
+                        xi_s, ok = _invert_map(et_s,
+                                               mesh.coords[blk_s.conn[se]],
+                                               xq[iq])
+                        if not ok:
+                            raise RuntimeError(
+                                "overset point does not invert into its "
+                                "solid parent element")
+                        for itp in interps_s:
+                            N, _ = eval_basis(et_s.family, itp, xi_s[None, :])
+                            Nss[itp].append(N[0])
+                        row.append(bd_s.gather[se])
+                    rows_g.append(np.concatenate(row))
                     xs.append(xq[iq])
                     ws.append(wq[iq])
                     for itp in interps_f:
@@ -901,7 +934,10 @@ class Problem:
                 bar_block=bb, fluid_block=fb, kernels=kernels,
                 gather=np.stack(rows_g).astype(np.int32), nlb=bd_b.n_ldof,
                 xq=np.stack(xs), wq=np.asarray(ws),
-                Nf={i: np.stack(v) for i, v in Nfs.items()}))
+                Nf={i: np.stack(v) for i, v in Nfs.items()},
+                solid_block=sb,
+                Ns={i: np.stack(v) for i, v in Nss.items()} if interps_s
+                else None))
         return out
 
     def _build_tables(self):
@@ -976,6 +1012,8 @@ class Problem:
             T[f"ow{j}"] = put(st.wq, dt)
             for k, v in st.Nf.items():
                 T[f"oN{j}:{k}"] = put(v, dt)
+            for k, v in (st.Ns or {}).items():
+                T[f"oNs{j}:{k}"] = put(v, dt)
             plans(f"o{j}", st.gather, self._ovs_nnz[j])
         T["tg"] = put(self._tgather_pos)
         T["nnztg"] = put(self._nnz_tgather)
@@ -1297,19 +1335,24 @@ class Problem:
 
     def _ovs_residual_fn(self, j: int):
         """The residual of ONE quadrature point of overset set ``j`` over the
-        combined [bar, fluid] local dofs: ``jacfwd`` of it gives the
-        multiplier/velocity coupling blocks (the reference's hand-coded
-        bAC/cAC/dAC arrays)."""
+        combined [bar, fluid (, solid)] local dofs: ``jacfwd`` of it gives
+        the multiplier/velocity (and solid) coupling blocks (the
+        reference's hand-coded bAC/cAC/dAC arrays). The solid side sees
+        its values, its material rates (``params["ct"] q + hist``) and its
+        basis at the point."""
         from goma_tpu_torch.physics.overset import LM_VAR, OversetVars
 
         st = self.ovs_sets[j]
         bd_b = self.dofmap.blocks[st.bar_block]
         bd_f = self.dofmap.blocks[st.fluid_block]
+        bd_s = self.dofmap.blocks[st.solid_block] if st.Ns is not None \
+            else None
         nlb = st.nlb
+        nlbf = nlb + bd_f.n_ldof
         lam = bd_b.slot(LM_VAR)
 
-        def row_res(q, xp, wp, Nf, params):
-            qf = q[nlb:]
+        def row_res(q, h, xp, wp, Nf, Ns, params):
+            qf = q[nlb:nlbf]
             ov = OversetVars()
             ov.x = xp
             ov.w = wp
@@ -1320,16 +1363,32 @@ class Problem:
                 qv = qf[sl.start:sl.start + sl.size].reshape(sl.ncomp, sl.nbf)
                 ov.vals[sl.var] = qv @ N
                 ov.phi[sl.var] = N
+            if bd_s is not None:
+                qs = q[nlbf:]
+                qsdot = params["ct"] * qs + h[nlbf:]
+                for sl in bd_s.slots:
+                    if sl.interp == "N1":
+                        continue
+                    N = Ns[sl.interp]
+                    cut = slice(sl.start, sl.start + sl.size)
+                    ov.vals_s[sl.var] = qs[cut].reshape(sl.ncomp, sl.nbf) @ N
+                    ov.dots_s[sl.var] = qsdot[cut].reshape(sl.ncomp, sl.nbf) @ N
+                    ov.phi_s[sl.var] = N
             q_lam = q[lam.start:lam.start + lam.size].reshape(lam.ncomp)
-            acc_b, acc_f = {}, {}
+            acc_b, acc_f, acc_s = {}, {}, {}
             for k in st.kernels:
-                r_lam, rf = k.residual(ov, q_lam, params)
+                parts = k.residual(ov, q_lam, params)
+                r_lam, rf = parts[0], parts[1]
+                rs = parts[2] if len(parts) > 2 and bd_s is not None else {}
                 for acc, var, c in ([(acc_b, LM_VAR, r_lam)]
-                                    + [(acc_f, v, c) for v, c in rf.items()]):
+                                    + [(acc_f, v, c) for v, c in rf.items()]
+                                    + [(acc_s, v, c) for v, c in rs.items()]):
                     c = c.reshape(-1)
                     acc[var] = acc[var] + c if var in acc else c
             r = torch.cat(self._slot_cat(bd_b.slots, acc_b, q)
-                          + self._slot_cat(bd_f.slots, acc_f, q))
+                          + self._slot_cat(bd_f.slots, acc_f, q)
+                          + (self._slot_cat(bd_s.slots, acc_s, q)
+                             if bd_s is not None else []))
             return r, r
 
         return row_res
@@ -1361,10 +1420,12 @@ class Problem:
                 x[g], hist[g], T[f"ixa{j}"], T[f"ixb{j}"], fta, ftb, params),
                 (0, 0, 0, 0, 0, 0, None))))
         for j, st in enumerate(self.ovs_sets):
+            g = T[f"og{j}"]
             Nf = {k: T[f"oN{j}:{k}"] for k in st.Nf}
+            Ns = {k: T[f"oNs{j}:{k}"] for k in (st.Ns or {})}
             parts.append((f"o{j}", *run(self._ovs_residual_fn(j), (
-                x[T[f"og{j}"]], T[f"ox{j}"], T[f"ow{j}"], Nf, params),
-                (0, 0, 0, 0, None))))
+                x[g], hist[g], T[f"ox{j}"], T[f"ow{j}"], Nf, Ns, params),
+                (0, 0, 0, 0, 0, 0, None))))
         return parts
 
     def _add_coupling(self, x, params, T, R, vals):

@@ -55,19 +55,38 @@ def ndlu_factors_from_numpy(facs, device=None) -> list:
     return out
 
 
+def _rebuild(v, module):
+    """The port's counterpart of a goma_tpu model object ``v``: the class of
+    the same name in ``module``, built from ``v``'s attributes named as the
+    constructor names its arguments (arrays fetched to numpy, 0-d ones to
+    floats), or None when ``module`` has no such class."""
+    import inspect
+
+    cls = getattr(module, type(v).__name__, None)
+    if not (inspect.isclass(cls) and cls.__module__ == module.__name__):
+        return None
+    args = {}
+    for name in inspect.signature(cls.__init__).parameters:
+        if name == "self":
+            continue
+        a = getattr(v, name)
+        if not isinstance(a, (bool, int, float, str)):
+            a = np.asarray(a, dtype=np.float64)
+            a = float(a) if a.ndim == 0 else a
+        args[name] = a
+    return cls(**args)
+
+
 def materials_from_goma(mat: dict) -> dict:
     """A goma_tpu material dict -> the port's. Python scalars pass through;
-    a goma_tpu property model (``BoussinesqBodyForce`` and the models of
+    tuples, lists and arrays of numbers (``gravity_vec``, a constant
+    ``solid_body_force``, ``sink_linear``) pass as float64 numpy arrays; a
+    goma_tpu property model (``BoussinesqBodyForce`` and the models of
     ``physics/materials.py``: ``PowerLawViscosity``, ``CarreauViscosity``,
     ``BinghamViscosity``, ``CarreauWLFViscosity``, ``ArrheniusViscosity``,
     ``SuspensionViscosity``, ``FillerDensity``, ``BondViscosity``) is
-    recognised by its class name and rebuilt from its attributes, named as
-    the port's constructor names its arguments (arrays fetched to numpy,
-    0-d ones to floats),
-    without importing goma_tpu. Any other callable or array is a later
-    slice and raises."""
-    import inspect
-
+    recognised by its class name and rebuilt from its attributes, without
+    importing goma_tpu. Any other callable raises."""
     from goma_tpu_torch.physics import materials
 
     out = {}
@@ -75,20 +94,35 @@ def materials_from_goma(mat: dict) -> dict:
         if isinstance(v, (bool, int, float)):
             out[k] = v
             continue
-        cls = getattr(materials, type(v).__name__, None)
-        if not (inspect.isclass(cls) and callable(v)
-                and cls.__module__ == materials.__name__):
+        if not callable(v):
+            a = np.asarray(v)
+            if a.dtype.kind in "biuf":
+                out[k] = a.astype(np.float64)
+                continue
+        model = _rebuild(v, materials) if callable(v) else None
+        if model is None:
             raise NotImplementedError(
                 f"material property {k!r} of type {type(v).__name__}: later "
                 "slice of the port, see ROADMAP")
-        args = {}
-        for name in inspect.signature(cls.__init__).parameters:
-            if name == "self":
-                continue
-            a = getattr(v, name)
-            if not isinstance(a, (bool, int, float, str)):
-                a = np.asarray(a, dtype=np.float64)
-                a = float(a) if a.ndim == 0 else a
-            args[name] = a
-        out[k] = cls(**args)
+        out[k] = model
+    return out
+
+
+def porous_model_from_goma(model):
+    """A goma_tpu porous saturation model (``VanGenuchten`` or
+    ``TanhHystSaturation`` of ``physics/porous.py``) -> the port's, rebuilt
+    from its attributes as ``materials_from_goma`` rebuilds the property
+    models, without importing goma_tpu. ``None`` (saturated flow) passes
+    through. The hysteresis state travels as external fields
+    (``params_from_numpy`` carries ``ext_hyst_curve``,
+    ``ext_hyst_sat_switch`` and ``ext_hyst_pc_switch``)."""
+    from goma_tpu_torch.physics import porous
+
+    if model is None:
+        return None
+    out = _rebuild(model, porous)
+    if out is None:
+        raise NotImplementedError(
+            f"porous model of type {type(model).__name__}: not a model of "
+            "goma_tpu's physics/porous.py")
     return out

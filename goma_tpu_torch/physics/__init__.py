@@ -10,6 +10,10 @@ from goma_tpu_torch.physics.species_flux import (
 from goma_tpu_torch.physics import materials
 from goma_tpu_torch.physics.mesh_motion import (EllipticMesh, LinearElasticMesh,
                                                 PseudoSolidMesh)
+from goma_tpu_torch.physics.solid import (RealSolid, SolidKinematics,
+                                          SolidTraction, tie_mesh_to_solid)
+from goma_tpu_torch.physics.porous import (PorousFlow, TanhHystSaturation,
+                                           TwoPhasePorous, VanGenuchten)
 from goma_tpu_torch.physics.viscoelastic import (AxisymHoopStress,
                                                  DGStressInflow, DGStressUpwind,
                                                  LogConformationStress,

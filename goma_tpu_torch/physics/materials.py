@@ -48,6 +48,13 @@ def _floor(a, lo: float):
     return torch.maximum(a, torch.full((), lo, dtype=a.dtype, device=a.device))
 
 
+def _clip(a, lo: float, hi: float):
+    """jnp.clip's form, a maximum then a minimum: at a bound the derivative
+    is half (goma_tpu's), where torch.clamp gives all of it."""
+    return torch.minimum(_floor(a, lo),
+                         torch.full((), hi, dtype=a.dtype, device=a.device))
+
+
 class PowerLawViscosity:
     """mu = m * gamma_dot^(n-1). Reference: POWER_LAW model."""
 

@@ -19,9 +19,9 @@ vector of each quadrature point, summed into the CSR values.
 Only the exterior of a closed immersed boundary is physical: the C0
 background pressure cannot jump across the curve, so the fictitious
 interior carries an artifact flow, as in the reference, where the
-overlapping solid mesh owns that region. Cut to this slice: prescribed
-boundary motion; the two-way flexible-solid pair ``OversetFSI`` needs the
-solid equations (a later slice, see ROADMAP) and refuses construction.
+overlapping solid mesh owns that region. ``OversetNoSlip`` ties the fluid
+to a prescribed boundary motion; ``OversetFSI`` couples it two ways to a
+flexible solid (``Problem.add_overset(solid=...)``).
 """
 
 from __future__ import annotations
@@ -31,7 +31,6 @@ import torch
 from goma_tpu_torch.fem.equations import Equation
 
 LM_VAR = "lm"
-_LATER = "later slice of the port, see ROADMAP"
 
 
 class OversetLM(Equation):
@@ -81,21 +80,44 @@ class OversetNoSlip:
 
 
 class OversetVars:
-    """Fluid-side state at one immersed quadrature point."""
+    """Fluid-side (and optionally solid-side) state at one immersed
+    quadrature point."""
 
     def __init__(self):
         self.x = None  # (dim,)
         self.w = None  # scalar arc-length weight
         self.vals = {}  # fluid var -> (ncomp,)
         self.phi = {}  # fluid var -> (nbf,)
+        self.vals_s = {}  # solid var -> (ncomp,)
+        self.dots_s = {}  # solid var material time derivative -> (ncomp,)
+        self.phi_s = {}  # solid var -> (nbf,)
 
 
 class OversetFSI:
-    """Two-way flexible-solid coupling (goma_tpu's BAAIJENS_SOLID_FLUID /
-    BAAIJENS_FLUID_SOLID pair): needs the solid equations and
-    ``Problem.add_overset(solid=...)``, a later slice."""
+    """Two-way flexible-solid coupling (the BAAIJENS_SOLID_FLUID /
+    BAAIJENS_FLUID_SOLID pair of src/bc_contact.c): at each immersed point,
+
+        multiplier rows:   + w ( u_f(x_q) - d_dot_solid(x_q) )
+        fluid rows:        + w lambda . phi_f     (reaction on the fluid)
+        solid rows:        - w lambda . phi_s     (equal and opposite)
+
+    Register with ``Problem.add_overset(..., solid=(solid_block, sideset))``
+    where the bar block was built by ``attach_shell_block`` on that side
+    set. ``solid_var``: the solid displacement variable whose material
+    velocity the fluid must match."""
 
     fluid_var = "velocity"
 
     def __init__(self, dim: int, solid_var: str = "solid_displacement"):
-        raise NotImplementedError(f"OversetFSI (solid coupling): {_LATER}")
+        self.dim = dim
+        self.solid_var = solid_var
+
+    def residual(self, ov, q_lam, params):
+        u_f = ov.vals[self.fluid_var]
+        ddot = ov.dots_s[self.solid_var]  # (dim,) material velocity
+        r_lam = ov.w * (u_f - ddot)
+        phi_f = ov.phi[self.fluid_var]
+        rf = {self.fluid_var: ov.w * q_lam[:, None] * phi_f[None, :]}
+        phi_s = ov.phi_s[self.solid_var]
+        rs = {self.solid_var: -ov.w * q_lam[:, None] * phi_s[None, :]}
+        return r_lam, rf, rs

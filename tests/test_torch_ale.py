@@ -37,20 +37,10 @@ import goma_tpu_torch.physics.fluid as tfluid
 import goma_tpu_torch.post.quality as tquality
 from goma_tpu_torch.interop import params_from_numpy
 from test_torch_host import JAX_PKG, TORCH_PKG, cpu
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 MESH_EQS = ("EllipticMesh", "PseudoSolidMesh", "LinearElasticMesh")
 RTOL = 1e-10
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """The port's CPU path in one thread: the small batched contractions of
-    ``vmap(jacfwd)`` lose more to thread hand-offs than they gain, most of
-    all beside other test workers."""
-    old = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(old)
 
 
 def _rel(a, b):

@@ -24,6 +24,7 @@ from goma_tpu_torch.solvers.batched_lu import (MAX_SMEM, _plan, batched_lu,
                                                batched_lu_reference,
                                                kernel_plan)
 from test_torch_host import TORCH_PKG, cavity
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 
@@ -90,6 +91,26 @@ def test_twin_matches_pallas_on_cavity_fronts(dtype):
     ref = np.asarray(jax_batched_lu(jnp.asarray(A), interpret=True))
     got = batched_lu(torch.as_tensor(A)).numpy()
     assert _rel(got, ref) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("fronts", ["boosted", "cavity"])
+def test_twin_card_route_for_float32(fronts):
+    """The card's float32 route (the kernel factors a float32 batch in
+    float64 and rounds once), computed here from the float64 twin, lies no
+    farther from the float64 factor than goma_tpu's float32 arithmetic,
+    which the CPU path of ``batched_lu`` keeps (boosted pivots included).
+    No CPU path runs the card's route: the chip's real-front gate holds
+    it."""
+    A = (boosted_fronts(3, 40, seed=5) if fronts == "boosted"
+         else cavity_fronts()).astype(np.float32)
+    At = torch.as_tensor(A)
+    f64 = batched_lu_reference(At.double())
+    card = f64.float()
+    plain = batched_lu_reference(At)
+    assert card.dtype == plain.dtype == torch.float32
+    assert torch.equal(batched_lu(At), plain)
+    assert _rel(card.numpy(), f64.numpy()) <= _rel(plain.numpy(), f64.numpy())
+    assert _rel(card.numpy(), plain.numpy()) <= TOL[np.float32]
 
 
 def test_twin_is_an_lu_factorization():

@@ -47,6 +47,7 @@ from goma_tpu_torch.solvers import ndlu as tndlu
 from goma_tpu_torch.solvers.twolevel import _saddle_mask as t_saddle
 from test_torch_host import JAX_PKG, TORCH_PKG, buoyant
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 # bench.bench_buoyant("gmres_ndlu")
 BENCH = dict(max_iter=15, tol_residual=1e-6, linear_tol=1e-4, precond="ndlu",

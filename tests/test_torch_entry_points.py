@@ -202,7 +202,11 @@ EXPORTS = {
                 "SommerfeldBC", "ButlerVolmerBC", "HORFlux", "ORRFlux",
                 "Potential", "GeneralizedFickianSpecies", "HydroSpecies",
                 "StefanMaxwellSpecies", "BondEvolution", "LightIntensity",
-                "ResidenceTime"],
+                "ResidenceTime",
+                # solids and porous media
+                "RealSolid", "SolidKinematics", "SolidTraction",
+                "tie_mesh_to_solid", "PorousFlow", "TanhHystSaturation",
+                "TwoPhasePorous", "VanGenuchten"],
     "continuation": ["ArcStep", "ContinuationStep", "arclength_continue",
                      "continue_problem", "AugmentedNewtonSolver",
                      "AugmentedResult", "AugmentingCondition",
@@ -214,7 +218,10 @@ EXPORTS = {
              "sideset_integral", "stream_function", "traction_integrand",
              "volume_integral"],
     "bc": ["CapillaryBC", "KinematicBC", "NormalFlux", "Traction",
-           "EndpointAdvectiveOutflow", "EndpointFlux", "shell_end_sidesets"],
+           "EndpointAdvectiveOutflow", "EndpointFlux", "shell_end_sidesets",
+           "LatentHeatFlux", "PorousMassFlux", "VNormLeak",
+           "kelvin_gas_density", "FlowPressure", "CoulombFriction",
+           "ElecTraction", "FlowGradV", "ForceSIC", "SlopeBC"],
     "utils": ["det_and_inv"],
 }
 

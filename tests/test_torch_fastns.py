@@ -19,6 +19,7 @@ import torch
 
 from goma_tpu_torch.interop import params_from_numpy, state_from_numpy
 from test_torch_host import JAX_PKG, TORCH_PKG, cavity, cpu
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _transient_cavity(pkg, n):

@@ -19,6 +19,7 @@ import goma_tpu_torch.fem.fields as tfields
 from goma_tpu.utils.la import det_and_inv as j_det_and_inv
 from goma_tpu_torch.utils.la import det_and_inv as t_det_and_inv
 from test_torch_host import JAX_PKG, TORCH_PKG, cpu
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 RTOL = 1e-13
 

@@ -37,6 +37,7 @@ from goma_tpu_torch.solvers.front_gather import (front_gather,
 from goma_tpu_torch.solvers.newton import NewtonOptions, NewtonSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, buoyant, cavity
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _maps(rng, nv, shape):

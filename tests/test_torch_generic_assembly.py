@@ -27,6 +27,7 @@ import torch
 
 from goma_tpu_torch.interop import materials_from_goma, params_from_numpy
 from test_torch_host import JAX_PKG, TORCH_PKG, buoyant, cpu
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _mu(fv, mat, params):

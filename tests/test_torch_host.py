@@ -14,6 +14,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import goma_tpu.fem
 import goma_tpu.mesh
@@ -153,6 +154,20 @@ def viscoelastic(pkg, n, transient=False):
     prob.add_dirichlet("pin", "pressure", 0, 0.0)
     prob.finalize()
     return prob
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The port's CPU path in one thread: the small batched contractions of
+    ``vmap(jacfwd)`` lose more to thread hand-offs than they gain, most of
+    all beside other test workers: six workers on an 8-core host, each
+    with torch's default pool of one thread per core, ran a test 25 times
+    as long as it runs alone, and 1.7 times in one thread each. Every port
+    test module imports this fixture."""
+    old = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(old)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -419,25 +434,34 @@ def test_newton_options_outside_slice_raise(kw):
 @pytest.mark.parametrize("feature", ["edge", "interface", "overset_solid",
                                      "shell3d", "nedelec"])
 def test_problem_outside_slice_raises(feature):
-    """The one Problem feature outside the port's slices refuses: the
-    overset coupling to a solid (``add_overset(solid=...)``). Edge and
-    interface kernels, surface (shell) blocks in a 3D mesh and Nedelec
-    (N1, edge-signed) blocks, refused before, are ported: on a small deck
-    of each (for N1 both parts of ``EMWaveEdge`` on a TRI6 mesh, whose
-    elements carry edge signs), ``finalize`` builds the set (or the
+    """Problem features once outside the port's slices, each refused
+    before its slice and ported since: edge and interface kernels, surface
+    (shell) blocks in a 3D mesh, Nedelec (N1, edge-signed) blocks and the
+    two-way overset coupling to a solid (``add_overset(solid=...)``). On a
+    small deck of each (for N1 both parts of ``EMWaveEdge`` on a TRI6 mesh,
+    whose elements carry edge signs; for the solid coupling the elastic
+    wall of tests/test_overset.py), ``finalize`` builds the set (or the
     block's tables) and R at a seeded state is goma_tpu's within 1e-10
-    (tests/test_torch_interface.py, tests/test_torch_shell.py and
-    tests/test_torch_em.py hold every kernel against goma_tpu)."""
+    (tests/test_torch_interface.py, tests/test_torch_shell.py,
+    tests/test_torch_em.py and tests/test_torch_solid.py hold every kernel
+    against goma_tpu)."""
     mesh_m, fem, phys = TORCH_PKG
-    if feature == "overset_solid":
-        mesh = mesh_m.rectangle_mesh(2, 2, elem="QUAD9")
-        prob = fem.Problem(mesh, [phys.Momentum(dim=2), phys.Continuity()],
-                           {"rho": 1.0, "mu": 1.0}, device="cpu")
-        with pytest.raises(NotImplementedError, match="later slice"):
-            prob.add_overset(1, 0, phys.OversetNoSlip(dim=2),
-                             solid=(2, "top"))
-        return
     import torch
+    if feature == "overset_solid":
+        import jax.numpy as jnp
+
+        from scripts import solid_decks as sd
+
+        pj = sd.overset_fsi_wall_problem(sd.namespace("goma_tpu", jnp,
+                                                      jnp.asarray))
+        pt = sd.overset_fsi_wall_problem(sd.namespace(
+            "goma_tpu_torch", torch, torch.as_tensor, device="cpu"))
+        assert pt.ovs_sets[0].Ns is not None
+        x = np.random.default_rng(6).standard_normal(pt.dofmap.n_dof)
+        Rj = np.asarray(pj.residual(jnp.asarray(x), pj.base_params()))
+        Rt = pt.residual(torch.as_tensor(x), pt.base_params()).numpy()
+        assert np.abs(Rt - Rj).max() <= 1e-10 * np.abs(Rj).max()
+        return
 
     import goma_tpu.bc.edge as jedge
     import goma_tpu.mesh.interface as jmi
@@ -523,12 +547,12 @@ def test_slot_coater_rotation_matches_goma_tpu():
     ("OversetFSI", (2,)),
 ])
 def test_viscoelastic_pieces_outside_slice_raise(name, args):
-    """goma_tpu's pieces under their names: the two-way overset solid
-    coupling (``OversetFSI``, ``goma_tpu_torch.physics.overset``) refuses
-    construction. The discontinuous-stress kernels, refused before, are
-    ported: each one's integrand on the same random face states equals
-    goma_tpu's to 1e-14 relative (tests/test_torch_interface.py holds the
-    DG decks against goma_tpu)."""
+    """goma_tpu's pieces under their names, each refused before its slice
+    and ported since: the discontinuous-stress kernels and the two-way
+    overset solid coupling (``OversetFSI``). Each one's integrand on the
+    same random face (or immersed-point) states equals goma_tpu's to 1e-14
+    relative (tests/test_torch_interface.py and tests/test_torch_solid.py
+    hold their decks against goma_tpu)."""
     import jax.numpy as jnp
     import torch
 
@@ -537,12 +561,25 @@ def test_viscoelastic_pieces_outside_slice_raise(name, args):
     import goma_tpu_torch.physics.overset as tov
     import goma_tpu_torch.physics.viscoelastic as tve
 
-    if name == "OversetFSI":
-        assert jov.OversetFSI.__name__ == tov.OversetFSI.__name__ == name
-        with pytest.raises(NotImplementedError, match="later slice"):
-            tov.OversetFSI(*args)
-        return
     rng = np.random.default_rng(4)
+    if name == "OversetFSI":
+        st = {k: rng.standard_normal(n) for k, n in (
+            ("x", 2), ("u", 2), ("d", 2), ("pf", 9), ("ps", 9), ("lam", 2))}
+        w = float(rng.uniform(0.1, 1.0))
+        out = []
+        for ov_m, arr in ((jov, jnp.asarray), (tov, torch.as_tensor)):
+            ov = ov_m.OversetVars()
+            ov.x, ov.w = arr(st["x"]), w
+            ov.vals["velocity"], ov.phi["velocity"] = arr(st["u"]), arr(st["pf"])
+            ov.dots_s["solid_displacement"] = arr(st["d"])
+            ov.phi_s["solid_displacement"] = arr(st["ps"])
+            r_lam, rf, rs = ov_m.OversetFSI(*args).residual(ov, arr(st["lam"]),
+                                                            {})
+            out.append([np.asarray(r_lam), np.asarray(rf["velocity"]),
+                        np.asarray(rs["solid_displacement"])])
+        for a, b in zip(out[1], out[0]):
+            assert np.abs(a - b).max() <= 1e-14 * np.abs(b).max()
+        return
     nq, nb = 3, 3
     arrs = {"v": rng.standard_normal((nq, 2)), "n": rng.standard_normal((nq, 2)),
             "sa": rng.standard_normal((nq, 3)), "sb": rng.standard_normal((nq, 3)),

@@ -58,6 +58,7 @@ from goma_tpu_torch.solvers import NewtonOptions
 from goma_tpu_torch.solvers.transient import TimeOptions, TransientSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, cpu
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 SOLVERS = {id(JAX_PKG): (JOptions, JTime, JTransient),
            id(TORCH_PKG): (NewtonOptions, TimeOptions, TransientSolver)}

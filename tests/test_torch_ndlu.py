@@ -45,6 +45,7 @@ from goma_tpu_torch.solvers.linear import gmres
 from goma_tpu_torch.solvers.newton import NewtonOptions, NewtonSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, cavity
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _vals(solver, prob, seed, amp=0.3):

@@ -27,6 +27,7 @@ from goma_tpu.solvers import NewtonSolver as JSolver
 from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, cavity
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 GMRES_NDLU = dict(precond="ndlu", linear_solver="gmres", max_iter=20,
                   linear_tol=1e-4, gmres_restart=60, linear_maxiter=240)
@@ -86,23 +87,32 @@ def test_newton_zero_rhs_is_converged_zero_step():
     assert torch.count_nonzero(lr.x) == 0
 
 
+# the reference run's intra-op pool: torch's default on a multi-core host,
+# and another count than either case's (the module's autouse fixture runs
+# the other tests in one thread)
+REF_THREADS = 4
+
+
 @pytest.mark.parametrize("threads", [1, 3])
 def test_newton_result_independent_of_cpu_threads(threads):
     """The mixed-precision CPU run gives the same iterates for any intra-op
-    thread count (the tests' tolerances assume it)."""
+    thread count (the tests' tolerances assume it): ``threads`` against
+    REF_THREADS."""
     kw = dict(GMRES_NDLU, ndlu_leaf_max=192, prep32_tol=3e-6,
               tol_residual=1e-6)
     pt = cavity(TORCH_PKG, 6)
     pt.jacobian_dtype = torch.float32
+    runs = []
     old = torch.get_num_threads()
     try:
-        torch.set_num_threads(threads)
-        r1 = NewtonSolver(pt, NewtonOptions(**kw)).solve(
-            np.zeros(pt.dofmap.n_dof), pt.base_params())
+        for n in (threads, REF_THREADS):
+            torch.set_num_threads(n)
+            assert torch.get_num_threads() == n
+            runs.append(NewtonSolver(pt, NewtonOptions(**kw)).solve(
+                np.zeros(pt.dofmap.n_dof), pt.base_params()))
     finally:
         torch.set_num_threads(old)
-    r0 = NewtonSolver(pt, NewtonOptions(**kw)).solve(
-        np.zeros(pt.dofmap.n_dof), pt.base_params())
+    r1, r0 = runs
     assert r1.converged and r0.converged and r1.iters == r0.iters
     np.testing.assert_allclose(r1.x, r0.x, rtol=0, atol=1e-6)
 

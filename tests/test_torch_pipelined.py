@@ -36,6 +36,7 @@ from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
 from goma_tpu_torch.solvers import linear, newton
 from test_torch_host import TORCH_PKG, cavity
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 from test_torch_newton import GMRES_NDLU, _run
 
 F64 = dict(GMRES_NDLU, ndlu_dtype="float64", ndlu_leaf_max=96,

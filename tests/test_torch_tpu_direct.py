@@ -32,6 +32,7 @@ from goma_tpu.solvers import ndlu as jndlu
 from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, cavity
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 DIRECT = dict(linear_solver="tpu_direct", precond="ndlu", max_iter=20)
 

@@ -42,6 +42,7 @@ from goma_tpu.solvers.pallas_lu import batched_trsv as jax_batched_trsv
 from goma_tpu_torch.solvers.batched_trsv import (
     MAX_M, MAX_SMEM, _plan, batched_trsv, batched_trsv_blocked_reference,
     batched_trsv_reference, kernel_plan)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = {np.float64: 1e-12, np.float32: 1e-5}
 LIB_TOL = {np.float64: 1e-11, np.float32: 1e-4}

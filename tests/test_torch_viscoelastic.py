@@ -46,6 +46,7 @@ from goma_tpu_torch.interop import params_from_numpy
 from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
 from test_torch_host import JAX_PKG, TORCH_PKG, cpu, viscoelastic
 from test_torch_host import one_nd_bisection  # noqa: F401  (autouse)
+from test_torch_host import one_torch_thread  # noqa: F401  (autouse)
 
 # bench.bench_viscoelastic("gmres_ndlu") and ("tpu_direct")
 GMRES = dict(max_iter=25, tol_residual=1e-8, linear_tol=1e-4, precond="ndlu",
