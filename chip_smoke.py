@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Thirty-six main paths of the three
+failure and when CUDA is unavailable. Forty main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -24,6 +24,8 @@ drying film (phase 49) on 3D surface shells, each on both rungs; the
 128x128 edge-element cavity (phase 51) and the 160x32 nodal waveguide
 (phase 52), each on both rungs; the 128x64 conforming FSI column (phase
 54) and the 128x128 Richards infiltration (phase 55), each on both rungs;
+the 128x32 suspension channel (phase 57) and the 96x24 reacting wall
+channel (phase 58), each on both rungs;
 the bordered solver's ``ndlu`` base on the 20x10
 cylinder (phase 47) is read the same way as a cross-check, not a main
 path; then goma_tpu's other preconditioners and linear
@@ -46,7 +48,8 @@ counts under it. Phases:
    front LU ``goma_tpu_torch/csrc/batched_lu.cu``, the front substitution
    ``goma_tpu_torch/csrc/batched_trsv.cu`` and the front gather
    ``goma_tpu_torch/csrc/front_gather.cu`` (sm_90a); print each build time
-   and ptxas report (phase 7's build is this one);
+   and ptxas report (phase 7's build is this one); the CPU side (see
+   ``start_cpu_side``) starts and phase 2 runs while nvcc does;
 2. set up the main deck: the Re=100 lid-driven cavity on a 64x64 QUAD9 mesh
    (Q2/Q1, 37,507 dof), float32 Jacobian, the ``gmres+ndlu`` options;
 3. hold the kernel against its plain PyTorch twin on the card, float32 and
@@ -131,7 +134,8 @@ counts under it. Phases:
     5 +- 1 Newton iterations (goma_tpu's record) and front-gather and
     front-LU launches = levels x factorizations; print the ND levels, norms,
     linear iterations, asm/slv, s/iteration and where an iteration's time
-    goes (prep, CSR values, factorization, apply: ms and kernels a call);
+    goes (prep, CSR values, factorization, apply: ms, and kernels a call
+    but for the CSR values);
 16. the viscoelastic ``tpu_direct`` main path at 64x32: the substitution
     kernel as in phase 8 on the 18 substitutions of one solve (m up to 604),
     with the device ns per dependent step at the two top levels; the front
@@ -268,8 +272,8 @@ counts under it. Phases:
     LU on its real fronts at x = 0 and at the converged state, random
     boosted fronts at its 9 level shapes (kernel, twin, ``lu_factor_ex``,
     bound), the factorization split, the gather exact and timed; one
-    warm-up solve, ``reset_lagged()``, one timed solve and two more
-    (s/iteration over three calls); require goma_tpu's record
+    warm-up solve, ``reset_lagged()``, one timed solve and one more
+    (s/iteration over two calls); require goma_tpu's record
     (``TILT_REF``, from scripts/rotation_reference.py: Newton +-1, each
     step's linear iterations within REF_LIN_TOL, x at 24 sampled dofs
     within REF_X_TOL), front-LU and front-gather launches = levels x
@@ -453,21 +457,57 @@ counts under it. Phases:
     (``solid_decks.SMALL``) at their own sizes on cuda and on cpu: each
     test's own gate, goma_tpu's Newton count, its readings within
     SOLID_SMALL_RTOL on the card, and the same Newton count and x within
-    SOLID_SMALL_X_TOL on both devices.
+    SOLID_SMALL_X_TOL on both devices;
+57. the suspension channel (``scripts/closure_decks.py``: Navier-Stokes
+    Q2/Q1 with the Krieger-Dougherty viscosity, the q-tensor Phillips
+    migration flux of Phillips et al. (1992) and the projected shear rate
+    on a 128x32 QUAD9 [0, 8] x [0, 1] channel at phi = 0.4) on both rungs
+    through the transient driver, ten backward-Euler steps without
+    adaptation: the tree against goma_tpu's (``CLOSURE_REF``, from
+    scripts/closure_reference.py); the kernels on its real fronts at the
+    initial state; the timed run with the counts set to 0 just before and
+    read just after; goma_tpu's step records (Newton exactly on
+    ``tpu_direct``, +-1 a step on ``gmres+ndlu``), phi up x = 4 and x = 8
+    and x at 24 dofs within CLOSURE_X_RTOL of max |x|, phi moved by more
+    than 1e-3 at SUSP_MOVED_MIN or more node rows of each line; the launch
+    identities; the kernels on the run's last factorization;
+58. the reacting wall channel (Navier-Stokes at Re 10, two species and
+    energy on 96x24 QUAD9; Chemkin gas chemistry with REV, Troe falloff
+    and third-body steps; PLACID surface chemistry on the heated bottom
+    wall) steady on both rungs: ``reset_lagged()`` and a timed solve (no
+    warm-up);
+    goma_tpu's Newton count (exactly on ``tpu_direct``, +-1 on
+    ``gmres+ndlu`` where goma_tpu's own run of it converged finite), x at
+    24 dofs within CLOSURE_X_RTOL of goma_tpu's ``tpu_direct`` record and
+    float64 solution, the wall temperature rise and outlet conversion
+    printed, PLACID at every wall quadrature point on the card against the
+    CPU (z and sdot within PLACID_RTOL, the same iteration counts); the
+    launch identities and the kernels as phase 57;
+59. goma_tpu's tests' decks of the slice (``closure_decks.SMALL``) and the
+    32x16 RANS channel at their own sizes on cuda and on cpu: each test's
+    own gate, goma_tpu's Newton count, its readings within
+    CLOSURE_SMALL_RTOL on the card, the same Newton count and x within
+    CLOSURE_SMALL_X_TOL on both devices; the vorticity direction and its
+    tangent on the card against the CPU at 4,096 seeded velocity gradients
+    (EIG_RTOL) and at degenerate ones (printed).
 
-Each of phases 39-56 prints its time, and the run its total, before the
+Each of phases 39-59 prints its time, and the run its total, before the
 last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
 power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
 """
 
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -937,10 +977,18 @@ CONT_REF = {'gmres_ndlu': {'lam': [1.0, 1.5, 2.25, 3.375, 4.0], 'newton': [4,
 _GUARD = []
 # the boosted pivots per level of every real-front check, by its label
 BOOSTED = {}
+# the value checks made on the latest tree (checked_before)
+_CHECKED = {}
+# lu_shapes's results by (level shapes, time_twin)
+_LU_SHAPES = {}
+
+
+_T0 = time.perf_counter()
 
 
 def log(msg):
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def gpu_line() -> str:
@@ -1053,9 +1101,21 @@ def median_ms(fn, reps):
     return statistics.median(times)
 
 
+def event_call(fn):
+    """(fn(), CUDA-event ms of that one call)."""
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
 def check_kernel(A, name, tol=None):
     """Kernel vs twin on one batch, within ``tol`` (by default ``TOL``);
-    returns (kernel LU, twin LU, max abs err, rel err)."""
+    returns (kernel LU, twin LU, max abs err, rel err, the twin's CUDA-event
+    ms on this call)."""
     from goma_tpu_torch.solvers.batched_lu import batched_lu, batched_lu_reference
 
     before = batched_lu.launches
@@ -1063,7 +1123,7 @@ def check_kernel(A, name, tol=None):
     torch.cuda.synchronize()
     if batched_lu.launches != before + 1:
         raise RuntimeError(f"{name}: the kernel did not launch")
-    ref = batched_lu_reference(A)
+    ref, twin_ms = event_call(lambda: batched_lu_reference(A))
     abs_err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     rel = abs_err / scale
@@ -1071,38 +1131,44 @@ def check_kernel(A, name, tol=None):
     if not np.isfinite(rel) or rel > tol:
         raise RuntimeError(f"{name}: kernel vs twin rel err {rel:.3e} > "
                            f"{tol:.1e}")
-    return got, ref, abs_err, rel
+    return got, ref, abs_err, rel, twin_ms
 
 
 def lu_shapes(shapes, label, time_twin):
     """Phase 3 (and 13): the front-LU kernel against its twin on random
     boosted fronts at every (nn, m) level shape, float32 and float64; the
     kernel's launch plan against the wrapper's; median CUDA-event ms of the
-    kernel, the twin (``time_twin``) and ``lu_factor_ex(pivot=False)`` per
-    shape. Returns (max abs err, {dtype: [kernel, twin, library] ms summed
-    over the shapes})."""
-    from goma_tpu_torch.solvers.batched_lu import (_plan, batched_lu,
-                                                   batched_lu_reference,
-                                                   kernel_plan)
+    kernel and ``lu_factor_ex(pivot=False)`` per shape, and the twin's
+    (``time_twin``) on the one call that checks the kernel. The fronts are
+    a function of the shapes, so a set of shapes checked before is not
+    checked again. Returns (max abs err, {dtype: [kernel, twin, library] ms
+    summed over the shapes})."""
+    from goma_tpu_torch.solvers.batched_lu import _plan, batched_lu, kernel_plan
 
+    key = (tuple(shapes), time_twin)
+    if key in _LU_SHAPES:
+        first, out = _LU_SHAPES[key]
+        log(f"kernel {label}: the level shapes of {first}, checked and timed "
+            "there")
+        return out
     max_abs = 0.0
     tot = {dt: [0.0, 0.0, 0.0] for dt in (torch.float32, torch.float64)}
+    fronts = {(nn, m): torch.as_tensor(boosted_fronts(nn, m, seed=m),
+                                       device="cuda") for nn, m in set(shapes)}
     for dt in (torch.float32, torch.float64):
         for nn, m in shapes:
             plan = kernel_plan(nn, m, dt)
             if plan[:4] != _plan(nn, m, dt) or plan[4] < 1:
                 raise RuntimeError(f"batched_lu ({nn},{m}) {dt}: kernel plan "
                                    f"{plan} != wrapper plan {_plan(nn, m, dt)}")
-            A = torch.as_tensor(boosted_fronts(nn, m, seed=m), dtype=dt,
-                                device="cuda")
-            _, _, a_err, rel = check_kernel(A, f"{label} {dt} ({nn},{m})")
+            A = fronts[(nn, m)].to(dt)
+            _, _, a_err, rel, p_ms = check_kernel(A, f"{label} {dt} ({nn},{m})")
             max_abs = max(max_abs, a_err)
-            k_ms = median_ms(lambda: batched_lu(A), 20)
-            p_ms = median_ms(lambda: batched_lu_reference(A), 3) if time_twin \
-                else float("nan")
+            k_ms = median_ms(lambda: batched_lu(A), 10)
+            p_ms = p_ms if time_twin else float("nan")
             # the library's unpivoted batched LU: no GESP boost, so it
             # computes the same function only where no pivot is boosted
-            l_ms = median_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 20)
+            l_ms = median_ms(lambda: torch.linalg.lu_factor_ex(A, pivot=False), 10)
             tot[dt] = [a + b for a, b in zip(tot[dt], (k_ms, p_ms, l_ms))]
             log(f"kernel {label} {str(dt)[6:]} (nn={nn:3d}, m={m:3d}): cluster "
                 f"{plan[0]:2d} x {plan[2]} threads, {plan[3]} B shared, "
@@ -1115,7 +1181,30 @@ def lu_shapes(shapes, label, time_twin):
             f"level shapes), {str(dt)[6:]}: kernel {k:.4f} ms, twin {tw:.3f} ms, "
             f"lu_factor_ex(pivot=False) {lib:.4f} ms, bound {bnd[0]:.4f} ms "
             f"({bnd[1]}, float32)")
+    _LU_SHAPES[key] = (label, (max_abs, tot))
     return max_abs, tot
+
+
+def checked_before(nd, vals, kind, label):
+    """The record of an earlier ``kind`` check ("fronts" or "gather") on
+    ``nd`` with values equal to ``vals`` (the same inputs give the same
+    result), or None; logs the match. Only the latest tree's values are
+    kept."""
+    if _CHECKED.get("nd") is not nd:
+        _CHECKED.clear()
+        _CHECKED["nd"] = nd
+    for v, kd, lab, rec in _CHECKED.setdefault("runs", []):
+        if kd == kind and v.shape == vals.shape and v.dtype == vals.dtype \
+                and torch.equal(v, vals):
+            log(f"{kind} {label}: the same CSR values as {lab}, checked there")
+            return rec
+    return None
+
+
+def remember_check(nd, vals, kind, label, rec):
+    """Keep ``rec`` for ``checked_before``."""
+    if _CHECKED.get("nd") is nd:
+        _CHECKED["runs"].append((vals.clone(), kind, label, rec))
 
 
 def check_real_fronts(nd, vals, label):
@@ -1128,7 +1217,13 @@ def check_real_fronts(nd, vals, label):
     the float32 rounding floor, which the kernel must share with the twin;
     the float32 limit is ``TOL`` or, on a block whose floor is higher,
     ``ACC_RATIO`` times the twin's floor (see ``TOL``). Returns the max abs
-    error; each level's boosted-pivot count goes to ``BOOSTED[label]``."""
+    error; each level's boosted-pivot count goes to ``BOOSTED[label]``.
+    Values this tree's fronts were checked on before are not checked
+    again (``checked_before``)."""
+    rec = checked_before(nd, vals, "fronts", label)
+    if rec is not None:
+        BOOSTED[label] = list(BOOSTED[rec[1]])
+        return rec[0]
     vals_ext = nd.front_values(vals)
     max_abs = 0.0
     S = None
@@ -1137,9 +1232,9 @@ def check_real_fronts(nd, vals, label):
         F = nd.front(li, vals_ext, S)
         A = F[:, :lev.smax, :lev.smax].contiguous()
         name = f"{label} level {li} real fronts"
-        got, ref, a_err, rel = check_kernel(A, name, tol=float("inf"))
+        got, ref, a_err, rel, _ = check_kernel(A, name, tol=float("inf"))
         a64 = A.double()
-        _, exact, a_err64, rel64 = check_kernel(a64, name + " float64")
+        _, exact, a_err64, rel64, _ = check_kernel(a64, name + " float64")
         sc = exact.abs().max().item()
         k64 = (got.double() - exact).abs().max().item() / sc
         t64 = (ref.double() - exact).abs().max().item() / sc
@@ -1164,6 +1259,7 @@ def check_real_fronts(nd, vals, label):
             f"float64 kernel vs twin {rel64:.2e}")
         max_abs = max(max_abs, a_err, a_err64)
         _, S = nd.factor_level(li, F)
+    remember_check(nd, vals, "fronts", label, (max_abs, label))
     return max_abs
 
 
@@ -1305,7 +1401,8 @@ def device_ms(fn, reps, launches=None, required=True, graph=False):
 
 def check_trsv(lu, rhs, lower, name, tol=None):
     """Substitution kernel vs twin on one batch, within ``tol`` (by default
-    ``TRSV_TOL``); returns (kernel x, twin x, max abs err, rel err)."""
+    ``TRSV_TOL``); returns (kernel x, twin x, max abs err, rel err, the
+    twin's CUDA-event ms on this call)."""
     from goma_tpu_torch.solvers.batched_trsv import (batched_trsv,
                                                      batched_trsv_reference)
 
@@ -1314,35 +1411,37 @@ def check_trsv(lu, rhs, lower, name, tol=None):
     torch.cuda.synchronize()
     if batched_trsv.launches != before + 1:
         raise RuntimeError(f"{name}: the substitution kernel did not launch")
-    ref = batched_trsv_reference(lu, rhs, lower)
+    ref, twin_ms = event_call(lambda: batched_trsv_reference(lu, rhs, lower))
     abs_err = (got - ref).abs().max().item()
     rel = abs_err / ref.abs().max().item()
     tol = TRSV_TOL[lu.dtype] if tol is None else tol
     if not np.isfinite(rel) or rel > tol:
         raise RuntimeError(f"{name}: substitution kernel vs twin rel err "
                            f"{rel:.3e} > {tol:.1e}")
-    return got, ref, abs_err, rel
+    return got, ref, abs_err, rel, twin_ms
 
 
-def trsv_extended(lu, rhs, lower):
+def trsv_extended(L, rhs, lower):
     """The substitution of ``check_trsv`` in numpy's extended precision
     (longdouble) on the host, from float64 data: the yardstick of the
-    float64 substitutions' own rounding. Unit lower or upper, batched over
-    fronts; returns a longdouble array (nn, m)."""
-    L = lu.double().cpu().numpy().astype(np.longdouble)
+    float64 substitutions' own rounding. ``L`` is the packed LU as a
+    float64 numpy array (nn, m, m), each row it reads taken to longdouble;
+    unit lower or upper, batched over fronts; returns a longdouble array
+    (nn, m)."""
     b = rhs.double().cpu().numpy().astype(np.longdouble)
     m = b.shape[1]
     x = np.zeros_like(b)
+    ld = np.longdouble
     for i in (range(m) if lower else range(m - 1, -1, -1)):
         if lower:
-            x[:, i] = b[:, i] - np.sum(L[:, i, :i] * x[:, :i], axis=1)
+            x[:, i] = b[:, i] - np.sum(L[:, i, :i].astype(ld) * x[:, :i], axis=1)
         else:
-            x[:, i] = (b[:, i] - np.sum(L[:, i, i + 1:] * x[:, i + 1:], axis=1)
-                       ) / L[:, i, i]
+            x[:, i] = (b[:, i] - np.sum(L[:, i, i + 1:].astype(ld) * x[:, i + 1:],
+                                        axis=1)) / L[:, i, i].astype(ld)
     return x
 
 
-def check_substitutions(calls, label):
+def check_substitutions(calls, label, timed=True):
     """Phase 8 (and 13): kernel vs twin on every recorded substitution
     (float32 as recorded, and cast to float64), with its real right-hand
     side and a seeded random one; the float32 kernel must be as accurate as
@@ -1352,14 +1451,20 @@ def check_substitutions(calls, label):
     CUDA-graph replay (``graph_ms``): late in a long run the profiler once
     read the library far under the time it takes in a fresh process
     (0.0189 ms at (1, 512); ``scripts/torch_trsv_library_probe.py`` reads
-    it there). Returns {"max_abs", "ms":
+    it there). The twin's times are its CUDA-event times on the calls that
+    check the kernel with the real right-hand side; the profiler reads the
+    device time of the two top levels and of any level above m = 500 (the
+    ones callers read per dependent step), the graph replay that of the
+    others. Not ``timed`` (a second check on a tree whose shapes a first
+    one timed): the gates only, every level's device time from the graph
+    replay; returns {"max_abs", "levels"}. Else returns {"max_abs", "ms":
     per-dtype [kernel, twin, solve_triangular] sums of per-call CUDA-event
     medians, "device_ms": {"kernel", "solve_triangular"} for one float32
-    solve's calls by the profiler, "run_ms": CUDA events around one solve's kernel calls,
-    "host_us": (run_ms - kernel device ms) per call, "levels": per call
+    solve's calls by the profiler, "run_ms": CUDA events around one solve's
+    kernel calls, "host_us": (run_ms - kernel device ms) per call,
+    "levels": per call
     (level, nn, m, lower, kernel device ms, solve_triangular device ms)}."""
     from goma_tpu_torch.solvers.batched_trsv import (_plan, batched_trsv,
-                                                     batched_trsv_reference,
                                                      kernel_plan)
 
     def lib(lu, rhs, lower):
@@ -1384,14 +1489,17 @@ def check_substitutions(calls, label):
         rnd = torch.as_tensor(np.random.default_rng(ci).standard_normal(
             (nn, m)), device=lu32.device)
         lu64 = lu32.double()
-        errs = []
+        L_ext = lu64.cpu().numpy()
+        errs, twin_ms = [], {}
         for kind, rhs in (("real", seg32.double()), ("random", rnd)):
             name = f"trsv {label} level {li} (nn={nn}, m={m}) {sweep} {kind}"
             inf = float("inf")
-            got64, exact, a64, r64 = check_trsv(lu64, rhs, lower,
-                                                name + " float64", tol=inf)
-            got, ref, a32, r32 = check_trsv(lu32, rhs.float(), lower, name,
-                                            tol=inf)
+            got64, exact, a64, r64, tw64 = check_trsv(
+                lu64, rhs, lower, name + " float64", tol=inf)
+            got, ref, a32, r32, tw32 = check_trsv(lu32, rhs.float(), lower,
+                                                  name, tol=inf)
+            if kind == "real":
+                twin_ms = {torch.float32: tw32, torch.float64: tw64}
             # float32: the twin's own floor on this block against the
             # float64 twin (see TRSV_TOL); float64 the same one precision
             # up, against the substitution in extended precision
@@ -1399,7 +1507,7 @@ def check_substitutions(calls, label):
             k64 = (got.double() - exact).abs().max().item() / sc
             t64 = (ref.double() - exact).abs().max().item() / sc
             lim = max(TRSV_TOL[torch.float32], ACC_RATIO * t64)
-            ext = trsv_extended(lu64, rhs, lower)
+            ext = trsv_extended(L_ext, rhs, lower)
             sce = float(np.max(np.abs(ext)))
             k64e, t64e = (float(np.max(np.abs(
                 x.cpu().numpy().astype(np.longdouble) - ext)) / sce)
@@ -1417,34 +1525,46 @@ def check_substitutions(calls, label):
                                    f"gates: {line}")
             errs.append(line)
             max_abs = max(max_abs, a32, a64)
-        ms = []
-        for dt, lu, rhs in ((torch.float32, lu32, seg32),
-                            (torch.float64, lu64, seg32.double())):
-            t = (median_ms(lambda: batched_trsv(lu, rhs, lower), 20),
-                 median_ms(lambda: batched_trsv_reference(lu, rhs, lower), 3),
-                 median_ms(lambda: lib(lu, rhs, lower), 20))
-            tot[dt] = [a + b for a, b in zip(tot[dt], t)]
-            ms.append(t)
-        k_dev = device_ms(lambda: batched_trsv(lu32, seg32, lower), 5, 1,
-                          graph=True)[0]
-        l_dev, l_kern = device_ms(lambda: lib(lu32, seg32, lower), 5,
-                                  graph=True)
         k_gr = graph_ms(lambda: batched_trsv(lu32, seg32, lower))
         l_gr = graph_ms(lambda: lib(lu32, seg32, lower))
+        if timed:
+            ms = []
+            for dt, lu, rhs in ((torch.float32, lu32, seg32),
+                                (torch.float64, lu64, seg32.double())):
+                t = (median_ms(lambda: batched_trsv(lu, rhs, lower), 20),
+                     twin_ms[dt], median_ms(lambda: lib(lu, rhs, lower), 20))
+                tot[dt] = [a + b for a, b in zip(tot[dt], t)]
+                ms.append(t)
+            times = (f"ms f32 kernel/twin/solve_triangular "
+                     f"{ms[0][0]:.3f}/{ms[0][1]:.3f}/{ms[0][2]:.3f}, f64 "
+                     f"{ms[1][0]:.3f}/{ms[1][1]:.3f}/{ms[1][2]:.3f}; f32 device "
+                     "ms kernel / solve_triangular")
+            if li >= n_lev - 2 or m > 500:
+                # the levels whose device time a caller reads per step
+                k_dev = device_ms(lambda: batched_trsv(lu32, seg32, lower),
+                                  5, 1, graph=True)[0]
+                l_dev, l_kern = device_ms(lambda: lib(lu32, seg32, lower), 5,
+                                          graph=True)
+                times += (f" {k_dev:.4f} (1 record a call) / {l_dev:.4f} "
+                          f"({l_kern} records a call), by graph replay")
+            else:
+                k_dev, l_dev = k_gr, l_gr
+                times += " by graph replay"
+        else:
+            k_dev, l_dev = k_gr, l_gr
+            times = "f32 device ms kernel / solve_triangular by graph replay"
         log(f"trsv {label} level {li} (nn={nn:3d}, m={m:3d}) {sweep}: "
             f"{plan[2]} threads, {plan[3]} B shared, {plan[4]} CTAs an SM; "
-            f"{'; '.join(errs)}; ms f32 kernel/twin/solve_triangular "
-            f"{ms[0][0]:.3f}/{ms[0][1]:.3f}/{ms[0][2]:.3f}, f64 {ms[1][0]:.3f}/"
-            f"{ms[1][1]:.3f}/{ms[1][2]:.3f}; f32 device ms kernel "
-            f"{k_dev:.4f} (1 record a call), solve_triangular {l_dev:.4f} "
-            f"({l_kern} records a call), by graph replay {k_gr:.4f} / "
-            f"{l_gr:.4f}, bound {trsv_bound([(lu32, seg32, lower)])[0]:.5f}")
+            f"{'; '.join(errs)}; {times} {k_gr:.4f} / {l_gr:.4f}, bound "
+            f"{trsv_bound([(lu32, seg32, lower)])[0]:.5f}")
         levels.append((li, nn, m, lower, k_dev, l_dev))
         if k_gr > l_gr:
             raise RuntimeError(f"trsv {label} level {li} {sweep}: the kernel "
                                f"takes {k_gr:.4f} ms of device time, "
                                f"solve_triangular {l_gr:.4f} (CUDA-graph "
                                f"replay; profiler {k_dev:.4f} / {l_dev:.4f})")
+    if not timed:
+        return {"max_abs": max_abs, "levels": levels}
     for dt, (k, tw, lb) in tot.items():
         log(f"trsv {label}: one solve's substitutions ({len(calls)} calls), "
             f"{str(dt)[6:]}: kernel {k:.3f} ms, twin {tw:.3f} ms, "
@@ -1567,9 +1687,14 @@ def check_gathers(nd, vals, label):
     level's real slot map of ``nd``, with float32 and float64 values, and on
     a seeded map with indices out of range (negative and past the end). A
     gather is exact: every result must equal the plain one. Returns the max
-    abs difference (0)."""
+    abs difference (0). Values this tree's gathers were checked on before
+    are not checked again (``checked_before``)."""
     from goma_tpu_torch.solvers.front_gather import (front_gather,
                                                      front_gather_reference)
+
+    rec = checked_before(nd, vals, "gather", label)
+    if rec is not None:
+        return rec
 
     gen = torch.Generator(device=vals.device).manual_seed(0)
     max_abs = 0.0
@@ -1592,6 +1717,7 @@ def check_gathers(nd, vals, label):
                                    f"from its plain version by {err:.3e}")
     log(f"gather {label}: kernel == plain on all {len(nd.tabs)} level maps and "
         "an out-of-range map, float32 and float64 (max |diff| 0)")
+    remember_check(nd, vals, "gather", label, max_abs)
     return max_abs
 
 
@@ -1791,20 +1917,22 @@ def rel_dx(a, b):
     return float(np.max(np.abs(a - b) / (1.0 + np.abs(b))))
 
 
-def warm_then_timed(solver, x_init, params, label):
-    """The main-path protocol: one warm-up solve, ``reset_lagged()``, every
-    factorization, solve and launch count set to 0, one timed solve.
-    Returns (result, seconds, {"lu", "trsv", "gather": launches})."""
+def warm_then_timed(solver, x_init, params, label, warm=True):
+    """The main-path protocol: one warm-up solve (unless not ``warm``),
+    ``reset_lagged()``, every factorization, solve and launch count set to
+    0, one timed solve. Returns (result, seconds, {"lu", "trsv", "gather":
+    launches})."""
     from goma_tpu_torch.solvers.batched_lu import batched_lu
     from goma_tpu_torch.solvers.batched_trsv import batched_trsv
     from goma_tpu_torch.solvers.front_gather import front_gather
 
-    t0 = time.perf_counter()
-    res_w = solver.solve(x_init, params)
-    torch.cuda.synchronize()
-    log(f"{label} warm-up: {time.perf_counter() - t0:.2f} s, "
-        f"iters={res_w.iters}, lin={res_w.linear_iters}, "
-        f"converged={res_w.converged}")
+    if warm:
+        t0 = time.perf_counter()
+        res_w = solver.solve(x_init, params)
+        torch.cuda.synchronize()
+        log(f"{label} warm-up: {time.perf_counter() - t0:.2f} s, "
+            f"iters={res_w.iters}, lin={res_w.linear_iters}, "
+            f"converged={res_w.converged}")
     solver.reset_lagged()
     solver.n_factor = solver._ndlu_nfactor = solver.n_discarded = 0
     solver.direct_log = []
@@ -1840,7 +1968,10 @@ def warm_then_timed(solver, x_init, params, label):
 def where_time_goes(prob, nd, vals, x0, params, label):
     """Median CUDA-event ms and profiler device ms (kernels a call) of each
     piece of an iteration's work: the vals-free prep, the CSR values, one
-    factorization of ``nd`` and one apply (``NDLU.solve``)."""
+    factorization of ``nd`` and one apply (``NDLU.solve``). The CSR values
+    run the prep's element kernels (one launch more), so only their event
+    time is taken: a profiler window of the generic prep's thousands of
+    host ops takes seconds."""
     facs = nd.factor(vals)
     rb = torch.ones(prob.dofmap.n_dof, dtype=nd.dtype, device=vals.device)
     pieces = {
@@ -1851,8 +1982,11 @@ def where_time_goes(prob, nd, vals, x0, params, label):
         "apply (NDLU.solve)": lambda: nd.solve(facs, rb),
     }
     for name, fn in pieces.items():
-        ev_ms = median_ms(fn, 5)
-        dv_ms, n_k = device_ms(fn, 3, required=False)
+        ev_ms = median_ms(fn, 3)
+        if name.startswith("CSR values"):
+            log(f"{label}: {name} {ev_ms:.3f} ms (CUDA events)")
+            continue
+        dv_ms, n_k = device_ms(fn, 2, required=False)
         log(f"{label}: {name} {ev_ms:.3f} ms (CUDA events), {dv_ms:.3f} ms "
             f"device time in {n_k} kernels")
 
@@ -2650,33 +2784,45 @@ def check_slot_result(prob, rung, warm, timed, label):
     return q.min_detJ, h
 
 
+SLOT_CASES = ("golden tpu_direct", "gmres_ndlu warm leg")
+
+
+def slot_cross_check_run(case, dev):
+    """One case of phase 22 on ``dev``: (attempts (t, dt, Newton, outcome),
+    the end state, the accepted steps' Newton counts)."""
+    if case.startswith("golden"):
+        prob, ts, x0 = slot_coater_problem(
+            16, 4, "tpu_direct", dev, t_end=0.06,
+            newton_overrides=dict(forcing="fixed"))
+        ts.topts.adapt, ts.topts.dt0 = False, 0.02
+    else:
+        prob, ts, x0 = slot_coater_problem(16, 4, "gmres_ndlu", dev)
+    att = record_attempts(ts)
+    r = ts.run(x0, prob.base_params())
+    classify(att, r.steps)
+    return ([(round(a["t"], 12), round(a["dt"], 12), a["newton"], a["outcome"])
+             for a in att], np.asarray(r.x), [s.newton_iters for s in r.steps])
+
+
 def cross_check_slot_coater(devices=("cuda", "cpu")):
     """Phase 22: the 16x4 slot coater on each of ``devices``: the golden
     deck (dt 0.02 without adaptation, forcing "fixed") on ``tpu_direct``,
     accepted steps' Newton SC_GOLDEN_NEWTON with the second attempt failed
     and halved; bench.py's ``gmres_ndlu`` rung over the warm leg: the same
     attempts (t, dt, Newton iterations, outcome) on both devices. x within
-    SC_X_TOL for both."""
-    for case in ("golden tpu_direct", "gmres_ndlu warm leg"):
+    SC_X_TOL for both. The CPU runs come from ``cpu_runs``."""
+    for case in SLOT_CASES:
         runs = {}
         for d in devices:
-            dev = torch.device(d)
-            if case.startswith("golden"):
-                prob, ts, x0 = slot_coater_problem(
-                    16, 4, "tpu_direct", dev, t_end=0.06,
-                    newton_overrides=dict(forcing="fixed"))
-                ts.topts.adapt, ts.topts.dt0 = False, 0.02
+            if d == "cpu":
+                runs[d] = cpu_runs("slot", lambda: {
+                    c: slot_cross_check_run(c, torch.device("cpu"))
+                    for c in SLOT_CASES})[case]
             else:
-                prob, ts, x0 = slot_coater_problem(16, 4, "gmres_ndlu", dev)
-            att = record_attempts(ts)
-            r = ts.run(x0, prob.base_params())
-            classify(att, r.steps)
-            runs[d] = ([(round(a["t"], 12), round(a["dt"], 12), a["newton"],
-                         a["outcome"]) for a in att], r)
+                runs[d] = slot_cross_check_run(case, torch.device(d))
         a, b = devices
-        (la, ra), (lb, rb) = runs[a], runs[b]
-        dx = rel_dx(ra.x, rb.x)
-        its = [s.newton_iters for s in ra.steps]
+        (la, xa, its), (lb, xb, _) = runs[a], runs[b]
+        dx = rel_dx(xa, xb)
         log(f"cross-check 16x4 slot coater {case}: {len(la)} attempts, "
             f"accepted Newton {its}; attempts {a} == {b}: {la == lb}; max "
             f"|x_{a} - x_{b}| / (1 + |x_{b}|) = {dx:.2e}")
@@ -2851,26 +2997,34 @@ def buoyant_direct_phase(bprob, bx):
     return ln
 
 
+def small_option_run(name, dev):
+    """The 8x8 cavity (float64) with option ``name`` of SMALL_OPTIONS on
+    ``dev``: (Newton result, seconds, preconditioner kind)."""
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+
+    kw, coarse_solve, _ = SMALL_OPTIONS[name]
+    p8 = cavity_problem(8, dev)
+    p8.jacobian_dtype = None
+    sv = NewtonSolver(p8, NewtonOptions(tol_residual=1e-8, **kw))
+    if coarse_solve:
+        sv.precond.coarse_solve = coarse_solve
+    t0 = time.perf_counter()
+    r = sv.solve(np.zeros(p8.dofmap.n_dof), p8.base_params())
+    return r, time.perf_counter() - t0, sv._precond_kind
+
+
 def small_options_phase():
     """Phase 26: the 8x8 cavity (float64) with each of goma_tpu's other
     preconditioners and linear solvers (SMALL_OPTIONS) on cuda and on cpu:
     the same Newton count, linear iterations per step within
     SMALL_LIN_TOL, x within phase 4's bound; each option's counts printed
-    beside goma_tpu's."""
-    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
-
+    beside goma_tpu's. The CPU runs come from ``cpu_runs``."""
+    cpu = cpu_runs("options", lambda: {
+        name: small_option_run(name, torch.device("cpu"))
+        for name in SMALL_OPTIONS})
     for name, (kw, coarse_solve, ref) in SMALL_OPTIONS.items():
-        got = {}
-        for d in ("cuda", "cpu"):
-            p8 = cavity_problem(8, torch.device(d))
-            p8.jacobian_dtype = None
-            sv = NewtonSolver(p8, NewtonOptions(tol_residual=1e-8, **kw))
-            if coarse_solve:
-                sv.precond.coarse_solve = coarse_solve
-            t0 = time.perf_counter()
-            r = sv.solve(np.zeros(p8.dofmap.n_dof), p8.base_params())
-            got[d] = (r, time.perf_counter() - t0, sv._precond_kind)
-        (rc, tc, kind), (rp, tp_, _) = got["cuda"], got["cpu"]
+        (rc, tc, kind), (rp, tp_, _) = (
+            small_option_run(name, torch.device("cuda", 0)), cpu[name])
         tol = SMALL_LIN_TOL.get(name, SMALL_LIN_TOL_DEFAULT)
         dx = float(np.abs(rc.x - rp.x).max())
         log(f"8x8 cavity {name} ({kind}): Newton cuda {rc.iters} cpu "
@@ -3546,9 +3700,9 @@ def check_record(prob, res, ref, label, tol, linear=True):
     return dx
 
 
-def more_calls(solver, x_init, params, label, n=2):
+def more_calls(solver, x_init, params, label, n=1):
     """``n`` further timed solves after ``warm_then_timed``'s, each from
-    ``reset_lagged()`` (the s/iteration spread over three calls). Returns
+    ``reset_lagged()`` (the s/iteration spread over two calls). Returns
     the s/iteration of each."""
     out = []
     for _ in range(n):
@@ -3652,7 +3806,7 @@ def check_launches(solver, ln, levels, label, direct=False):
 def tilted_gmres_phase(dev, x_axis, axis_iters):
     """Phase 33: the 64x64 tilted cavity on ``gmres_ndlu`` (phase 5's
     options): the kernels on its tree; one warm-up solve,
-    ``reset_lagged()``, one timed solve and two more; goma_tpu's record
+    ``reset_lagged()``, one timed solve and one more; goma_tpu's record
     (``check_record``); the solution against phase 5's axis-aligned
     ``x_axis`` rotated into the tilted frame (Newton within 1 of its
     ``axis_iters``, TILT_AXIS_TOL); the front LU on the real fronts at the
@@ -3678,7 +3832,7 @@ def tilted_gmres_phase(dev, x_axis, axis_iters):
     check_record(prob, res, TILT_REF["gmres_ndlu"], "tilted gmres_ndlu", 1e-6)
     s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
                                                     "tilted gmres_ndlu")
-    log(f"tilted gmres_ndlu: s/iter over three calls {s_iter}")
+    log(f"tilted gmres_ndlu: s/iter over two calls {s_iter}")
     # the axis-aligned solution rotated into the tilted frame: the decks
     # share the mesh's numbering, so node k of one is node k of the other
     c, s = np.cos(TILT_THETA), np.sin(TILT_THETA)
@@ -3709,7 +3863,7 @@ def tilted_gmres_phase(dev, x_axis, axis_iters):
 def tilted_direct_phase(dev, prob, x_gmres):
     """Phase 34: the tilted cavity on ``tpu_direct`` (phase 10's options):
     the kernels on its tree (``direct_tree_phase``); one warm-up solve,
-    ``reset_lagged()``, one timed solve and two more; goma_tpu's record;
+    ``reset_lagged()``, one timed solve and one more; goma_tpu's record;
     x within BC_PATHS_TOL of phase 33's."""
     from goma_tpu_torch.solvers import NewtonSolver
 
@@ -3723,7 +3877,7 @@ def tilted_direct_phase(dev, prob, x_gmres):
     check_record(prob, res, TILT_REF["tpu_direct"], "tilted tpu_direct", 1e-6)
     s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
                                                     "tilted tpu_direct")
-    log(f"tilted tpu_direct: s/iter over three calls {s_iter}")
+    log(f"tilted tpu_direct: s/iter over two calls {s_iter}")
     dx = rel_dx(res.x, x_gmres)
     log(f"tilted tpu_direct vs gmres_ndlu: max |dx| / (1 + |x|) {dx:.3e}")
     if dx > BC_PATHS_TOL:
@@ -3814,7 +3968,7 @@ def periodic_gmres_phase(dev):
     """Phase 36: the 64x32 periodic channel on ``gmres_ndlu`` (phase 5's
     options): the aliased tree's level shapes (every separator 1 < s <=
     1000) and the kernels on it (``gmres_tree_phase``); the warm-up,
-    reset, timed solve and two more; goma_tpu's record; the Poiseuille
+    reset, timed solve and one more; goma_tpu's record; the Poiseuille
     profile."""
     from goma_tpu_torch.solvers import NewtonSolver
 
@@ -3846,7 +4000,7 @@ def periodic_gmres_phase(dev):
     check_periodic(prob, res, "periodic gmres_ndlu")
     s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
                                                     "periodic gmres_ndlu")
-    log(f"periodic gmres_ndlu: s/iter over three calls {s_iter}")
+    log(f"periodic gmres_ndlu: s/iter over two calls {s_iter}")
     return {"prob": prob, "x": res.x, "launches": ln, **tree}
 
 
@@ -3867,7 +4021,7 @@ def periodic_direct_phase(dev, prob, x_gmres):
     check_periodic(prob, res, "periodic tpu_direct")
     s_iter = [sec / max(res.iters, 1)] + more_calls(solver, x_init, params,
                                                     "periodic tpu_direct")
-    log(f"periodic tpu_direct: s/iter over three calls {s_iter}")
+    log(f"periodic tpu_direct: s/iter over two calls {s_iter}")
     dx = rel_dx(res.x, x_gmres)
     log(f"periodic tpu_direct vs gmres_ndlu: max |dx| / (1 + |x|) {dx:.3e}")
     if dx > BC_PATHS_TOL:
@@ -4899,7 +5053,8 @@ def overset_phase(dev, kind, prob=None, bi=None):
         rhs = torch.as_tensor(np.random.default_rng(46).standard_normal(
             prob.dofmap.n_dof), dtype=prob.dtype, device=dev)
         nd.solve(nd.factor(seen["last"]), rhs, trace=calls)
-        last = check_substitutions(calls, f"{label} last factorization")
+        last = check_substitutions(calls, f"{label} last factorization",
+                                   timed=False)
         tree["trsv"]["max_abs"] = max(tree["trsv"]["max_abs"], last["max_abs"])
     log(f"phase {46 if direct else 45} ({label}): {sec / max(res.iters, 1):.4f} "
         f"s/iter, phase {time.perf_counter() - t_phase:.1f} s")
@@ -5104,7 +5259,9 @@ def overset_small_phase():
     OVS_SMALL_RTOL of goma_tpu's record. Returns the bordered solve's
     launches on the card."""
     t0 = time.perf_counter()
-    runs = {d: overset_small_decks(torch.device(d)) for d in ("cuda", "cpu")}
+    runs = {"cuda": overset_small_decks(torch.device("cuda", 0)),
+            "cpu": cpu_runs("overset", lambda: overset_small_decks(
+                torch.device("cpu")))}
     (cu, ln), (cp, _) = runs["cuda"], runs["cpu"]
     ref = OVS_SMALL_REF
     want = {"direct": (ref["direct"]["newton"], ref["direct"]["drag"]),
@@ -5447,7 +5604,8 @@ def shell_kernels_after(nd, seen, tree, label, direct, prob,
         rhs = torch.as_tensor(np.random.default_rng(48).standard_normal(
             prob.dofmap.n_dof), dtype=prob.dtype, device="cuda")
         nd.solve(nd.factor(seen["last"]), rhs, trace=calls)
-        last = check_substitutions(calls, f"{label} last factorization")
+        last = check_substitutions(calls, f"{label} last factorization",
+                                   timed=False)
         tree["trsv"]["max_abs"] = max(tree["trsv"]["max_abs"], last["max_abs"])
 
 
@@ -6792,14 +6950,14 @@ def solid_small_phase(devices=("cuda", "cpu")):
     from scripts import solid_decks
 
     t0 = time.perf_counter()
-    spaces = {d: solid_namespace(torch.device(d)) for d in devices}
-    for name, deck in solid_decks.SMALL.items():
+    runs = {d: (cpu_runs("solid", lambda: small_deck_runs(
+        solid_decks.SMALL, solid_namespace(torch.device("cpu"))))
+        if d == "cpu" else small_deck_runs(
+            solid_decks.SMALL, solid_namespace(torch.device(d))))
+        for d in devices}
+    for name in solid_decks.SMALL:
         ref = SOLID_REF["small"][name]
-        outs = {}
-        for d, P in spaces.items():
-            t = time.perf_counter()
-            outs[d] = deck(P)
-            outs[d]["seconds"] = time.perf_counter() - t
+        outs = {d: runs[d][name] for d in devices}
         out = outs[devices[0]]
         dv = float(np.max(np.abs(np.subtract(out["reading"], ref["reading"]))
                           / np.maximum(np.abs(ref["reading"]), 1e-300)))
@@ -6846,10 +7004,1060 @@ def solid_phases(dev):
     return fsa, fsg, fsd, rcg, rcd
 
 
+# ---- phases 57-59: closures (suspensions, gas and surface kinetics, QMOM,
+# Spalart-Allmaras)
+SUSP_NX, SUSP_NY = 128, 32
+REACT_NX, REACT_NY = 96, 24
+# goma_tpu's record of phases 57-59 (scripts/closure_reference.py on a CPU:
+# --part suspension, --part reacting, --part small)
+CLOSURE_REF = {'suspension': {'nx': 128,
+                'ny': 32,
+                'n_dof': 58629,
+                'nnz': 3758617,
+                'steps_nominal': 10,
+                'gmres+ndlu': {'steps': [[0.05, 0.05, 6, True],
+                                         [0.07500000000000001,
+                                          0.025,
+                                          6,
+                                          True],
+                                         [0.1, 0.025, 4, True],
+                                         [0.125, 0.025, 3, True],
+                                         [0.15, 0.025, 3, True],
+                                         [0.175, 0.025, 3, True],
+                                         [0.19999999999999998,
+                                          0.025,
+                                          3,
+                                          True],
+                                         [0.22499999999999998,
+                                          0.025,
+                                          2,
+                                          True],
+                                         [0.24999999999999997,
+                                          0.025,
+                                          2,
+                                          True],
+                                         [0.27499999999999997,
+                                          0.025,
+                                          2,
+                                          True]],
+                               'failures': 0,
+                               't': 0.27499999999999997,
+                               'phi': [[0.38293766708572496,
+                                        0.387491677836406,
+                                        0.3917274119261699,
+                                        0.39434374601255845,
+                                        0.3966546553177776,
+                                        0.3978653084381031,
+                                        0.398877912880042,
+                                        0.3993282052958551,
+                                        0.3996847745819522,
+                                        0.3998213975237482,
+                                        0.39992385284511833,
+                                        0.3999581343794733,
+                                        0.3999823628976153,
+                                        0.39998970941404477,
+                                        0.3999944793177079,
+                                        0.39999605611897066,
+                                        0.39999689834750196,
+                                        0.3999971924641884,
+                                        0.39999711895936574,
+                                        0.3999983913180285,
+                                        0.3999994182534525,
+                                        0.3999955213809584,
+                                        0.39999087938470357,
+                                        0.4000113189427829,
+                                        0.4000362433604066,
+                                        0.3999519295265272,
+                                        0.399839295321567,
+                                        0.400289326404484,
+                                        0.40110646045247683,
+                                        0.4004124116011114,
+                                        0.3988115414904218,
+                                        0.4008448923498206,
+                                        0.5226441642667357,
+                                        0.40084489234978193,
+                                        0.39881154149042236,
+                                        0.40041241160111063,
+                                        0.4011064604524724,
+                                        0.4002893264044814,
+                                        0.39983929532156326,
+                                        0.399951929526525,
+                                        0.40003624336040916,
+                                        0.40001131894279424,
+                                        0.3999908793847313,
+                                        0.3999955213809515,
+                                        0.39999941825343144,
+                                        0.3999983913180317,
+                                        0.3999971189593802,
+                                        0.3999971924642031,
+                                        0.39999689834749963,
+                                        0.3999960561189724,
+                                        0.3999944793177259,
+                                        0.3999897094140484,
+                                        0.39998236289760314,
+                                        0.39995813437945943,
+                                        0.3999238528451215,
+                                        0.3998213975237576,
+                                        0.399684774581964,
+                                        0.3993282052958499,
+                                        0.39887791288003743,
+                                        0.39786530843807993,
+                                        0.39665465531777755,
+                                        0.39434374601254385,
+                                        0.39172741192619587,
+                                        0.3874916778363807,
+                                        0.38293766708570975],
+                                       [0.31386844732333846,
+                                        0.33890803395183616,
+                                        0.3716381895517434,
+                                        0.3907438080728575,
+                                        0.41596804784697244,
+                                        0.4083867516673555,
+                                        0.40432287001052136,
+                                        0.4053367692053953,
+                                        0.4086145748544424,
+                                        0.4049960369103051,
+                                        0.4094816002433042,
+                                        0.4040332773787691,
+                                        0.4148699108381265,
+                                        0.4019484456960152,
+                                        0.40537916281109904,
+                                        0.40239554046601,
+                                        0.4023906203279391,
+                                        0.40172077192153677,
+                                        0.4010291798045404,
+                                        0.4011409923284153,
+                                        0.40052518542187526,
+                                        0.4007112755053668,
+                                        0.4002156751671423,
+                                        0.4004090017170548,
+                                        0.4000253788286249,
+                                        0.4002126240297137,
+                                        0.39999607530470627,
+                                        0.40047346382319554,
+                                        0.40090371160471944,
+                                        0.40371677230050207,
+                                        0.40719705833554654,
+                                        0.4112085437227017,
+                                        0.4135146822114194,
+                                        0.4112085437227052,
+                                        0.40719705833555386,
+                                        0.40371677230050573,
+                                        0.40090371160471167,
+                                        0.4004734638232019,
+                                        0.39999607530471615,
+                                        0.40021262402972296,
+                                        0.40002537882866085,
+                                        0.4004090017170328,
+                                        0.400215675167273,
+                                        0.4007112755051959,
+                                        0.40052518542567467,
+                                        0.40114099232433215,
+                                        0.40102917982575786,
+                                        0.40172077189984184,
+                                        0.4023906203721777,
+                                        0.4023955404586435,
+                                        0.40537916276380875,
+                                        0.4019484457673947,
+                                        0.4148699106509612,
+                                        0.4040332774828405,
+                                        0.40948160018183843,
+                                        0.40499603687494545,
+                                        0.4086145749030477,
+                                        0.40533676920161116,
+                                        0.40432287001185846,
+                                        0.4083867516677771,
+                                        0.4159680478469719,
+                                        0.3907438080725439,
+                                        0.3716381895513521,
+                                        0.33890803395184615,
+                                        0.31386844732348734]],
+                               'moved_rows': [19, 47],
+                               'levels': [[74, 127],
+                                          [254, 192],
+                                          [128, 177],
+                                          [64, 100],
+                                          [32, 144],
+                                          [16, 268],
+                                          [8, 192],
+                                          [4, 424],
+                                          [2, 326],
+                                          [1, 281]],
+                               'x_norm': 17622.557894540183,
+                               'x_max': 468.92854022504247,
+                               'x_samples': [0.0,
+                                             0.19232755020767106,
+                                             7.810826266625688e-12,
+                                             0.3996847745819861,
+                                             0.39995813947624886,
+                                             -6.669580085026558e-06,
+                                             0.00027843990832678353,
+                                             0.3999984657791175,
+                                             1.347041997354227,
+                                             1.4200779341205514,
+                                             335.7825345486222,
+                                             -0.00034114748531754866,
+                                             1.510299181946486,
+                                             2.0271747542367117e-08,
+                                             -3.090192256488305e-12,
+                                             0.3999908793843979,
+                                             0.3999984180199357,
+                                             1.1236292639404977,
+                                             63.125211581626566,
+                                             0.39995814089821513,
+                                             4.406476428642701,
+                                             0.4447641869361938,
+                                             -2.4079888364812785e-10,
+                                             12.477452005420053]},
+                'tpu_direct': {'steps': [[0.05, 0.05, 6, True],
+                                         [0.07500000000000001,
+                                          0.025,
+                                          6,
+                                          True],
+                                         [0.1, 0.025, 4, True],
+                                         [0.125, 0.025, 2, True],
+                                         [0.15, 0.025, 2, True],
+                                         [0.175, 0.025, 2, True],
+                                         [0.19999999999999998,
+                                          0.025,
+                                          2,
+                                          True],
+                                         [0.22499999999999998,
+                                          0.025,
+                                          2,
+                                          True],
+                                         [0.24999999999999997,
+                                          0.025,
+                                          2,
+                                          True],
+                                         [0.27499999999999997,
+                                          0.025,
+                                          2,
+                                          True]],
+                               'failures': 0,
+                               't': 0.27499999999999997,
+                               'phi': [[0.38293766709008403,
+                                        0.387491677839998,
+                                        0.3917274119286918,
+                                        0.3943437460136194,
+                                        0.3966546553173554,
+                                        0.3978653084369147,
+                                        0.3988779128783299,
+                                        0.39932820529428326,
+                                        0.39968477458068485,
+                                        0.39982139752284124,
+                                        0.399923852844578,
+                                        0.39995813437912714,
+                                        0.3999823628974463,
+                                        0.3999897094139505,
+                                        0.3999944793176682,
+                                        0.39999605611894573,
+                                        0.3999968983474991,
+                                        0.3999971924641889,
+                                        0.39999711895936363,
+                                        0.39999839131803266,
+                                        0.3999994182534806,
+                                        0.39999552138095473,
+                                        0.39999087938464306,
+                                        0.4000113189427998,
+                                        0.4000362433606194,
+                                        0.3999519295265655,
+                                        0.3998392953210655,
+                                        0.40028932640476383,
+                                        0.40110646045454157,
+                                        0.4004124116002785,
+                                        0.39881154147943415,
+                                        0.40084489234656606,
+                                        0.5226441643042755,
+                                        0.40084489234655024,
+                                        0.3988115414794697,
+                                        0.4004124116002797,
+                                        0.40110646045453036,
+                                        0.4002893264047624,
+                                        0.39983929532106793,
+                                        0.39995192952656633,
+                                        0.40003624336061927,
+                                        0.4000113189428006,
+                                        0.39999087938464445,
+                                        0.39999552138095584,
+                                        0.3999994182534815,
+                                        0.39999839131803455,
+                                        0.39999711895936635,
+                                        0.3999971924641913,
+                                        0.3999968983475011,
+                                        0.3999960561189476,
+                                        0.3999944793176699,
+                                        0.3999897094139537,
+                                        0.3999823628974506,
+                                        0.399958134379131,
+                                        0.3999238528445813,
+                                        0.3998213975228442,
+                                        0.3996847745806873,
+                                        0.39932820529428553,
+                                        0.39887791287833174,
+                                        0.3978653084369166,
+                                        0.39665465531735705,
+                                        0.39434374601361905,
+                                        0.3917274119286895,
+                                        0.38749167784000305,
+                                        0.38293766709009563],
+                                       [0.31386844731732105,
+                                        0.3389080339369688,
+                                        0.3716381895415021,
+                                        0.39074380808568343,
+                                        0.4159680478107481,
+                                        0.4083867517658893,
+                                        0.4043228702092594,
+                                        0.40533676899142246,
+                                        0.4086145744576576,
+                                        0.4049960370077703,
+                                        0.409481601105826,
+                                        0.4040332773500506,
+                                        0.4148699110402456,
+                                        0.4019484457059779,
+                                        0.4053791628776876,
+                                        0.4023955403745235,
+                                        0.40239062046881824,
+                                        0.40172077192629174,
+                                        0.4010291800234465,
+                                        0.4011409921901992,
+                                        0.4005251856253584,
+                                        0.4007112754361773,
+                                        0.40021567520651374,
+                                        0.40040900171929855,
+                                        0.4000253788286164,
+                                        0.40021262403147084,
+                                        0.3999960753055077,
+                                        0.40047346382160215,
+                                        0.4009037115998037,
+                                        0.40371677229732056,
+                                        0.4071970583378695,
+                                        0.4112085437301109,
+                                        0.4135146822206221,
+                                        0.4112085437301102,
+                                        0.40719705833786823,
+                                        0.4037167722973196,
+                                        0.4009037115998033,
+                                        0.400473463821602,
+                                        0.39999607530550757,
+                                        0.40021262403147073,
+                                        0.40002537882861633,
+                                        0.4004090017192986,
+                                        0.400215675206514,
+                                        0.4007112754361775,
+                                        0.40052518562535844,
+                                        0.4011409921901994,
+                                        0.4010291800234469,
+                                        0.40172077192629196,
+                                        0.4023906204688187,
+                                        0.4023955403745234,
+                                        0.4053791628776892,
+                                        0.4019484457059773,
+                                        0.41486991104024884,
+                                        0.4040332773500515,
+                                        0.40948160110582105,
+                                        0.40499603700776937,
+                                        0.40861457445765687,
+                                        0.40533676899142196,
+                                        0.40432287020925795,
+                                        0.40838675176588823,
+                                        0.4159680478107459,
+                                        0.3907438080856831,
+                                        0.37163818954150224,
+                                        0.3389080339369703,
+                                        0.313868447317323]],
+                               'moved_rows': [19, 47],
+                               'levels': [[74, 127],
+                                          [254, 192],
+                                          [128, 177],
+                                          [64, 100],
+                                          [32, 144],
+                                          [16, 268],
+                                          [8, 192],
+                                          [4, 424],
+                                          [2, 326],
+                                          [1, 281]],
+                               'x_norm': 17622.55789385478,
+                               'x_max': 468.9285402076166,
+                               'x_samples': [0.0,
+                                             0.19232755020091832,
+                                             7.816277708759129e-12,
+                                             0.3996847745806984,
+                                             0.39995813947591596,
+                                             -6.669578987848276e-06,
+                                             0.0002784399065324494,
+                                             0.39999846577912396,
+                                             1.3470419973569692,
+                                             1.4200779341291783,
+                                             335.78253453499093,
+                                             -0.00034114748520552927,
+                                             1.5102991819448919,
+                                             2.0271753862786488e-08,
+                                             -3.0940422812238226e-12,
+                                             0.39999087938434497,
+                                             0.3999984180199396,
+                                             1.1236292639373562,
+                                             63.12521158093326,
+                                             0.39995814089787274,
+                                             4.406476428669179,
+                                             0.44476418692587033,
+                                             -2.4080002431557e-10,
+                                             12.477452006818636]}},
+ 'reacting': {'nx': 96,
+              'ny': 24,
+              'n_dof': 49710,
+              'nnz': 4313532,
+              'b_seed': 0.01,
+              'gmres+ndlu': {'converged': True,
+                             'finite': True,
+                             'newton': 4,
+                             'linear': [1, 5, 4, 4],
+                             'levels': [[12, 113],
+                                        [232, 187],
+                                        [128, 186],
+                                        [64, 133],
+                                        [32, 144],
+                                        [16, 213],
+                                        [8, 344],
+                                        [4, 640],
+                                        [2, 444],
+                                        [1, 382]],
+                             'wall_dT': 63.893146315428,
+                             'conversion': 0.5124213645185863,
+                             'x_norm': 30765.51109822448,
+                             'x_max': 363.893146315428,
+                             'x_samples': [0.0,
+                                           4.140873114085732,
+                                           0.3398413913661427,
+                                           0.6562499995432484,
+                                           0.4366754540332759,
+                                           0.9895822524430984,
+                                           1.0908984737233516,
+                                           0.5365722890963441,
+                                           0.9969158212921415,
+                                           4.058877937646512e-13,
+                                           1.4765625000394202,
+                                           308.45994765950417,
+                                           310.98651056279874,
+                                           0.3196433722800175,
+                                           0.6171557087586024,
+                                           0.04389232325220794,
+                                           1.2395833333333233,
+                                           3.59087311408793,
+                                           0.15158075795008527,
+                                           0.8333333169828777,
+                                           0.276324068892886,
+                                           0.4582959579966911,
+                                           0.5421044517466472,
+                                           315.6372197682511]},
+              'tpu_direct': {'converged': True,
+                             'finite': True,
+                             'newton': 4,
+                             'linear': [1, 1, 1, 1],
+                             'levels': [[12, 113],
+                                        [232, 187],
+                                        [128, 186],
+                                        [64, 133],
+                                        [32, 144],
+                                        [16, 213],
+                                        [8, 344],
+                                        [4, 640],
+                                        [2, 444],
+                                        [1, 382]],
+                             'wall_dT': 63.89314630958239,
+                             'conversion': 0.5124213645328324,
+                             'x_norm': 30765.51109821705,
+                             'x_max': 363.8931463095824,
+                             'x_samples': [0.0,
+                                           4.14087311408573,
+                                           0.3398413913710299,
+                                           0.6562499995432484,
+                                           0.4366754540932805,
+                                           0.9895822524430983,
+                                           1.090898473723351,
+                                           0.5365722890918397,
+                                           0.9969158212921414,
+                                           4.058794372970164e-13,
+                                           1.4765625000394205,
+                                           308.4599476595199,
+                                           310.98651056286025,
+                                           0.3196433722961197,
+                                           0.6171557087388919,
+                                           0.04389232325220894,
+                                           1.2395833333333237,
+                                           3.5908731140879286,
+                                           0.1515807579501429,
+                                           0.8333333169828777,
+                                           0.27632406889479133,
+                                           0.45829595799669115,
+                                           0.5421044517466468,
+                                           315.63721976838696]},
+              'direct': {'newton': 4,
+                         'converged': True,
+                         'wall_dT': 63.89314630957716,
+                         'conversion': 0.5124213645325801,
+                         'x_norm': 30765.511098217037,
+                         'x_max': 363.89314630957716,
+                         'x_samples': [0.0,
+                                       4.14087311408573,
+                                       0.33984139137102987,
+                                       0.6562499995432484,
+                                       0.4366754540932804,
+                                       0.9895822524430984,
+                                       1.0908984737233518,
+                                       0.5365722890917747,
+                                       0.9969158212921414,
+                                       4.0570634782728916e-13,
+                                       1.4765625000394205,
+                                       308.45994765951997,
+                                       310.98651056286025,
+                                       0.3196433722961196,
+                                       0.6171557087388927,
+                                       0.04389232325220891,
+                                       1.2395833333333237,
+                                       3.5908731140879304,
+                                       0.15158075795014286,
+                                       0.8333333169828777,
+                                       0.2763240688947913,
+                                       0.45829595799669115,
+                                       0.5421044517466468,
+                                       315.63721976838696]}},
+ 'small': {'particle_settling': {'newton': 1,
+                                 'reading': [-0.002380952380952382]},
+           'two_way_drag': {'newton': 0, 'reading': [2440.0, 0.0]},
+           'reaction_diffusion': {'newton': 4,
+                                  'reading': [0.6375707491754274]},
+           'reversible_equilibrium': {'newton': 2,
+                                      'reading': [0.1999999999999999,
+                                                  0.8000000000000002]},
+           'exothermic': {'newton': 4, 'reading': [2.9886534979119292]},
+           'adaptive_closure': {'newton': 0, 'reading': [1.1013888888888894]},
+           'moments_growth': {'newton': 25,
+                              'reading': [1.0,
+                                          1.4,
+                                          2.1200639999999984,
+                                          3.5122759679999978]},
+           'sa_decay': {'newton': 112,
+                        'reading': [0.04967744661162761, 0.005]},
+           'vorticity_direction': {'newton': 2, 'reading': [1.0]},
+           'rans': {'newton': 7, 'reading': [0.05, 1.4961198620643223]},
+           'placid_langmuir': {'newton': 0,
+                               'reading': [0.9848473784006324,
+                                           0.8904037235457368,
+                                           0.9653440541790659,
+                                           0.9794178364991168,
+                                           0.9853622342997583,
+                                           0.9886424446989034,
+                                           0.9907216511227137,
+                                           0.9921573841499837,
+                                           0.9932083283835974]},
+           'placid_deposition': {'newton': 0,
+                                 'reading': [0.02714224916566998,
+                                             0.97285775083433,
+                                             0.25,
+                                             0.75]}}}
+# x at 24 dofs and phi up the lines x = 4 and x = 8 against goma_tpu's
+# record, max |dx| / max |x| (as phases 54-55)
+CLOSURE_X_RTOL = 1e-6
+# node rows on each line where phi must move by more than 1e-3
+SUSP_MOVED_MIN = 8
+# PLACID at every wall point on the card against the CPU: z and sdot,
+# max |d| / max |.|
+PLACID_RTOL = 1e-10
+# the small decks' readings against goma_tpu's, relative, and x on cuda
+# against cpu, max |dx| / (1 + |x|)
+CLOSURE_SMALL_RTOL = 1e-8
+CLOSURE_SMALL_X_TOL = 1e-8
+# the vorticity direction on the card against the CPU where the rate of
+# strain's spectral gap is at least 1e-6 (value and tangent)
+EIG_RTOL = 1e-10
+
+
+def closure_namespace(device):
+    """scripts/closure_decks.py's namespace for the port on ``device``."""
+    from scripts import closure_decks
+
+    def arr(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    return closure_decks.namespace("goma_tpu_torch", torch, arr,
+                                   device=device)
+
+
+def closure_setup(deck, dev):
+    """The 128x32 suspension channel or the 96x24 reacting wall channel on
+    the card, checked against goma_tpu's dof and nnz counts. Returns
+    (problem, x0)."""
+    from scripts import closure_decks as cd
+
+    t0 = time.perf_counter()
+    P = closure_namespace(dev)
+    ref = CLOSURE_REF[deck]
+    if deck == "suspension":
+        prob, x0 = cd.suspension(P, SUSP_NX, SUSP_NY)
+        what = (f"{SUSP_NX}x{SUSP_NY} QUAD9, Navier-Stokes Q2/Q1 + q-tensor "
+                "Phillips migration (Q2) + projected shear rate (Q1)")
+    else:
+        prob, x0 = cd.reacting(P, REACT_NX, REACT_NY)
+        what = (f"{REACT_NX}x{REACT_NY} QUAD9, Navier-Stokes Q2/Q1 + "
+                "Species(2) + Energy (Q2), Chemkin gas chemistry, PLACID "
+                "wall flux")
+    log(f"{deck} setup: {what}, {prob.dofmap.n_dof} dof (goma_tpu "
+        f"{ref['n_dof']}), {prob.pattern.nnz} nnz (goma_tpu {ref['nnz']}); "
+        f"{time.perf_counter() - t0:.2f} s")
+    if (prob.dofmap.n_dof, prob.pattern.nnz) != (ref["n_dof"], ref["nnz"]):
+        raise RuntimeError(f"{deck} deck: dof or nnz count differs from "
+                           "goma_tpu's")
+    return prob, x0
+
+
+def closure_tree(prob, solver, label, direct, x0):
+    """The kernels on the deck's tree at its initial state ``x0`` (the CSR
+    values the rung's first factorization sees; x = 0 is no state of these
+    decks: T = 0 K); see ``shell_tree``."""
+    params = prob.base_params()
+    xt = torch.as_tensor(np.asarray(x0), dtype=prob.dtype, device="cuda")
+    if direct:
+        vals = solver._prepare(xt, params)[1]
+    else:
+        vals = solver._scaled_vals(xt, params,
+                                   solver._prepare_fast32(xt, params)[2])
+    return shell_tree(prob, solver, label, direct, vals, at="x0")
+
+
+def suspension_phase(dev, kind, prob=None, x0=None):
+    """Phase 57: the 128x32 suspension channel on ``kind``: the transient
+    driver, ten backward-Euler steps of ``closure_decks.SUSP_DT`` without
+    adaptation, bench._cavity_opts(kind, tol=1e-9, max_iter=12) restated.
+    Gates: goma_tpu's step records (Newton exactly on ``tpu_direct``, +-1
+    a step on ``gmres+ndlu``), phi up x = 4 and x = 8 and x at 24 dofs
+    within CLOSURE_X_RTOL of max |x| from goma_tpu's, phi moved by more
+    than 1e-3 at SUSP_MOVED_MIN or more node rows of each line; the launch
+    identities; the kernels on the run's last factorization (its first is
+    the initial state's, held before the run)."""
+    from goma_tpu_torch.solvers.batched_lu import batched_lu
+    from goma_tpu_torch.solvers.batched_trsv import batched_trsv
+    from goma_tpu_torch.solvers.front_gather import front_gather
+    from goma_tpu_torch.solvers.transient import TransientSolver
+    from scripts import closure_decks as cd
+
+    label = f"suspension {kind}"
+    t_phase = time.perf_counter()
+    ref = CLOSURE_REF["suspension"][kind]
+    if prob is None:
+        prob, x0 = closure_setup("suspension", dev)
+    direct = kind == "tpu_direct"
+    P = closure_namespace(dev)
+    ts = TransientSolver(prob, (direct_opts if direct else cavity_opts)(
+        tol=1e-9, max_iter=cd.SUSP_MAX_ITER), cd.suspension_time(P))
+    sv = ts.newton
+    nd, tree = closure_tree(prob, sv, label, direct, x0)
+    check_ref_levels(nd, ref, label)
+    params = prob.base_params()
+    seen = record_factor_vals(nd)
+    sv.reset_lagged()
+    sv.n_factor = sv._ndlu_nfactor = sv.n_discarded = 0
+    sv.direct_log = []
+    if sv._ndlu is not None:
+        sv._ndlu.n_solve = 0
+    batched_lu.launches = batched_trsv.launches = front_gather.launches = 0
+    per_step = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = ts.run(x0, params, callback=lambda t, x, xdot, res: per_step.append(res))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = {"lu": batched_lu.launches, "trsv": batched_trsv.launches,
+          "gather": front_gather.launches}
+    check_launches(sv, ln, len(nd.levels), label, direct=direct)
+    steps = cd.step_records(r)
+    nit = sum(s[2] for s in steps if s[3])
+    asm = sum(x.assembly_time for x in per_step)
+    slv = sum(x.solve_time for x in per_step)
+    for s, x in zip(r.steps, per_step):
+        log(f"{label} step t={s.t:.3f} dt={s.dt:.4g}: Newton "
+            f"{s.newton_iters}, linear {x.linear_iters}")
+    dts = [cd.SUSP_DT] + [s[1] for s in steps]
+    halved = sum(1 for a, b in zip(dts, dts[1:]) if b < a)
+    log(f"{label}: {len(steps)} steps to t = {r.t:.3f}, dt halved {halved} "
+        f"time(s) after a failed attempt, {nit} Newton iterations (goma_tpu "
+        f"{sum(s[2] for s in ref['steps'] if s[3])}), factorizations "
+        f"{sv.n_factor + sv._ndlu_nfactor}, launches front-LU {ln['lu']} "
+        f"front-gather {ln['gather']} substitution {ln['trsv']}; asm "
+        f"{asm / max(nit, 1) * 1e3:.1f} ms + slv {slv / max(nit, 1) * 1e3:.1f}"
+        f" ms per iteration, {sec / max(nit, 1):.4f} s/iter (total "
+        f"{sec:.3f} s)")
+    rs = ref["steps"]
+    ok = (len(steps) == len(rs) and r.n_failures == ref["failures"]
+          and all(abs(a[0] - b[0]) <= 1e-9 * b[0] and a[1] == b[1] and a[3]
+                  for a, b in zip(steps, rs))
+          and all((a[2] == b[2]) if direct else abs(a[2] - b[2]) <= 1
+                  for a, b in zip(steps, rs)))
+    if not ok:
+        raise RuntimeError(f"{label}: step records {steps} (failures "
+                           f"{r.n_failures}) are not goma_tpu's {rs} "
+                           f"(failures {ref['failures']})")
+    if r.x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(r.x)):
+        raise RuntimeError(f"{label}: the end state has the wrong shape or "
+                           "non-finite values")
+    x_against(cd.readings(r.x), ref, label)
+    phi = cd.phi_profiles(prob, r.x)
+    dphi = max(float(np.abs(np.subtract(a, b)).max())
+               for a, b in zip(phi, ref["phi"])) / ref["x_max"]
+    moved = cd.moved_rows(prob, r.x, x0)
+    for xl, prof in zip(cd.SUSP_LINES, phi):
+        log(f"{label}: phi up x = {xl:g} ({len(prof)} node rows, every 4th): "
+            + ", ".join(f"{v:.5f}" for v in prof[::4]))
+    log(f"{label}: phi at the {sum(len(p) for p in phi)} nodes of x = 4 and "
+        f"x = 8, max |dphi| / max |x| {dphi:.2e} from goma_tpu's; node rows "
+        f"where phi moved by more than 1e-3: {moved} (goma_tpu "
+        f"{ref['moved_rows']})")
+    if [len(p) for p in phi] != [len(p) for p in ref["phi"]] \
+            or dphi > CLOSURE_X_RTOL:
+        raise RuntimeError(f"{label}: phi profiles {dphi:.2e} from "
+                           f"goma_tpu's > {CLOSURE_X_RTOL:.0e}")
+    if min(moved) < SUSP_MOVED_MIN:
+        raise RuntimeError(f"{label}: phi moved at {moved} node rows, fewer "
+                           f"than {SUSP_MOVED_MIN} on a line")
+    del nd.factor  # record_factor_vals's wrapper
+    # the run's first factorization is the initial state's: checked above
+    shell_kernels_after(nd, seen, tree, label, direct, prob, keys=("last",))
+    log(f"phase 57 ({label}): {sec / max(nit, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"prob": prob, "x0": x0, "launches": ln, **tree}
+
+
+def placid_wall_check(prob, x, label):
+    """PLACID at every bottom-wall quadrature point of the state ``x``
+    (``closure_decks.wall_points``) on the card against the CPU: z and
+    sdot within PLACID_RTOL, the same iteration counts."""
+    from scripts import closure_decks as cd
+
+    X, T = cd.wall_points(prob, x)
+    outs = []
+    for d in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        z, sd, conv, it = cd.wall_placid(closure_namespace(torch.device(d)),
+                                         X, T)
+        outs.append([t.cpu().numpy() for t in (z, sd, conv, it)]
+                    + [time.perf_counter() - t0])
+    (zc, sc, cc, ic, tc), (zh, sh, ch, ih, th) = outs
+    dz = float(np.abs(zc - zh).max() / np.abs(zh).max())
+    ds = float(np.abs(sc - sh).max() / np.abs(sh).max())
+    trips = {int(k): int(v) for k, v in zip(*np.unique(ic, return_counts=True))}
+    log(f"{label}: PLACID at {len(T)} wall points, card against CPU: z "
+        f"{dz:.2e}, sdot {ds:.2e} relative, iterations {trips} (card) "
+        f"{'equal' if np.array_equal(ic, ih) else 'DIFFER'} on the CPU, "
+        f"converged {int(cc.sum())}/{len(cc)}; B fraction at the wall "
+        f"{X[:, 1].min():.3e}-{X[:, 1].max():.3e}; {tc:.2f} s / {th:.2f} s")
+    if not (dz <= PLACID_RTOL and ds <= PLACID_RTOL and np.array_equal(ic, ih)
+            and np.array_equal(cc, ch) and cc.all()):
+        raise RuntimeError(f"{label}: PLACID on the card differs from the CPU "
+                           f"(z {dz:.2e}, sdot {ds:.2e}) or did not converge")
+
+
+def reacting_phase(dev, kind, prob=None, x0=None):
+    """Phase 58: the 96x24 reacting wall channel, steady, on ``kind`` under
+    bench._cavity_opts(kind, tol=1e-9, max_iter=12) restated: the tree
+    against goma_tpu's before any solve; the kernels on its real fronts at
+    the initial state; ``reset_lagged()`` and one timed solve, no warm-up
+    (counts set to 0 just before and read just after); goma_tpu's
+    Newton count (exactly on ``tpu_direct``; on ``gmres+ndlu`` +-1 where
+    goma_tpu's own run of that rung converged finite, else printed beside
+    it); x at 24 dofs within CLOSURE_X_RTOL of max |x| from goma_tpu's
+    ``tpu_direct`` record and its float64 solution; the wall temperature
+    rise and outlet conversion; PLACID at every wall point against the
+    CPU (``placid_wall_check``); the launch identities; the kernels on the
+    timed run's last factorization (the first is the initial state's, held
+    before the run)."""
+    from goma_tpu_torch.solvers import NewtonSolver
+    from scripts import closure_decks as cd
+
+    label = f"reacting {kind}"
+    t_phase = time.perf_counter()
+    rec = CLOSURE_REF["reacting"]
+    ref = rec[kind]
+    if prob is None:
+        prob, x0 = closure_setup("reacting", dev)
+    direct = kind == "tpu_direct"
+    solver = NewtonSolver(prob, (direct_opts if direct else cavity_opts)(
+        tol=1e-9, max_iter=cd.REACT_MAX_ITER))
+    nd, tree = closure_tree(prob, solver, label, direct, x0)
+    check_ref_levels(nd, ref, label)
+    seen = record_factor_vals(nd)
+    # no warm-up (as phase 55): each reacting solve is ~1 s a Newton
+    # iteration of PLACID face prep, and the tree's checks above warmed up
+    res, sec, ln = warm_then_timed(solver, x0, prob.base_params(), label,
+                                   warm=False)
+    check_launches(solver, ln, len(nd.levels), label, direct=direct)
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: the solution has the wrong shape or "
+                           "non-finite values")
+    if not res.converged or res.res_norms[-1][1] > 1e-9:
+        raise RuntimeError(f"{label} did not converge to 1e-9")
+    out = cd.reacting_outputs(prob, x)
+    ref_ok = ref["converged"] and ref["finite"]
+    log(f"{label}: Newton {res.iters}, linear {res.linear_iters}; goma_tpu "
+        f"{kind}: Newton {ref['newton']}, linear {ref['linear']}, converged "
+        f"{ref['converged']}, finite {ref['finite']}; wall temperature rise "
+        f"{out['wall_dT']:.6f} K (goma_tpu {rec['tpu_direct']['wall_dT']:.6f}),"
+        f" outlet conversion {out['conversion']:.8f} (goma_tpu "
+        f"{rec['tpu_direct']['conversion']:.8f})")
+    newton_ok = (res.iters == ref["newton"] if direct
+                 else not ref_ok or abs(res.iters - ref["newton"]) <= 1)
+    if not newton_ok:
+        raise RuntimeError(f"{label} took {res.iters} Newton iterations, not "
+                           f"goma_tpu's {ref['newton']}"
+                           + ("" if direct else " +- 1"))
+    x_against(cd.readings(x), rec["tpu_direct"], label, rec["direct"])
+    placid_wall_check(prob, x, label)
+    del nd.factor  # record_factor_vals's wrapper
+    # the run's first factorization is the initial state's: checked above
+    shell_kernels_after(nd, seen, tree, label, direct, prob, keys=("last",))
+    log(f"phase 58 ({label}): {sec / max(res.iters, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"prob": prob, "x0": x0, "launches": ln, **tree}
+
+
+def vorticity_direction_check():
+    """The vorticity direction (the middle eigenvector of the rate of
+    strain, ``VorticityDirection.vort_dir``) and its tangent on the card
+    against the CPU at 4,096 seeded 2D and 3D velocity gradients, where the
+    spectral gap is at least 1e-6: within EIG_RTOL. At the degenerate
+    points (zero shear and a pure rotation: E = 0, a triple eigenvalue)
+    both devices' values are printed: ``eigh`` may pick another basis
+    there, and the tangent is 0 on both; simple shear (-gd, 0, gd) gives
+    e_z on both."""
+    from goma_tpu_torch.physics.suspension import VorticityDirection
+
+    rng = np.random.default_rng(59)
+    degenerate = np.zeros((3, 3, 3))
+    degenerate[1, 0, 1], degenerate[1, 1, 0] = 1.0, -1.0   # pure rotation
+    degenerate[2, 0, 1] = 2.0                               # simple shear
+    grads = [rng.standard_normal((2048, 2, 2)),
+             rng.standard_normal((2048, 3, 3)), degenerate]
+    tangents = [rng.standard_normal(g.shape) for g in grads]
+
+    def vd(gg):
+        return VorticityDirection.vort_dir(
+            types.SimpleNamespace(grad={"velocity": gg}))
+
+    res = {}
+    for d, dev in (("cuda", torch.device("cuda", 0)),
+                   ("cpu", torch.device("cpu"))):
+        res[d] = []
+        for g, dg in zip(grads, tangents):
+            v, t = torch.func.jvp(vd, (torch.as_tensor(g, device=dev),),
+                                  (torch.as_tensor(dg, device=dev),))
+            res[d].append((v.cpu().numpy(), t.cpu().numpy()))
+    worst = 0.0
+    for k, name in ((0, "2D"), (1, "3D")):
+        g = grads[k]
+        E = np.zeros((len(g), 3, 3))
+        d = g.shape[1]
+        E[:, :d, :d] = g + np.swapaxes(g, 1, 2)
+        lam = np.linalg.eigvalsh(E)
+        ok = np.minimum(lam[:, 1] - lam[:, 0], lam[:, 2] - lam[:, 1]) >= 1e-6
+        (vc, tc), (vh, th) = res["cuda"][k], res["cpu"][k]
+        dv = float(np.abs(vc[ok] - vh[ok]).max())
+        dt = float(np.abs(tc[ok] - th[ok]).max() / np.abs(th[ok]).max())
+        worst = max(worst, dv, dt)
+        log(f"vorticity direction {name}: {int(ok.sum())}/{len(ok)} points "
+            f"with a gap >= 1e-6, card against CPU: value {dv:.2e}, tangent "
+            f"{dt:.2e} relative")
+    (vc, tc), (vh, th) = res["cuda"][2], res["cpu"][2]
+    for i, name in enumerate(("zero shear (triple)", "pure rotation (triple)",
+                              "simple shear (simple)")):
+        log(f"vorticity direction at {name}: card {np.round(vc[i], 12)}, "
+            f"CPU {np.round(vh[i], 12)}; tangent max |t| card "
+            f"{np.abs(tc[i]).max():.2e}, CPU {np.abs(th[i]).max():.2e}")
+    if worst > EIG_RTOL or not np.allclose(np.abs(vc[2]), [0, 0, 1]):
+        raise RuntimeError(f"vorticity direction on the card differs from "
+                           f"the CPU by {worst:.2e}")
+
+
+def closure_small_phase(devices=("cuda", "cpu")):
+    """Phase 59: goma_tpu's tests' decks of the slice (``closure_decks.
+    SMALL``: tests/test_suspension.py, test_kinetics.py,
+    test_adaptive_wheeler.py's closure deck, test_more_physics.py's moment
+    cascade, test_physics_breadth.py's SA decay (to ``SA_T_END``),
+    test_solved_aux_fields.py's vorticity direction, test_placid.py's
+    Langmuir and deposition cases) and the 32x16 RANS channel at their own
+    sizes on their own solvers, on cuda and cpu: each deck's own gate,
+    goma_tpu's Newton count, the readings within CLOSURE_SMALL_RTOL on the
+    card, and the same Newton count and x within CLOSURE_SMALL_X_TOL on
+    both devices; then ``vorticity_direction_check``."""
+    from scripts import closure_decks as cd
+
+    t0 = time.perf_counter()
+    runs = {d: (cpu_runs("closure", lambda: small_deck_runs(
+        cd.SMALL, closure_namespace(torch.device("cpu"))))
+        if d == "cpu" else small_deck_runs(
+            cd.SMALL, closure_namespace(torch.device(d))))
+        for d in devices}
+    for name in cd.SMALL:
+        ref = CLOSURE_REF["small"][name]
+        outs = {d: runs[d][name] for d in devices}
+        out = outs[devices[0]]
+        dv = float(np.max(np.abs(np.subtract(out["reading"], ref["reading"]))
+                          / np.maximum(np.abs(ref["reading"]), 1e-300)))
+        dx = max(float(np.max(np.abs(o["x"] - out["x"])
+                              / (1.0 + np.abs(out["x"]))))
+                 for o in outs.values())
+        log(f"closure small {name}: Newton " + ", ".join(
+            f"{d} {o['newton']}" for d, o in outs.items())
+            + f" (goma_tpu {ref['newton']}), reading {out['reading']} "
+            f"(relative {dv:.2e}), x {devices} max |dx| / (1 + |x|) "
+            f"{dx:.2e}; " + ", ".join(f"{d} {o['seconds']:.2f} s"
+                                      for d, o in outs.items()))
+        if any(o["newton"] != ref["newton"] for o in outs.values()):
+            raise RuntimeError(f"closure small {name}: Newton counts "
+                               f"{[o['newton'] for o in outs.values()]} vs "
+                               f"goma_tpu's {ref['newton']}")
+        if not dv <= CLOSURE_SMALL_RTOL:
+            raise RuntimeError(f"closure small {name}: reading {dv:.2e} from "
+                               "goma_tpu's")
+        if not dx <= CLOSURE_SMALL_X_TOL:
+            raise RuntimeError(f"closure small {name}: x {dx:.2e} between "
+                               "devices")
+    vorticity_direction_check()
+    log(f"phase 59 (small closure decks on {' and '.join(devices)}): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def closure_phases(dev):
+    """Phases 57-59 in order: the suspension channel on both rungs, the
+    reacting wall channel on both rungs, the small decks on cuda and cpu.
+    Returns the four main paths' records (suspension ``gmres+ndlu`` and
+    ``tpu_direct``, reacting ``gmres+ndlu`` and ``tpu_direct``)."""
+    t_cl = time.perf_counter()
+    sg = suspension_phase(dev, "gmres+ndlu")
+    sd = suspension_phase(dev, "tpu_direct", sg.pop("prob"), sg.pop("x0"))
+    rg = reacting_phase(dev, "gmres+ndlu")
+    rd = reacting_phase(dev, "tpu_direct", rg.pop("prob"), rg.pop("x0"))
+    for rec in (sd, rd):
+        rec.pop("prob")
+        rec.pop("x0")
+    closure_small_phase()
+    log(f"phases 57-59 (closures): {time.perf_counter() - t_cl:.1f} s; "
+        f"{mem_line()}")
+    return sg, sd, rg, rd
+
+
+# ---- the CPU halves of phases 22, 26, 47, 56 and 59, beside the card's
+# phases
+_CPU_SIDE = {"proc": None, "stem": None, "log": None, "out": None}
+
+
+def small_deck_runs(decks, P):
+    """{name: the deck's output with its seconds} of every deck of
+    ``decks`` in namespace ``P``."""
+    out = {}
+    for name, deck in decks.items():
+        t = time.perf_counter()
+        out[name] = deck(P)
+        out[name]["seconds"] = time.perf_counter() - t
+    return out
+
+
+def cpu_side_runs(stem):
+    """The CPU runs that phases 22, 26, 47, 56 and 59 hold the card's
+    against (the 16x4 slot coater's two cases, the 8x8 cavity with every
+    other option, the small overset, solid, porous and closure decks),
+    each group pickled to ``<stem>_<group>.pkl`` as it
+    ends. ``start_cpu_side`` runs this in a child process while the card
+    runs the phases before them."""
+    from scripts import closure_decks, solid_decks
+
+    cpu = torch.device("cpu")
+    groups = (
+        ("slot", lambda: {c: slot_cross_check_run(c, cpu) for c in SLOT_CASES}),
+        ("options", lambda: {name: small_option_run(name, cpu)
+                             for name in SMALL_OPTIONS}),
+        ("overset", lambda: overset_small_decks(cpu)),
+        ("solid", lambda: small_deck_runs(solid_decks.SMALL,
+                                          solid_namespace(cpu))),
+        ("closure", lambda: small_deck_runs(closure_decks.SMALL,
+                                            closure_namespace(cpu))))
+    for key, run in groups:
+        path = f"{stem}_{key}.pkl"
+        with open(f"{path}.tmp", "wb") as f:
+            pickle.dump(run(), f)
+        os.replace(f"{path}.tmp", path)
+
+
+def start_cpu_side():
+    """Start ``cpu_side_runs`` in a child process that sees no CUDA device
+    (two torch, OpenMP and BLAS threads), writing into the git-ignored build
+    directory."""
+    here = Path(__file__).resolve().parent
+    build = here / "goma_tpu_torch" / "_build"
+    build.mkdir(parents=True, exist_ok=True)
+    stem, log_path = build / "cpu_side", build / "cpu_side.log"
+    for old in build.glob("cpu_side_*.pkl"):
+        old.unlink()
+    # the decks' helpers synchronize the card around their launch counts;
+    # the child has none, so synchronize is a no-op there
+    code = (f"import sys; sys.path.insert(0, {str(here)!r}); import torch; "
+            "torch.set_num_threads(2); "
+            "torch.cuda.synchronize = lambda *a, **k: None; import chip_smoke; "
+            f"chip_smoke.cpu_side_runs({str(stem)!r})")
+    logf = open(log_path, "w")
+    _CPU_SIDE.update(stem=stem, log=log_path, out={}, proc=subprocess.Popen(
+        [sys.executable, "-c", code], cwd=here, stdout=logf,
+        stderr=subprocess.STDOUT, env=dict(
+            os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2",
+            OPENBLAS_NUM_THREADS="2", MKL_NUM_THREADS="2")))
+    logf.close()
+    log(f"CPU side: the CPU runs of phases 22, 26, 47, 56 and 59 started in "
+        f"process {_CPU_SIDE['proc'].pid}")
+
+
+def cpu_runs(key, compute):
+    """The CPU runs ``key`` from the child ``start_cpu_side`` started
+    (waiting for its group; the child's failure fails the phase), or
+    ``compute()`` here when no child runs."""
+    proc = _CPU_SIDE["proc"]
+    if proc is None:
+        return compute()
+    if key not in _CPU_SIDE["out"]:
+        t0 = time.perf_counter()
+        path = Path(f"{_CPU_SIDE['stem']}_{key}.pkl")
+        while not path.exists():
+            if proc.poll() is not None and not path.exists():
+                tail = _CPU_SIDE["log"].read_text()[-3000:]
+                raise RuntimeError(f"the CPU side exited {proc.returncode} "
+                                   f"without its {key} runs:\n{tail}")
+            time.sleep(0.2)
+        with open(path, "rb") as f:
+            _CPU_SIDE["out"][key] = pickle.load(f)
+        log(f"CPU side: the {key} runs (waited {time.perf_counter() - t0:.1f}"
+            " s here)")
+    return _CPU_SIDE["out"][key]
+
+
+def stop_cpu_side():
+    """Stop the child of ``start_cpu_side`` if it still runs."""
+    proc = _CPU_SIDE["proc"]
+    if proc is not None and proc.poll() is None:
+        proc.kill()
+        proc.wait()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
                          "runs the port on a GPU only)")
+    try:
+        return run_phases()
+    finally:
+        stop_cpu_side()
+
+
+def run_phases() -> int:
+    """Every phase in order (see the module docstring)."""
     from goma_tpu_torch.solvers import NewtonSolver
     from goma_tpu_torch.solvers.ndlu import NDLU, node_clusters
     from goma_tpu_torch.solvers.twolevel import _saddle_mask
@@ -6859,18 +8067,23 @@ def main() -> int:
     card = gpu_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
 
-    # ---- 1. (and 7.) build every kernel, all nvcc runs started together
-    build_kernels()
+    # ---- 1. (and 7.) build every kernel, all nvcc runs started together;
+    # the CPU side starts and phase 2 sets up on the host meanwhile (no
+    # kernel is called before the build is joined)
+    start_cpu_side()
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build_kernels)
 
-    # ---- 2. main deck set-up (host)
-    t0 = time.perf_counter()
-    prob = cavity_problem(N_MAIN, dev)
-    solver = NewtonSolver(prob, cavity_opts())
-    levels = solver.precond.levels
-    shapes = [(lev.nn, lev.smax) for lev in levels]
-    log(f"setup: {N_MAIN}x{N_MAIN} cavity, {prob.dofmap.n_dof} dof, "
-        f"{prob.pattern.nnz} nnz, {len(levels)} ND levels (nn, m) = {shapes}, "
-        f"{time.perf_counter() - t0:.1f} s")
+        # ---- 2. main deck set-up (host)
+        t0 = time.perf_counter()
+        prob = cavity_problem(N_MAIN, dev)
+        solver = NewtonSolver(prob, cavity_opts())
+        levels = solver.precond.levels
+        shapes = [(lev.nn, lev.smax) for lev in levels]
+        log(f"setup: {N_MAIN}x{N_MAIN} cavity, {prob.dofmap.n_dof} dof, "
+            f"{prob.pattern.nnz} nnz, {len(levels)} ND levels (nn, m) = "
+            f"{shapes}, {time.perf_counter() - t0:.1f} s")
+        built.result()
 
     # ---- 3. kernel vs twin on the card
     max_abs, lu_ms = lu_shapes(shapes, "cavity", time_twin=True)
@@ -7201,6 +8414,9 @@ def main() -> int:
     # ---- 54-56. solid mechanics and porous media
     fsa, fsg, fsd, rcg, rcd = solid_phases(dev)
 
+    # ---- 57-59. closures: suspensions, kinetics, PLACID, QMOM, SA
+    clsg, clsd, clrg, clrd = closure_phases(dev)
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -7236,7 +8452,11 @@ def main() -> int:
                 "fsi gmres_ndlu": fsg["launches"],
                 "fsi tpu_direct": fsd["launches"],
                 "richards gmres_ndlu": rcg["launches"],
-                "richards tpu_direct": rcd["launches"]}
+                "richards tpu_direct": rcd["launches"],
+                "suspension gmres_ndlu": clsg["launches"],
+                "suspension tpu_direct": clsd["launches"],
+                "reacting gmres_ndlu": clrg["launches"],
+                "reacting tpu_direct": clrd["launches"]}
     # a small deck's launches, read as a cross-check: not a main path
     cross_checks = {"bordered ndlu 20x10": bl}
 
@@ -7284,8 +8504,9 @@ def main() -> int:
                            sfg["max_abs"], sfd["max_abs"], ecg["max_abs"],
                            ecd["max_abs"], ewg["max_abs"], ewd["max_abs"],
                            fsa["max_abs"], fsg["max_abs"], fsd["max_abs"],
-                           rcg["max_abs"],
-                           rcd["max_abs"]),
+                           rcg["max_abs"], rcd["max_abs"], clsg["max_abs"],
+                           clsd["max_abs"], clrg["max_abs"],
+                           clrd["max_abs"]),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -7319,6 +8540,8 @@ def main() -> int:
         **deck_keys("em_waveguide", ewg, "lu"),
         **deck_keys("fsi", fsg, "lu"),
         **deck_keys("richards", rcg, "lu"),
+        **deck_keys("suspension", clsg, "lu"),
+        **deck_keys("reacting", clrg, "lu"),
     }, {
         "name": "batched_trsv",
         "route": "cuda",
@@ -7335,7 +8558,8 @@ def main() -> int:
                            sbd["trsv"]["max_abs"], sfd["trsv"]["max_abs"],
                            ecd["trsv"]["max_abs"], ewd["trsv"]["max_abs"],
                            fsa["trsv"]["max_abs"], fsd["trsv"]["max_abs"],
-                           rcd["trsv"]["max_abs"]),
+                           rcd["trsv"]["max_abs"], clsd["trsv"]["max_abs"],
+                           clrd["trsv"]["max_abs"]),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -7391,6 +8615,8 @@ def main() -> int:
         **deck_keys("em_waveguide", ewd, "trsv"),
         **deck_keys("fsi", fsd, "trsv"),
         **deck_keys("richards", rcd, "trsv"),
+        **deck_keys("suspension", clsd, "trsv"),
+        **deck_keys("reacting", clrd, "trsv"),
     }, {
         "name": "front_gather",
         "route": "cuda",
@@ -7415,7 +8641,9 @@ def main() -> int:
                            ewg["gather_abs"], ewd["gather_abs"],
                            fsa["gather_abs"], fsg["gather_abs"],
                            fsd["gather_abs"],
-                           rcg["gather_abs"], rcd["gather_abs"]),
+                           rcg["gather_abs"], rcd["gather_abs"],
+                           clsg["gather_abs"], clsd["gather_abs"],
+                           clrg["gather_abs"], clrd["gather_abs"]),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],
@@ -7446,6 +8674,8 @@ def main() -> int:
         **deck_keys("em_waveguide", ewg, "gather"),
         **deck_keys("fsi", fsg, "gather"),
         **deck_keys("richards", rcg, "gather"),
+        **deck_keys("suspension", clsg, "gather"),
+        **deck_keys("reacting", clrg, "gather"),
     }]}))
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t_run:.1f} s")
     print(gpu_line())

@@ -86,8 +86,12 @@ def materials_from_goma(mat: dict) -> dict:
     ``BinghamViscosity``, ``CarreauWLFViscosity``, ``ArrheniusViscosity``,
     ``SuspensionViscosity``, ``FillerDensity``, ``BondViscosity``) is
     recognised by its class name and rebuilt from its attributes, without
-    importing goma_tpu. Any other callable raises."""
-    from goma_tpu_torch.physics import materials
+    importing goma_tpu. So are ``SATurbulentViscosity`` (of
+    ``physics/turbulence.py``) and a bound ``species_source`` or
+    ``heat_source`` of a ``ReactionNetwork`` (the network rebuilt by
+    ``reaction_network_from_goma``, the port's method of the same name
+    taken). Any other callable raises."""
+    from goma_tpu_torch.physics import materials, turbulence
 
     out = {}
     for k, v in mat.items():
@@ -99,7 +103,13 @@ def materials_from_goma(mat: dict) -> dict:
             if a.dtype.kind in "biuf":
                 out[k] = a.astype(np.float64)
                 continue
-        model = _rebuild(v, materials) if callable(v) else None
+        owner = getattr(v, "__self__", None)
+        if type(owner).__name__ == "ReactionNetwork" and v.__name__ in (
+                "species_source", "heat_source"):
+            out[k] = getattr(reaction_network_from_goma(owner), v.__name__)
+            continue
+        model = (_rebuild(v, materials) or _rebuild(v, turbulence)
+                 if callable(v) else None)
         if model is None:
             raise NotImplementedError(
                 f"material property {k!r} of type {type(v).__name__}: later "
@@ -126,3 +136,45 @@ def porous_model_from_goma(model):
             f"porous model of type {type(model).__name__}: not a model of "
             "goma_tpu's physics/porous.py")
     return out
+
+
+def reaction_network_from_goma(net):
+    """A goma_tpu ``ReactionNetwork`` -> the port's, rebuilt from its
+    attributes (the per-reaction feature lists copied, NASA-7 thermo data
+    rebuilt species by species), without importing goma_tpu."""
+    from goma_tpu_torch.physics import kinetics
+
+    def copy(lst):
+        return [None if e is None else (dict(e) if isinstance(e, dict)
+                                        else list(e) if isinstance(e, list)
+                                        else tuple(e)) for e in lst]
+
+    thermo = None
+    if net.thermo is not None:
+        thermo = [None if th is None else kinetics.Nasa7(
+            np.asarray(th.a_low), np.asarray(th.a_high), T_mid=th.T_mid,
+            T_low=th.T_low, T_high=th.T_high) for th in net.thermo]
+    f64 = lambda a: np.asarray(a, dtype=np.float64)  # noqa: E731
+    return kinetics.ReactionNetwork(
+        nu=f64(net.nu), A=f64(net.A), Ea=f64(net.Ea), beta=f64(net.beta),
+        orders=f64(net.orders), K_eq=list(net.K_eq), dH=f64(net.dH),
+        T_ref=net.T_ref, third_body=copy(net.third_body),
+        falloff=copy(net.falloff), rev_arrhenius=copy(net.rev_arrhenius),
+        plog=copy(net.plog), thermo=thermo, pressure=net.pressure,
+        units=net.units)
+
+
+def surface_mechanism_from_goma(mech):
+    """A goma_tpu ``SurfaceMechanism`` -> the port's, rebuilt from its
+    attributes (the site densities per site phase read back from its
+    per-species table), without importing goma_tpu."""
+    from goma_tpu_torch.physics.placid import SurfaceMechanism
+
+    sden0 = [float(mech.sden_k[int(s)])
+             for s, kind in zip(mech.starts, mech.kinds) if kind == "site"]
+    f64 = lambda a: np.asarray(a, dtype=np.float64)  # noqa: E731
+    return SurfaceMechanism(
+        nu=f64(mech.nu), A=f64(mech.A), Ea=f64(mech.Ea), beta=f64(mech.beta),
+        orders=f64(mech.orders), n_gas=int(mech.n_gas),
+        phases=[(str(k), int(c)) for k, c in mech.phases], sden0=sden0,
+        kcov=f64(mech.kcov), units=mech.units)

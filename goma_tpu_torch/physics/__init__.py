@@ -85,3 +85,17 @@ from goma_tpu_torch.physics.shell_porous import (LubPorousSink,
                                                  PorousShellGasN,
                                                  PorousShellOpen,
                                                  PorousShellStackLayer)
+from goma_tpu_torch.physics.suspension import (
+    ParticleMomentum,
+    QTensorHydroSpecies,
+    VorticityDirection,
+    flow_frame_qtensor,
+    particle_drag_force,
+    qtensor_from_vort_dir,
+)
+from goma_tpu_torch.physics.turbulence import (SATurbulentViscosity,
+                                               SpalartAllmaras, wall_distance)
+from goma_tpu_torch.physics.population import MomentEquations, wheeler_n2
+from goma_tpu_torch.physics.kinetics import ReactionNetwork
+from goma_tpu_torch.physics.placid import (SurfaceMechanism, placid,
+                                           surface_kinetics_flux)

@@ -48,6 +48,13 @@ def _floor(a, lo: float):
     return torch.maximum(a, torch.full((), lo, dtype=a.dtype, device=a.device))
 
 
+def _tiny(dtype) -> float:
+    """goma_tpu's 1e-300 floor where it is a number of ``dtype`` (float64);
+    the smallest normal number of a narrower dtype, where 1e-300 rounds
+    to 0."""
+    return 1e-300 if dtype == torch.float64 else torch.finfo(dtype).tiny
+
+
 def _clip(a, lo: float, hi: float):
     """jnp.clip's form, a maximum then a minimum: at a bound the derivative
     is half (goma_tpu's), where torch.clamp gives all of it."""

@@ -207,9 +207,13 @@ class HydroSpecies(Equation):
         return N
 
     def residual(self, fv, mat, params):
+        return self.weak_form(fv, self.particle_flux(fv, mat, params))
+
+    def weak_form(self, fv, N):
+        """phi (Ydot + u.grad Y) - grad(phi) . N, (nq, 1, nbf), for a
+        particle flux N (nq, dim)."""
         nq = fv.x.shape[0]
         gY = fv.grad["species"][:, 0, :]
-        N = self.particle_flux(fv, mat, params)
         adv = fv.x.new_zeros(nq)
         if self.transient:
             adv = adv + fv.dot["species"][:, 0]

@@ -467,12 +467,14 @@ class NDLU:
 
         def onehot(pos, f):
             # (nn, f, cb) placement: P[q, pos[q, i], i] = 1; pad slots
-            # (pos == f) fall off the end -> all-zero column
+            # (pos == f) fall off the end -> all-zero column; built on the
+            # device from the (nn, cb) positions
             nn, cb = pos.shape
-            P = np.zeros((nn, f + 1, cb), np.float64)
-            qq = np.repeat(np.arange(nn), cb)
-            P[qq, pos.ravel(), np.tile(np.arange(cb), nn)] = 1.0
-            return put(P[:, :f, :], dtype)
+            P = torch.zeros((nn, f + 1, cb), dtype=dtype, device=dev)
+            qq = torch.arange(nn, device=dev).repeat_interleave(cb)
+            ii = torch.arange(cb, device=dev).repeat(nn)
+            P[qq, put(pos.ravel()), ii] = 1.0
+            return P[:, :f, :].contiguous()
 
         self.tabs = []
         for lev in self.levels:

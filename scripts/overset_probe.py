@@ -21,6 +21,12 @@ Variants:
                         on the CPU
   cuda-ndlu64           on the card through the kernels, the NDLU factor
                         in float64 (``ndlu_dtype="float64"``)
+  cuda-factor64-apply32 on the card through the kernels: each factor (the
+                        front LU and the inverses + Schur) computed by a
+                        float64 NDLU of the same tree, rounded to float32
+                        once and applied by the rung's float32 NDLU
+  cuda-factor32-apply64 the float32 factor of the rung, widened to float64
+                        and applied by a float64 NDLU of the same tree
 
 Prints each variant's Newton history, ||R||_inf after the first step, the
 kernel launches it made, the drag and the seconds; then one JSON line of
@@ -48,7 +54,8 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 VARIANTS = ("cpu", "cuda", "cuda-plain-lu", "cuda-plain-lu-gather",
-            "cuda-host-factor", "cuda-host-ndlu", "cuda-ndlu64")
+            "cuda-host-factor", "cuda-host-ndlu", "cuda-ndlu64",
+            "cuda-factor64-apply32", "cuda-factor32-apply64")
 
 
 @contextlib.contextmanager
@@ -91,6 +98,25 @@ class HostNDLU:
         return self.nd_card.solve(facs, b)
 
 
+class SplitNDLU:
+    """The NDLU preconditioner with its factor from ``nd_factor`` and its
+    apply by ``nd_apply`` (the same pattern and ordering, so the same
+    tree, at another dtype): each factor's floating tensors are cast once
+    to the apply's dtype."""
+
+    def __init__(self, nd_factor, nd_apply):
+        self.nd_factor, self.nd_apply = nd_factor, nd_apply
+
+    def factor(self, vals):
+        facs = self.nd_factor.factor(vals.to(self.nd_factor.dtype))
+        dt = self.nd_apply.dtype
+        return [tuple(t.to(dt) if t is not None and t.is_floating_point()
+                      else t for t in f) for f in facs]
+
+    def solve(self, facs, b):
+        return self.nd_apply.solve(facs, b.to(self.nd_apply.dtype)).to(b.dtype)
+
+
 def run_variant(name, cache):
     """One Newton solve of the deck under ``name``; returns its record."""
     import chip_smoke as cs
@@ -114,6 +140,14 @@ def run_variant(name, cache):
                       device=torch.device("cpu"))
         solver.precond = HostNDLU(
             nd_cpu, solver.precond if name == "cuda-host-factor" else None)
+    if name in ("cuda-factor64-apply32", "cuda-factor32-apply64"):
+        nd64 = NDLU(prob.pattern, leaf_max=opts.ndlu_leaf_max,
+                    dtype=torch.float64, defer_dofs=_saddle_mask(prob),
+                    invert=True, clusters=node_clusters(prob),
+                    device=torch.device("cuda"))
+        solver.precond = (SplitNDLU(nd64, solver.precond)
+                          if name == "cuda-factor64-apply32"
+                          else SplitNDLU(solver.precond, nd64))
     plain = {"cuda-plain-lu": ("lu",),
              "cuda-plain-lu-gather": ("lu", "gather")}.get(name, ())
     cs.reset_counts()

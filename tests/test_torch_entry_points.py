@@ -206,7 +206,15 @@ EXPORTS = {
                 # solids and porous media
                 "RealSolid", "SolidKinematics", "SolidTraction",
                 "tie_mesh_to_solid", "PorousFlow", "TanhHystSaturation",
-                "TwoPhasePorous", "VanGenuchten"],
+                "TwoPhasePorous", "VanGenuchten",
+                # closures: suspensions, kinetics, surface chemistry, moments
+                # and turbulence
+                "ParticleMomentum", "QTensorHydroSpecies",
+                "VorticityDirection", "flow_frame_qtensor",
+                "particle_drag_force", "qtensor_from_vort_dir",
+                "SATurbulentViscosity", "SpalartAllmaras", "wall_distance",
+                "MomentEquations", "wheeler_n2", "ReactionNetwork",
+                "SurfaceMechanism", "placid", "surface_kinetics_flux"],
     "continuation": ["ArcStep", "ContinuationStep", "arclength_continue",
                      "continue_problem", "AugmentedNewtonSolver",
                      "AugmentedResult", "AugmentingCondition",
