@@ -259,6 +259,16 @@ def _cast_floats(params: dict, dtype) -> dict:
                 else v) for k, v in params.items()}
 
 
+
+def _contract(w, contrib, like):
+    """sum_q w_q contrib[q] flattened, at ``like``'s dtype. A term computed
+    past the prep's dtype (a float64 closure in a float32 prep) is
+    contracted at its own dtype and rounded once, as goma_tpu's promoting
+    ``jnp.einsum`` and its scatter-add into the element vector do."""
+    if contrib.dtype != w.dtype:
+        w = w.to(contrib.dtype)
+    return torch.einsum("q,qcn->cn", w, contrib).reshape(-1).to(like.dtype)
+
 class Problem:
     """A finite-element problem on a mesh, with its tensors on ``device``
     (``None``: the card; the CPU only when asked for, ``device="cpu"``).
@@ -1220,7 +1230,7 @@ class Problem:
             for eq in eqs:
                 contrib = eq.residual(fv, mat, params)  # (nq, ncomp, nbf)
                 w = fv.wdetJ0 if eq.measure == "reference" else fv.wdetJ
-                a = torch.einsum("q,qcn->cn", w, contrib).reshape(-1)
+                a = _contract(w, contrib, q_e)
                 acc[eq.var] = acc[eq.var] + a if eq.var in acc else a
             r = torch.cat([acc[s.var] if s.var in acc   # slots in start order
                            else q_e.new_zeros(s.size) for s in bd.slots]
@@ -1257,7 +1267,7 @@ class Problem:
             acc = {}
             for k in fs.kernels:
                 contrib = k.residual(sfv, mat, params)  # (nqf, ncomp, nbf)
-                a = torch.einsum("q,qcn->cn", sfv.wdA, contrib).reshape(-1)
+                a = _contract(sfv.wdA, contrib, q_e)
                 acc[k.var] = acc[k.var] + a if k.var in acc else a
             r = torch.cat([acc[s.var] if s.var in acc
                            else q_e.new_zeros(s.size) for s in bd.slots])

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 
 from goma_tpu_torch.elements import (element_type, eval_basis, geom_interp,
-                                     volume_rule)
+                                     interp_local_nodes, volume_rule)
 from goma_tpu_torch.elements.shapes import eval_hermite_bar, eval_nedelec
 from goma_tpu_torch.fem.dofmap import LocalSlot
 from goma_tpu_torch.utils.la import det_and_inv
@@ -159,8 +159,10 @@ class FieldVars:
     H(curl) edge (N1) variables (see the module docstring):
       curl[v]        (nq,) 2D | (nq, 3) 3D
       curl_phi[v]    (nq, nbf) 2D | (nq, nbf, 3) 3D
-    (goma_tpu's node-anchored ``q_nodal``/``lnodes`` belong to a branch
-    the port does not carry.)
+    Node-anchored values (XFEM enrichment, reference ``load_xfem_for_elem``
+    src/mm_fill_ls.c:4604):
+      q_nodal[v]     (ncomp, nbf) the element's raw dofs of v
+      lnodes[v]      tuple of v's element-local node ids (not for P0/P1E)
     """
 
     def __init__(self):
@@ -186,6 +188,8 @@ class FieldVars:
         self.ext_grad: dict[str, Any] = {}
         self.curl: dict[str, Any] = {}
         self.curl_phi: dict[str, Any] = {}
+        self.q_nodal: dict[str, Any] = {}
+        self.lnodes: dict[str, tuple] = {}
 
 
 def _unpack(q_e, slots: list[LocalSlot]):
@@ -261,6 +265,10 @@ def eval_fieldvars(q_e, qdot_e, X_e, tables: BlockTables,
         fv.val[s.var] = torch.einsum("qn,cn->qc", Ni, u[s.var])
         fv.grad[s.var] = torch.einsum("qnk,cn->qck", gp, u[s.var])
         fv.dot[s.var] = torch.einsum("qn,cn->qc", Ni, udot[s.var])
+        fv.q_nodal[s.var] = u[s.var]
+        if s.interp not in ("P0", "P1E"):
+            fv.lnodes[s.var] = tuple(interp_local_nodes(
+                element_type(tables.elem_type).family, s.interp))
         if ale:
             if s.interp not in gphi0_cache:
                 gphi0_cache[s.interp] = torch.einsum("qnd,qdk->qnk", dNi, invJ0)

@@ -90,32 +90,36 @@ def materials_from_goma(mat: dict) -> dict:
     ``physics/turbulence.py``) and a bound ``species_source`` or
     ``heat_source`` of a ``ReactionNetwork`` (the network rebuilt by
     ``reaction_network_from_goma``, the port's method of the same name
-    taken). Any other callable raises."""
-    from goma_tpu_torch.physics import materials, turbulence
+    taken), and a ``LevelSetProperty`` (of ``physics/level_set.py``, its
+    two phases' values translated the same way). Any other callable
+    raises."""
+    from goma_tpu_torch.physics import level_set, materials, turbulence
 
-    out = {}
-    for k, v in mat.items():
+    def convert(k, v):
         if isinstance(v, (bool, int, float)):
-            out[k] = v
-            continue
+            return v
         if not callable(v):
             a = np.asarray(v)
             if a.dtype.kind in "biuf":
-                out[k] = a.astype(np.float64)
-                continue
+                return a.astype(np.float64)
         owner = getattr(v, "__self__", None)
         if type(owner).__name__ == "ReactionNetwork" and v.__name__ in (
                 "species_source", "heat_source"):
-            out[k] = getattr(reaction_network_from_goma(owner), v.__name__)
-            continue
+            return getattr(reaction_network_from_goma(owner), v.__name__)
+        if type(v).__name__ == "LevelSetProperty":
+            return level_set.LevelSetProperty(
+                convert(k, v.minus), convert(k, v.plus),
+                eps=v.eps if v.eps is None or isinstance(v.eps, str)
+                else float(v.eps))
         model = (_rebuild(v, materials) or _rebuild(v, turbulence)
                  if callable(v) else None)
         if model is None:
             raise NotImplementedError(
                 f"material property {k!r} of type {type(v).__name__}: later "
                 "slice of the port, see ROADMAP")
-        out[k] = model
-    return out
+        return model
+
+    return {k: convert(k, v) for k, v in mat.items()}
 
 
 def porous_model_from_goma(model):

@@ -214,7 +214,13 @@ EXPORTS = {
                 "particle_drag_force", "qtensor_from_vort_dir",
                 "SATurbulentViscosity", "SpalartAllmaras", "wall_distance",
                 "MomentEquations", "wheeler_n2", "ReactionNetwork",
-                "SurfaceMechanism", "placid", "surface_kinetics_flux"],
+                "SurfaceMechanism", "placid", "surface_kinetics_flux",
+                # the level-set terms
+                "XFEMPressureContinuity", "XFEMPressureMomentum",
+                "LSEmbeddedFlux", "LSEmbeddedDirichlet", "LSRecoilPressure",
+                "SolvedNormal", "ExtensionVelocity", "LSExtVKinematic",
+                "LSExtVLatent", "FillExtV", "LSFlowPressure",
+                "kanouff_recoil", "qrad_flux"],
     "continuation": ["ArcStep", "ContinuationStep", "arclength_continue",
                      "continue_problem", "AugmentedNewtonSolver",
                      "AugmentedResult", "AugmentingCondition",
@@ -229,7 +235,15 @@ EXPORTS = {
            "EndpointAdvectiveOutflow", "EndpointFlux", "shell_end_sidesets",
            "LatentHeatFlux", "PorousMassFlux", "VNormLeak",
            "kelvin_gas_density", "FlowPressure", "CoulombFriction",
-           "ElecTraction", "FlowGradV", "ForceSIC", "SlopeBC"],
+           "ElecTraction", "FlowGradV", "ForceSIC", "SlopeBC",
+           # the fluid, surface-domain and level-set wall conditions
+           "AirFilmSlip", "ConvectiveHeatFlux", "ElectrokineticSlip",
+           "LaserWeldFlux", "LatentHeatInternal", "DvzdrZero",
+           "LevelSetSlip", "LSNoPenetration", "MassTransferFlux",
+           "NavierSlip", "PowerLawSlip", "QVaporFlux", "RadiativeHeatFlux",
+           "SlipHeating", "SpeciesKinematicFlux", "cap_end_force",
+           "contact_angle_force", "SDCStefanFlow", "SDCStefanVolumeFlow",
+           "SurfDomainMassFlux"],
     "utils": ["det_and_inv"],
 }
 

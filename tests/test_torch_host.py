@@ -248,7 +248,8 @@ def test_port_imports_and_builds_without_jax():
     ``assemble`` and ``residual``; then it imports the continuation layer
     and assembles the Jacobian and mass matrix of a normal-mode deck; then
     it builds and assembles the immersed-cylinder overset deck (a BAR
-    multiplier block) and builds its bordered solver."""
+    multiplier block) and builds its bordered solver; last it imports every
+    module of the package."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -391,6 +392,12 @@ def test_port_imports_and_builds_without_jax():
             oprob.base_params())
         assert bool(torch.isfinite(vals).all()) and vals.shape[0] == oprob.pattern.nnz
         BorderedNewtonSolver(oprob, multiplier_dof_mask(oprob))
+        # every module of the port imports
+        import importlib, pkgutil
+        for m in pkgutil.walk_packages(goma_tpu_torch.__path__,
+                                       "goma_tpu_torch."):
+            importlib.import_module(m.name)
+        assert "goma_tpu_torch.bc.catalog_map" in sys.modules
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
@@ -634,19 +641,82 @@ def test_flux_sensitivity_outside_slice_raises():
     assert abs(float(fj)) > 0
 
 
-@pytest.mark.parametrize("name", [
-    "XFEMPressureContinuity", "XFEMPressureMomentum", "LSEmbeddedFlux",
-    "LSEmbeddedDirichlet", "LSRecoilPressure", "SolvedNormal",
-    "ExtensionVelocity", "LSExtVKinematic", "LSExtVLatent", "FillExtV",
-    "LSFlowPressure", "kanouff_recoil", "qrad_flux",
-])
+LS_PIECES = {
+    "XFEMPressureContinuity": ("eq", ()),
+    "XFEMPressureMomentum": ("eq", (2,)),
+    "LSEmbeddedFlux": ("eq", ("temperature", 1.3)),
+    "LSEmbeddedDirichlet": ("eq", ("velocity", 0.4, 1, 2, 50.0)),
+    "LSRecoilPressure": ("eq", (2, 0.7)),
+    "SolvedNormal": ("eq", (2,)),
+    "ExtensionVelocity": ("eq", ()),
+    "LSExtVKinematic": ("eq", ()),
+    "LSExtVLatent": ("eq", (0.6, 0.3, 1.5, 0.2)),
+    "FillExtV": ("eq", ()),
+    "LSFlowPressure": ("eq", (2, 0.9)),
+    "kanouff_recoil": ("fn", (1.2, 1e-3, 0.01)),
+    "qrad_flux": ("closure", (2.0, 0.5, 0.3, 0.1)),
+}
+
+
+def _ls_fields(arr, rng):
+    """One element's synthetic fields at 4 quadrature points: fill, its
+    Q1 enrichment, velocity, temperature, extension velocity, normal."""
+    nq, n9, n4 = 4, 9, 4
+
+    class FV:
+        pass
+
+    fv = FV()
+    vals = {"fill": 1, "velocity": 2, "temperature": 1, "ext_velocity": 1,
+            "ls_normal": 2, "pressure_xfem": 1}
+    nbf = {"fill": n9, "velocity": n9, "temperature": n9, "ext_velocity": n4,
+           "ls_normal": n4, "pressure_xfem": n4}
+    fv.val, fv.grad, fv.dot, fv.phi, fv.gphi, fv.q_nodal = ({}, {}, {}, {},
+                                                            {}, {})
+    for v, nc in vals.items():
+        fv.val[v] = arr(0.3 * rng.standard_normal((nq, nc)))
+        fv.grad[v] = arr(rng.standard_normal((nq, nc, 2)))
+        fv.dot[v] = arr(rng.standard_normal((nq, nc)))
+        fv.phi[v] = arr(rng.uniform(0.0, 1.0, (nq, nbf[v])))
+        fv.gphi[v] = arr(rng.standard_normal((nq, nbf[v], 2)))
+        fv.q_nodal[v] = arr(0.3 * rng.standard_normal((nc, nbf[v])))
+    fv.lnodes = {"fill": tuple(range(9)), "pressure_xfem": (0, 1, 2, 3)}
+    fv.x = arr(rng.uniform(0.0, 1.0, (nq, 2)))
+    fv.h_elem = arr(rng.uniform(0.1, 0.3, nq))
+    return fv
+
+
+@pytest.mark.parametrize("name", list(LS_PIECES))
 def test_level_set_pieces_outside_slice_raise(name):
-    """goma_tpu's level-set exports outside this slice exist in the port
-    under the same names and refuse construction (or a call)."""
+    """goma_tpu's level-set exports that an earlier slice refused are in
+    the port under their names and compute goma_tpu's: each class's
+    integrand on the same synthetic element fields (random values,
+    gradients, rates, bases and nodal coefficients at four quadrature
+    points; params with ls_eps, time and dt) and each closure's values
+    within 1e-14 relative of goma_tpu's (tests/test_torch_ls_bc.py holds
+    their assembled systems against goma_tpu's)."""
+    import jax.numpy as jnp
+    import torch
+
+    kind, args = LS_PIECES[name]
     obj = getattr(goma_tpu_torch.physics, name)
     assert getattr(goma_tpu.physics, name).__name__ == obj.__name__ == name
-    with pytest.raises(NotImplementedError, match="later slice"):
-        obj(2, 1.0)
+    out = []
+    for pkg, arr in ((goma_tpu.physics, jnp.asarray),
+                     (goma_tpu_torch.physics, torch.as_tensor)):
+        rng = np.random.default_rng(11)
+        fv = _ls_fields(arr, rng)
+        params = {"ls_eps": 0.5, "time": 0.2, "dt": 0.05}
+        f = getattr(pkg, name)(*args)
+        if kind == "eq":
+            out.append(np.asarray(f.residual(fv, {}, params)))
+        elif kind == "closure":
+            out.append(np.asarray(f(fv, {}, params)))
+        else:
+            out.append(np.asarray(f(arr(np.linspace(1.0, 5.0, 9)))))
+    assert out[1].shape == out[0].shape
+    assert np.abs(out[0]).max() > 0
+    assert np.abs(out[1] - out[0]).max() <= 1e-14 * np.abs(out[0]).max()
 
 
 def test_dirichlet_first_spec_wins_with_warning():
