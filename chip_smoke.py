@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Forty main paths of the three
+failure and when CUDA is unavailable. Forty-nine main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -25,7 +25,10 @@ drying film (phase 49) on 3D surface shells, each on both rungs; the
 (phase 52), each on both rungs; the 128x64 conforming FSI column (phase
 54) and the 128x128 Richards infiltration (phase 55), each on both rungs;
 the 128x32 suspension channel (phase 57) and the 96x24 reacting wall
-channel (phase 58), each on both rungs;
+channel (phase 58), each on both rungs; the 96x48 laser melt pool (phase
+60) and wetting drop (phase 61), each on both rungs; the 96x96
+projection cavity (phase 63) and the 48x48 buoyant cavity split into
+three matrices (phase 64), each on both rungs;
 the bordered solver's ``ndlu`` base on the 20x10
 cylinder (phase 47) is read the same way as a cross-check, not a main
 path; then goma_tpu's other preconditioners and linear
@@ -516,9 +519,33 @@ counts under it. Phases:
 62. goma_tpu's tests' decks of the slice (``ls_decks.SMALL``) at their
     own sizes on cuda and on cpu: each test's own gate, goma_tpu's Newton
     count, its readings within LS_SMALL_RTOL on the card, the same Newton
-    count and x within LS_SMALL_X_TOL on both devices.
+    count and x within LS_SMALL_X_TOL on both devices;
+63. the projection-split lid-driven cavity (``scripts/split_decks.py``:
+    ``ProjectionSolver`` at Re 100 on a 96x96 QUAD9 mesh, u* (Q2) 74,498
+    dof and the Q1 pressure increment 9,409 dof, 20 steps of dt 0.05 from
+    rest) on both rungs: both trees against goma_tpu's (``SPLIT_REF``,
+    from scripts/split_reference.py); the kernels on both trees' real
+    fronts at the first step; the run with the counts set to 0 just
+    before and read just after; every step's Newton counts of both
+    sub-solves goma_tpu's (exactly on ``tpu_direct``, +-1 on
+    ``gmres+ndlu``); u and p at 24 moving nodes within SPLIT_X_RTOL of
+    max |x| from goma_tpu's rung and its float64 solution; the kinetic
+    energy, max |DIV_VELOCITY|, the primary vortex (STREAM) and the
+    vorticity there within SPLIT_READ_RTOL; the launch identities summed
+    over both trees; the kernels on each tree's first and last
+    factorization;
+64. bench.py's 48x48 buoyant cavity split into three matrices (the flow,
+    the temperature, the species: ``SegregatedSolver``'s Picard loop) on
+    both rungs, as phase 63: goma_tpu's outer count and every sub-solve's
+    Newton count; each matrix's x at 24 dofs; T and u against goma_tpu's
+    coupled solution within 2x goma_tpu's own reading; the derived
+    catalog entries of the converged state against goma_tpu's record and
+    (``tpu_direct``) against the port's CPU projection of the same x; 16
+    tracers through the converged velocity against goma_tpu's;
+65. goma_tpu's tests' decks of the slice (``split_decks.SMALL``) at their
+    own sizes on cuda and on cpu, as phase 62.
 
-Each of phases 39-62 prints its time, and the run its total, before the
+Each of phases 39-65 prints its time, and the run its total, before the
 last three lines of output: the kernel summary (JSON, with each
 kernel's bound, plain-version and library-call times), the card's name and
 power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
@@ -1008,10 +1035,14 @@ CONT_REF = {'gmres_ndlu': {'lam': [1.0, 1.5, 2.25, 3.375, 4.0], 'newton': [4,
 _GUARD = []
 # the boosted pivots per level of every real-front check, by its label
 BOOSTED = {}
-# the value checks made on the latest tree (checked_before)
-_CHECKED = {}
+# the value checks made on the latest trees (checked_before): [nd, runs]
+# pairs, the latest last, at most _CHECKED_TREES of them
+_CHECKED = []
+_CHECKED_TREES = 3
 # lu_shapes's results by (level shapes, time_twin)
 _LU_SHAPES = {}
+# check_substitutions's timed results by the level shapes (split_tree)
+_TRSV_SHAPES = {}
 
 
 _T0 = time.perf_counter()
@@ -1216,15 +1247,23 @@ def lu_shapes(shapes, label, time_twin):
     return max_abs, tot
 
 
+def _checked_runs(nd):
+    """The value checks kept for ``nd`` (a new entry, the oldest tree's
+    dropped past ``_CHECKED_TREES``)."""
+    for entry in _CHECKED:
+        if entry[0] is nd:
+            return entry[1]
+    _CHECKED.append([nd, []])
+    del _CHECKED[:-_CHECKED_TREES]
+    return _CHECKED[-1][1]
+
+
 def checked_before(nd, vals, kind, label):
     """The record of an earlier ``kind`` check ("fronts" or "gather") on
     ``nd`` with values equal to ``vals`` (the same inputs give the same
-    result), or None; logs the match. Only the latest tree's values are
-    kept."""
-    if _CHECKED.get("nd") is not nd:
-        _CHECKED.clear()
-        _CHECKED["nd"] = nd
-    for v, kd, lab, rec in _CHECKED.setdefault("runs", []):
+    result), or None; logs the match. Only the latest trees' values are
+    kept (``_CHECKED_TREES``)."""
+    for v, kd, lab, rec in _checked_runs(nd):
         if kd == kind and v.shape == vals.shape and v.dtype == vals.dtype \
                 and torch.equal(v, vals):
             log(f"{kind} {label}: the same CSR values as {lab}, checked there")
@@ -1234,8 +1273,7 @@ def checked_before(nd, vals, kind, label):
 
 def remember_check(nd, vals, kind, label, rec):
     """Keep ``rec`` for ``checked_before``."""
-    if _CHECKED.get("nd") is nd:
-        _CHECKED["runs"].append((vals.clone(), kind, label, rec))
+    _checked_runs(nd).append((vals.clone(), kind, label, rec))
 
 
 def check_real_fronts(nd, vals, label):
@@ -3821,17 +3859,8 @@ def direct_tree_phase(prob, solver, label, vals=None, at="x=0"):
 def check_launches(solver, ln, levels, label, direct=False):
     """Front-LU and front-gather launches = levels x factorizations (and,
     ``direct``, substitution launches = 2 x levels x NDLU solves) in the
-    main path's timed solve."""
-    nf = solver._ndlu_nfactor if direct else solver.n_factor
-    if nf < 1 or ln["lu"] != levels * nf or ln["gather"] != levels * nf:
-        raise RuntimeError(f"{label}: front-LU launches {ln['lu']} / "
-                           f"front-gather launches {ln['gather']} != {levels} "
-                           f"levels x {nf} factorizations")
-    if direct:
-        solves = solver._ndlu.n_solve
-        if solves < 1 or ln["trsv"] != 2 * levels * solves:
-            raise RuntimeError(f"{label}: substitution launches {ln['trsv']} "
-                               f"!= 2 x {levels} levels x {solves} solves")
+    main path's timed solve (``check_split_launches`` of one tree)."""
+    check_split_launches([("tree", solver, levels)], ln, label, direct)
 
 
 def tilted_gmres_phase(dev, x_axis, axis_iters):
@@ -8467,37 +8496,48 @@ def ls_small_phase(devices=("cuda", "cpu")):
     from scripts import ls_decks as ld
 
     t0 = time.perf_counter()
-    runs = {d: (cpu_runs("ls", lambda: small_deck_runs(
-        ld.SMALL, ls_namespace(torch.device("cpu"))))
-        if d == "cpu" else small_deck_runs(ld.SMALL,
-                                           ls_namespace(torch.device(d))))
+    check_small_decks("ls small", "ls", ld.SMALL, ls_namespace, LS_REF["small"],
+                      LS_SMALL_RTOL, LS_SMALL_X_TOL, devices)
+    log(f"phase 62 (small level-set and fluid-condition decks on "
+        f"{' and '.join(devices)}): {time.perf_counter() - t0:.1f} s")
+
+
+def check_small_decks(label, group, decks, namespace, ref, rtol, x_tol,
+                      devices):
+    """Every deck of ``decks`` (goma_tpu's tests' decks) on each of
+    ``devices`` (the CPU's from the child's ``group`` runs, ``cpu_runs``):
+    its own gate inside, goma_tpu's count (``ref``), the readings within
+    ``rtol`` of goma_tpu's on the first device, the same count and x within
+    ``x_tol`` (of 1 + |x|) on every device."""
+    runs = {d: (cpu_runs(group, lambda: small_deck_runs(
+        decks, namespace(torch.device("cpu"))))
+        if d == "cpu" else small_deck_runs(decks,
+                                           namespace(torch.device(d))))
         for d in devices}
-    for name in ld.SMALL:
-        ref = LS_REF["small"][name]
+    for name in decks:
+        r = ref[name]
         outs = {d: runs[d][name] for d in devices}
         out = outs[devices[0]]
-        dv = float(np.max(np.abs(np.subtract(out["reading"], ref["reading"]))
-                          / np.maximum(np.abs(ref["reading"]), 1e-300)))
+        dv = float(np.max(np.abs(np.subtract(out["reading"], r["reading"]))
+                          / np.maximum(np.abs(r["reading"]), 1e-300)))
         dx = max(float(np.max(np.abs(o["x"] - out["x"])
                               / (1.0 + np.abs(out["x"]))))
                  for o in outs.values())
-        log(f"ls small {name}: Newton " + ", ".join(
+        log(f"{label} {name}: Newton " + ", ".join(
             f"{d} {o['newton']}" for d, o in outs.items())
-            + f" (goma_tpu {ref['newton']}), reading {out['reading']} "
+            + f" (goma_tpu {r['newton']}), reading {out['reading']} "
             f"(relative {dv:.2e}), x {devices} max |dx| / (1 + |x|) "
             f"{dx:.2e}; " + ", ".join(f"{d} {o['seconds']:.2f} s"
                                       for d, o in outs.items()))
-        if any(o["newton"] != ref["newton"] for o in outs.values()):
-            raise RuntimeError(f"ls small {name}: Newton counts "
+        if any(o["newton"] != r["newton"] for o in outs.values()):
+            raise RuntimeError(f"{label} {name}: Newton counts "
                                f"{[o['newton'] for o in outs.values()]} vs "
-                               f"goma_tpu's {ref['newton']}")
-        if not dv <= LS_SMALL_RTOL:
-            raise RuntimeError(f"ls small {name}: reading {dv:.2e} from "
+                               f"goma_tpu's {r['newton']}")
+        if not dv <= rtol:
+            raise RuntimeError(f"{label} {name}: reading {dv:.2e} from "
                                "goma_tpu's")
-        if not dx <= LS_SMALL_X_TOL:
-            raise RuntimeError(f"ls small {name}: x {dx:.2e} between devices")
-    log(f"phase 62 (small level-set and fluid-condition decks on "
-        f"{' and '.join(devices)}): {time.perf_counter() - t0:.1f} s")
+        if not dx <= x_tol:
+            raise RuntimeError(f"{label} {name}: x {dx:.2e} between devices")
 
 
 def ls_phases(dev):
@@ -8518,8 +8558,921 @@ def ls_phases(dev):
     return mg, md, dg, dd
 
 
-# ---- the CPU halves of phases 22, 26, 47, 56, 59 and 62, beside the card's
-# phases
+# ---- phases 63-65: derived fields, particle tracing, the projection and
+# segregated drivers (scripts/split_decks.py)
+SPLIT_PROJ_N, SPLIT_SEG_N = 96, 48
+# python3 scripts/split_reference.py --part projection / --part segregated
+# / --part small (goma_tpu on a CPU; float64 state and Jacobian, float32
+# NDLU factors)
+SPLIT_REF = json.loads("""\
+{"projection": {"n": 96, "steps": 20, "dt": 0.05, "n_dof": {"ustar": 74498,
+"pphi": 9409}, "direct": {"newton": {"ustar": [1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+1, 1, 1, 1, 1, 1, 1, 1, 1], "pphi": [1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+1, 1, 1, 1, 1, 1]}, "t": 1.0000000000000002, "kinetic_energy":
+0.023110024509045896, "div_max": 216.2356932423257, "vortex_node": 30811,
+"vortex_x": 0.6458333333333333, "vortex_y": 0.828125, "psi_vortex":
+-0.0731569950877464, "vorticity_vortex": -3.5208392258902634, "moving_share":
+0.8936884211656688, "x_max": 3.6165096126587284, "gate_nodes": [1052, 3748,
+5687, 7418, 9037, 10621, 12150, 13673, 15184, 16679, 18174, 19650, 21129,
+22606, 24075, 25539, 27000, 28464, 29927, 31397, 32861, 34322, 35785, 37247],
+"gate": [-0.01000154449878515, -0.02878218564673839, -0.039518388627445285,
+-0.04504879593531844, -0.01939642096541168, -0.001016270025701827,
+-0.0020026312936681683, -0.024924664524642155, -0.07662511653616548,
+-0.08678407173414626, -0.034878449235331885, -0.07768085780362549,
+-0.1300254318649831, -0.037104818857002654, -0.1859267593973272,
+-0.12349902654996357, -0.115697718259497, -0.11298598795994134,
+-0.03558274683912829, 0.053037042975211925, 0.04952207956056455,
+0.30278557357547137, 0.6702862632187904, 1.0, 0.0001341096164004353,
+0.0022445821792828123, 0.0023165230662524792, 0.0059810582766263234,
+-0.024885746459774937, 0.009968810049841811, -0.016151357194822507,
+-0.05050644769907007, -0.04208802375305209, 0.030441799541663376,
+0.07746256130294939, -0.11559041224778366, 0.03215246730796555,
+0.11495245980964343, -0.12893870805927335, 0.10962502449361118,
+-0.29792060378186497, 0.06094116379496041, 0.18205319133521985,
+-0.01710017730233011, 0.10840758233285813, -0.11258929465376478,
+0.007276735593850555, 0.0, 0.004366416596913594, 0.0036776047493763475,
+0.004778452398540026, 0.0037268831718659094, 0.012998204662596873,
+-0.0008802362230122826, 0.013287636767596653, 0.015518251309218271,
+0.011764233490024794, -0.0027994338121515813, -0.011204944957516068,
+0.02193114078330323, -0.008411874390504078, -0.023116849913752877,
+0.013966251064678836, -0.030736458230668274, 0.05061190389020897,
+-0.03527500497655909, -0.06929704128075498, -0.03064786212361409,
+-0.05962779782455872, 0.0724788220783286, -0.042335991726441105,
+2.8977675855786567]}, "gmres+ndlu": {"newton": {"ustar": [2, 3, 3, 3, 3, 3, 3,
+3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3, 3], "pphi": [2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+2, 2, 2, 2, 2, 2, 2, 2, 2, 2]}, "t": 1.0000000000000002, "kinetic_energy":
+0.023110024508305804, "div_max": 216.23569323706994, "vortex_node": 30811,
+"vortex_x": 0.6458333333333333, "vortex_y": 0.828125, "psi_vortex":
+-0.0731569950846258, "vorticity_vortex": -3.520839225382769, "moving_share":
+0.8936884211656688, "x_max": 3.6165096124463285, "gate_nodes": [1052, 3748,
+5687, 7418, 9037, 10621, 12150, 13673, 15184, 16679, 18174, 19650, 21129,
+22606, 24075, 25539, 27000, 28464, 29927, 31397, 32861, 34322, 35785, 37247],
+"gate": [-0.01000154449785468, -0.028782185643528007, -0.03951838862216984,
+-0.045048795929054364, -0.019396420962136434, -0.0010162700255934038,
+-0.0020026312932608665, -0.024924664518589854, -0.07662511652247461,
+-0.08678407172458918, -0.034878449233490365, -0.07768085780093342,
+-0.13002543186297508, -0.03710481885648728, -0.1859267593992757,
+-0.12349902655276865, -0.11569771824250481, -0.1129859879792453,
+-0.035582746845566136, 0.05303704295319027, 0.049522079562016735,
+0.3027855735382268, 0.6702862631950453, 1.0, 0.00013410961640070447,
+0.00224458217880711, 0.002316523065565236, 0.005981058275134678,
+-0.02488574645579689, 0.009968810049057123, -0.01615135719302728,
+-0.05050644768959502, -0.04208802374742218, 0.03044179953343153,
+0.07746256129534228, -0.11559041222961121, 0.03215246730205939,
+0.1149524598020692, -0.1289387080223196, 0.1096250244819144,
+-0.29792060381160546, 0.060941163801519004, 0.18205319134389525,
+-0.01710017727981221, 0.10840758232910973, -0.11258929465169887,
+0.007276735593709431, 0.0, 0.0043664164912020015, 0.0036776046431055208,
+0.004778452292704097, 0.0037268830662452682, 0.01299820455730389,
+-0.0008802363297605025, 0.013287636663577306, 0.015518251203818964,
+0.011764233384940198, -0.0027994339169401436, -0.011204945064878073,
+0.021931140680136515, -0.008411874492003842, -0.02311685001860122,
+0.01396625095768478, -0.03073645833376477, 0.0506119037815162,
+-0.03527500507947348, -0.06929704138456658, -0.030647862230758563,
+-0.059627797927924386, 0.07247882198763594, -0.04233599181578558,
+2.897767585360448], "levels": {"ustar": [[410, 174], [256, 192], [128, 76],
+[64, 108], [32, 106], [16, 188], [8, 188], [4, 334], [2, 372], [1, 642]],
+"pphi": [[62, 161], [32, 186], [16, 34], [8, 35], [4, 52], [2, 58], [1,
+110]]}}, "tpu_direct": {"newton": {"ustar": [1, 2, 2, 2, 2, 2, 2, 2, 2, 2, 2,
+2, 2, 2, 2, 2, 2, 2, 2, 2], "pphi": [1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1,
+1, 1, 1, 1, 1, 1]}, "t": 1.0000000000000002, "kinetic_energy":
+0.02311002450905376, "div_max": 216.23569324230627, "vortex_node": 30811,
+"vortex_x": 0.6458333333333333, "vortex_y": 0.828125, "psi_vortex":
+-0.07315699508772476, "vorticity_vortex": -3.5208392258611183, "moving_share":
+0.8936884211656688, "x_max": 3.6165096125269525, "gate_nodes": [1052, 3748,
+5687, 7418, 9037, 10621, 12150, 13673, 15184, 16679, 18174, 19650, 21129,
+22606, 24075, 25539, 27000, 28464, 29927, 31397, 32861, 34322, 35785, 37247],
+"gate": [-0.010001544498785602, -0.028782185646842304, -0.0395183886276814,
+-0.0450487959355196, -0.019396420965477525, -0.0010162700256744304,
+-0.0020026312936562004, -0.024924664524621443, -0.07662511653614643,
+-0.08678407173419729, -0.03487844923535504, -0.07768085780375784,
+-0.13002543186507456, -0.037104818856996014, -0.18592675939744271,
+-0.12349902655008538, -0.11569771826055325, -0.11298598796005867,
+-0.03558274683912414, 0.05303704297555089, 0.049522079560624765,
+0.302785573574603, 0.6702862632188663, 1.0, 0.00013410961645790766,
+0.0022445821793818485, 0.0023165230663264023, 0.005981058276583926,
+-0.024885746459828967, 0.009968810049911748, -0.016151357194829127,
+-0.05050644769915849, -0.0420880237531022, 0.03044179954162037,
+0.07746256130283974, -0.11559041224789968, 0.032152467307961126,
+0.11495245980960088, -0.12893870805950922, 0.10962502449362196,
+-0.29792060378157326, 0.060941163794976494, 0.18205319133521058,
+-0.01710017729878341, 0.10840758233288915, -0.11258929464932009,
+0.007276735593878125, 0.0, 0.0043664164631307, 0.0036776046155897455,
+0.004778452264741147, 0.003726883038099992, 0.012998204528539475,
+-0.0008802363563543662, 0.013287636633822214, 0.015518251175388215,
+0.01176423335496489, -0.002799433946031373, -0.011204945090890596,
+0.021931140649216963, -0.008411874524218516, -0.023116850047444765,
+0.013966250930750395, -0.0307364583640359, 0.05061190375676434,
+-0.03527500511033281, -0.06929704141429421, -0.03064786225882138,
+-0.05962779795831243, 0.07247882194498295, -0.042335991860535264,
+2.897767585446234], "levels": {"ustar": [[410, 174], [256, 192], [128, 76],
+[64, 108], [32, 106], [16, 188], [8, 188], [4, 334], [2, 372], [1, 642]],
+"pphi": [[62, 161], [32, 186], [16, 34], [8, 35], [4, 52], [2, 58], [1,
+110]]}}}, "segregated": {"n": 48, "relax": 0.8, "tol": 1e-08, "n_dof": {"flow":
+21219, "temperature": 9409, "species": 9409}, "coupled": {"newton": 7, "T":
+[1.0, 0.41016772800286005, 0.24056390025360486, 0.1854524970104904,
+0.09885948769549058, 0.7172636376299895, 0.34746286754382905,
+0.3350338556199232, 0.3264586178160453, 0.07590599404191005,
+0.5974409473205475, 0.4769245278952084, 0.5234213033253037, 0.4199669622462824,
+0.9429955052799186, 0.680036800336608, 0.665382753323857, 0.6578458216527908,
+0.31538338435125085, 0.9086418047118696, 0.8179879845416517, 0.763091087552916,
+0.6049854090437181, 0.0], "ux": [0.0, -5.988713830721165, -11.870680138905168,
+-14.006841446117056, -4.6199593757978334, -2.8981722702482804,
+-12.071596680734384, -12.16939843875866, -7.86481081571686,
+-0.6112045272411224, -0.9512368298755433, -1.688853909641683,
+1.6926881391302113, 1.1689456980969817, 0.3639053169733528, 7.6741898240070086,
+12.130304653357703, 12.324157247980775, 3.50175140394443, 4.031188213712846,
+13.76315955848027, 11.962085117296898, 6.073819594689734, 0.0], "uy": [0.0,
+0.15269463297695052, 0.4373244096836095, -1.5322932661397368,
+-6.779700118697807, 11.659206107614317, 4.279967929834656, 0.20140070801050092,
+-10.853583424031047, -10.11340250866239, 17.254069712331088, 4.114609975008286,
+-3.695154482221671, -16.536700199528475, 8.061305915654616, 11.50889685199941,
+0.10950563510473175, -4.036931518459551, -11.596571489485795,
+6.613543163746993, 1.739690289935271, -0.43273021249598287,
+-0.1253846180547542, 0.0], "T_max": 1.0, "u_max": 19.671760324306064},
+"tracers_rungs": 3.531204217921413e-10, "gmres+ndlu": {"outer": 16, "newton":
+{"flow": [3, 5, 5, 4, 3, 3, 3, 3, 3, 2, 2, 2, 2, 2, 2, 1], "temperature": [2,
+4, 3, 3, 3, 3, 3, 2, 2, 2, 2, 1, 1, 1, 1, 0], "species": [2, 4, 3, 3, 3, 3, 3,
+2, 2, 2, 2, 1, 1, 1, 1, 0]}, "levels": {"flow": [[126, 174], [64, 187], [32,
+62], [16, 92], [8, 93], [4, 187], [2, 120], [1, 243]], "temperature": [[64,
+156], [32, 27], [16, 39], [8, 39], [4, 79], [2, 48], [1, 97]], "species": [[64,
+156], [32, 27], [16, 39], [8, 39], [4, 79], [2, 48], [1, 97]]}, "flow":
+{"x_max": 8250.534618356418, "x_samples": [0.0, -5.772849927399219,
+993.341046486033, -14.865713403756708, -6.523930483566392, 1942.2510170467874,
+-10.491515876018722, -12.223797447410135, -11.508896852423318, 0.0,
+-1.6247261836683984, 3.6951544891371553, 1.692688113112363, 1.6247261836673712,
+4383.465393632406, 12.152843459241305, 12.223797447409446, 10.491515876018022,
+0.0, 6489.796564923339, 0.5984693041241067, -0.4322899757922819,
+5.772849927399756, 7099.9999984501965]}, "temperature": {"x_max":
+0.999999999966638, "x_samples": [0.999999999966638, 0.4101677257674453,
+0.24056389894828817, 0.18545249591210738, 0.09885948767158169,
+0.7172636374352628, 0.3474628673429157, 0.3350338542376031, 0.3264586172063493,
+0.0759059943672114, 0.5974409474810315, 0.47692452874946967,
+0.5234213024949752, 0.41996696201056005, 0.9429955049983777, 0.680036800801966,
+0.6653827547161115, 0.6578458218414596, 0.3153833845550095, 0.9086418046793563,
+0.8179879855710115, 0.7630910888289533, 0.6049854111972942, 0.0]}, "species":
+{"x_max": 0.999999999966638, "x_samples": [0.999999999966638,
+0.4101677257674453, 0.24056389894828817, 0.18545249591210738,
+0.09885948767158169, 0.7172636374352628, 0.3474628673429157,
+0.3350338542376031, 0.3264586172063493, 0.0759059943672114, 0.5974409474810315,
+0.47692452874946967, 0.5234213024949752, 0.41996696201056005,
+0.9429955049983777, 0.680036800801966, 0.6653827547161115, 0.6578458218414596,
+0.3153833845550095, 0.9086418046793563, 0.8179879855710115, 0.7630910888289533,
+0.6049854111972942, 0.0]}, "vs_coupled": {"T": 2.2354147422021242e-09, "u":
+2.3285078329728204e-09}, "derived": {"VORTICITY": {"max": 425.6864522891912,
+"at": [-2.365569451651802, 102.0436221552426, 88.76320392897358,
+12.829979921880396, 15.98980327113625, -10.318954796360405, -57.52044983684444,
+-82.17016670027698, -103.80301148291667, 180.86738988941374,
+-101.9999701580968, -103.43600902357053, -102.01947470224835,
+-108.33065185738833, 210.79255376926648, -101.20403243723486,
+-83.87187444093414, -55.4265600491793, -28.441352665447738, 21.630583593138414,
+11.332861094992957, 88.86581027597002, 105.67110272857512,
+-2.365569451655505]}, "SHEAR_RATE": {"max": 425.45814462759495, "at":
+[-1.8858906538288387, 109.073028616671, 91.00841954923617, 68.4469683630935,
+114.95885508090366, 114.35334434392911, 51.12448606157272, 25.02173890503493,
+41.68819653109603, 190.89966796018012, 51.942070037119116, 21.165121838407828,
+23.235640560875275, 54.18316712052926, 216.78107966510075, 45.115652100346196,
+24.04630534346681, 47.83045050426956, 117.74455541593618, 112.85341308313878,
+71.29907395954814, 91.68701505628181, 111.13032480979956,
+-1.8858906538290248]}, "DIV_VELOCITY": {"max": 0.6311993564131299, "at":
+[0.0018887121204322862, -0.04025596780365869, 0.010087384449019134,
+-0.025189166747993187, 0.038077265749494625, -0.13444111366646475,
+-0.01073342803538838, 0.0032082312716322325, 0.00921887274761313,
+0.1486287098533863, -0.0380896849431101, -0.005409050827177224,
+0.007409910771569666, 0.028468234737514777, -0.07369893023228818,
+-0.016645759804309435, -0.00035355957559070637, 0.005045785813470293,
+0.0471976770631729, -0.05935085815334035, -0.03612993675862579,
+0.02291382370484393, 0.002814671516002975, 0.0018887119855624792]},
+"PRESSURE_NODAL": {"max": 8250.534618356418, "at": [5.620504062164854e-16,
+592.5729665013715, 1024.5839721739778, 1427.3225216000712, 1787.086382657574,
+1771.2044843985755, 1955.343605192955, 2200.1437678129696, 2532.8603685334024,
+2877.575697889313, 3112.2160862418064, 3298.147151815837, 3592.1854385539,
+3992.4031214438905, 4501.172511355236, 4759.799642017031, 5013.143174825302,
+5356.205991762576, 5760.351528126299, 6522.240528463118, 6763.272618128922,
+6949.532200060945, 7113.095654270412, 7099.999998450196]}, "STRESS_TENSOR":
+{"max": 302.07647522894604, "at": [0.3438275748236864, -0.013461313449909614,
+-0.34114560361267254, -12.521863258108302, -76.51414902977812,
+12.464699783827111, -12.757453967147553, -63.36198436683616, 12.77177805306516,
+31.589789696821345, -36.98704530181757, -31.625558313603495, 81.38895049972487,
+7.109580962132475, -81.33488078236057, -81.1236904190491, 10.371270030313946,
+80.9327840376427, -35.79328959070318, 5.974936098772594, 35.778048122892926,
+4.8056394529841455, 17.123857060635036, -4.801083764578427, 24.908759628304907,
+-15.982513383495647, -24.895668829003295, 37.366846208712126,
+130.4928724181508, -37.15579344072032, -29.168073358499406,
+-22.645101598279343, 29.11398600588019, -1.217832508861467, 14.966350884235094,
+1.2101516566868755, 0.17716487891543625, 16.520944102970383,
+-0.1666428056198073, -30.236343378402616, -23.78279638536009,
+30.276768271729885, 29.99596228223361, 150.86687257902858, -30.10061476316346,
+27.05055195107372, -17.12546855691296, -27.07418892999584, 5.8507814269172655,
+16.026970359882146, -5.851283481514604, -33.04454420782366, 7.942376030848,
+33.05170922367879, -83.42886199102868, -0.05015146228592238, 83.49588269245841,
+79.23525428989726, 11.49711872667022, -79.31953250847499, 34.97405341766563,
+-36.71121241926008, -35.02535792786287, -12.240118196145584,
+-63.94829466413631, 12.27265582580646, -10.559883111914926, -78.27425054696566,
+10.56387994546765, 0.3438275747381061, -0.013461313525542569,
+-0.3411456037186073]}, "SPEED": {"max": 19.67517633570808, "at":
+[-0.002214287121778176, 6.023223344931183, 11.904459155408992,
+14.106796804026938, 8.207115852489071, 12.048319053842903, 12.805747514971216,
+12.169002928309954, 13.403162999445996, 10.187776297791636, 17.295466857663484,
+4.4344324618384965, 4.044331479110031, 16.57714621861749, 8.0388381193835,
+13.831377632827474, 12.128740375708098, 12.96724390877209, 12.100014744865845,
+7.7415184820756275, 13.894495435529075, 11.994881525992307, 6.111060369570835,
+-0.002214287121503427]}, "KINETIC_ENERGY": {"max": 193.5484846743311, "at":
+[0.00031982750727085527, 17.88615305568145, 70.67829313826012,
+99.47607851120766, 33.585846835977044, 72.59542656585533, 82.00175920488829,
+74.07273050232845, 89.84153352024228, 51.142488861316416, 149.47034530922565,
+9.835858005470424, 8.13499998456676, 137.44545402228852, 32.80675415171577,
+95.61741263030697, 73.58401581917907, 84.07624444069668, 73.23495511188139,
+29.935668581841647, 96.48952386404694, 71.75948228118433, 18.403799372238087,
+0.00031982750726998764]}, "ENERGY_FLUX": {"max": 3.5322694173371465, "at":
+[3.3758670912207793, -6.229880095116643e-05, 1.5090567206624323,
+0.22453120995838532, 0.35659625653995314, -0.09515258164059595,
+0.3256762941726469, -0.4381969684420783, 0.7110767643469188,
+-0.39010910243323244, 3.1895898819200403, -0.1389498925149762,
+0.5416726198804076, -0.475277165565985, 0.03751580165341128,
+-0.819416071556702, 0.5953296176613337, -0.9365013412361232,
+1.8112495360144636, -0.2147180623274887, 1.7325177435287966,
+-0.6421847733448452, 0.04728961256293471, -0.8232003070145578,
+0.018914060366807015, -0.8238352249945952, 1.6104141985914058,
+-0.6622592240792198, 1.8180432408507277, -0.16113698917310582,
+0.6518267275341897, -0.9270338877957106, 0.04254982801069961,
+-0.8318770968117266, 0.47786891699145245, -0.48671512630724545,
+3.0785478227504584, -0.15318539760302424, 0.7283731893161982,
+-0.3604824011059289, 0.3349785323808613, -0.4425775313808151,
+0.345398001051687, -0.10512169584198745, 1.400699899221075,
+0.21426424126107943, 3.375867091218713, -6.229880083065288e-05]}, "DENSITY":
+{"max": 1.0000000000000002, "at": [1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+0.9999999999999999, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+1.0, 1.0, 1.0, 1.0, 1.0]}, "VISCOSITY": {"max": 0.7100000000000003, "at":
+[0.7100000000000001, 0.7100000000000001, 0.71, 0.71, 0.71, 0.7100000000000001,
+0.71, 0.71, 0.7100000000000002, 0.71, 0.7100000000000001, 0.7099999999999999,
+0.7100000000000001, 0.71, 0.71, 0.7099999999999999, 0.7099999999999999, 0.71,
+0.71, 0.71, 0.7099999999999999, 0.7099999999999999, 0.71, 0.7099999999999999]},
+"STREAM": {"max": 5.0736745876312215, "at": [0.0, -0.13664295924658487,
+-0.5589371728152412, -1.1156489785632133, -0.5409951842630262,
+-0.6763597698870356, -2.774447404791695, -3.8412572469184365,
+-3.262070585916814, -0.22867752122612559, -2.5481374913537893,
+-4.827224773255013, -4.867884429585229, -2.7241678723827256,
+-0.13375241222256612, -3.145594601332361, -3.8417504045487005,
+-2.8177423740627394, -0.7976326440021808, -0.47118539645462026,
+-1.0986126393559263, -0.5634720373083629, -0.1380850172075774, 0.0]},
+"NS_RESIDUALS": {"max": 1.3612465375291596, "at": [0.0, 0.0,
+6.7763572531021055e-12, 0.2809835706773578, 7.451816941284051e-13,
+0.08233741010999385, 1.2685408279367039e-12, 0.12692055138799674,
+5.689670956599002e-12, 0.03384466143956022, -1.8840040638679056e-11,
+0.4910598072733884, -3.837891738328879e-11, 0.47601206998445267,
+-1.9184653865522705e-13, 0.22944273966530793, -3.934259110494207e-11,
+0.4470358313605867, 1.4139800441625994e-12, 0.051997495496530544,
+-1.1937117960769683e-11, 0.2044697548609431, -4.4024228706973645e-12,
+0.3266069090759913, 1.007194327939942e-12, 0.179242274134646,
+2.564670698035343e-11, 0.2875232447779439, -1.6237425759247932e-12,
+1.2915350867276645, 1.5134560271690134e-11, 0.46560592220143665,
+-4.3743148327313475e-12, 0.9113010988620008, 2.347633198951371e-11,
+0.4505568578946754, 4.9507133719441305e-11, 0.43176222612391507,
+-9.81356662599353e-12, 0.6222824956876849, -2.4158453015843406e-13,
+0.2801071687859924, -3.91986443304404e-12, 0.5226016619827902,
+-6.227907078937278e-12, 0.2072085628620357, 0.0, 0.0]}}, "tracers": {"end":
+[0.33382645760283225, 0.8396487951679725, 0.6673204654860079,
+0.731929883898053, 0.789982263813111, 0.6638486409560606, 0.8492308490222682,
+0.7883482083976574, 0.26357815136815405, 0.7659226540639669,
+0.48784808266807406, 0.6276917888702772, 0.6565113732979662,
+0.4756057924484459, 0.8246511673560702, 0.3832793679432571,
+0.17534883264390147, 0.6167206320567455, 0.34348862670204944,
+0.5243942075515481, 0.5121519173318889, 0.37230821112970425,
+0.7364218486317967, 0.23407734593603738, 0.15076915097774418,
+0.21165179160226008, 0.2100177361868456, 0.33615135904395405,
+0.3326795345139166, 0.2680701161019661, 0.6661735423971226, 0.160351204832037],
+"alive": [true, true, true, true, true, true, true, true, true, true, true,
+true, true, true, true, true]}}, "tpu_direct": {"outer": 16, "newton": {"flow":
+[2, 4, 4, 3, 3, 2, 2, 2, 2, 2, 1, 1, 1, 1, 1, 1], "temperature": [1, 1, 2, 2,
+2, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0], "species": [1, 1, 2, 2, 2, 2, 1, 1, 1, 1,
+1, 1, 1, 1, 1, 0]}, "levels": {"flow": [[126, 174], [64, 187], [32, 62], [16,
+92], [8, 93], [4, 187], [2, 120], [1, 243]], "temperature": [[64, 156], [32,
+27], [16, 39], [8, 39], [4, 79], [2, 48], [1, 97]], "species": [[64, 156], [32,
+27], [16, 39], [8, 39], [4, 79], [2, 48], [1, 97]]}, "flow": {"x_max":
+8250.534618624411, "x_samples": [0.0, -5.772849926156774, 993.3410465107054,
+-14.865713404134901, -6.523930484664313, 1942.2510173142514,
+-10.491515870621681, -12.22379744245935, -11.508896849920268, 0.0,
+-1.6247261859834041, 3.695154489671672, 1.692688115782639, 1.6247261859832554,
+4383.465394164377, 12.152843456537434, 12.223797442459292, 10.491515870621656,
+0.0, 6489.796565141086, 0.5984693018081086, -0.4322899771530106,
+5.772849926157184, 7099.999998463565]}, "temperature": {"x_max":
+0.999999999967232, "x_samples": [0.999999999967232, 0.410167725964319,
+0.2405638993023126, 0.1854524962790151, 0.09885948771416975,
+0.7172636373901724, 0.3474628674587295, 0.33503385472210834,
+0.3264586176631264, 0.07590599445841927, 0.5974409473445852,
+0.4769245287422741, 0.5234213024959211, 0.4199669621344174, 0.942995504930463,
+0.6800368003582009, 0.6653827542225432, 0.6578458217105407, 0.3153833845945929,
+0.9086418046457707, 0.8179879852190124, 0.7630910884623838, 0.6049854110105966,
+0.0]}, "species": {"x_max": 0.999999999967232, "x_samples": [0.999999999967232,
+0.410167725964319, 0.2405638993023126, 0.1854524962790151, 0.09885948771416975,
+0.7172636373901724, 0.3474628674587295, 0.33503385472210834,
+0.3264586176631264, 0.07590599445841927, 0.5974409473445852,
+0.4769245287422741, 0.5234213024959211, 0.4199669621344174, 0.942995504930463,
+0.6800368003582009, 0.6653827542225432, 0.6578458217105407, 0.3153833845945929,
+0.9086418046457707, 0.8179879852190124, 0.7630910884623838, 0.6049854110105966,
+0.0]}, "vs_coupled": {"T": 2.0385410581802432e-09, "u":
+2.0843821959449957e-09}, "derived": {"VORTICITY": {"max": 425.6864521296996,
+"at": [-2.3655694501533806, 102.04362210500544, 88.76320392079963,
+12.829979856671825, 15.989803236310312, -10.318954768112736,
+-57.52044974021458, -82.17016672153191, -103.8030114487441, 180.86738985170422,
+-101.99997009573077, -103.43600899313499, -102.01947467269653,
+-108.33065179550299, 210.79255374192724, -101.20403240357521,
+-83.87187446499372, -55.42655994734913, -28.44135262708893, 21.630583565882755,
+11.332861027746796, 88.86581026587513, 105.67110267742345,
+-2.365569450158588]}, "SHEAR_RATE": {"max": 425.4581444682503, "at":
+[-1.8858906526319008, 109.07302857851091, 91.00841953542466, 68.44696831791343,
+114.95885508151673, 114.35334426557957, 51.124486064986144, 25.021738877057274,
+41.688196522068935, 190.8996679125589, 51.94207002513577, 21.16512183971584,
+23.235640561713158, 54.18316710827232, 216.78107963186335, 45.11565208572879,
+24.046305318933307, 47.83045051052247, 117.74455533140997, 112.85341308808285,
+71.29907391559078, 91.68701504482867, 111.13032476823152,
+-1.8858906526338628]}, "DIV_VELOCITY": {"max": 0.6311993559516575, "at":
+[0.001888712091640462, -0.040255967913320194, 0.01008738445071401,
+-0.025189166721351654, 0.03807726573178192, -0.13444111350839236,
+-0.010733428027206875, 0.0032082312714442284, 0.00921887273129907,
+0.14862870972414677, -0.038089684845840015, -0.005409050818630374,
+0.00740991078476131, 0.028468234704742933, -0.07369893018549788,
+-0.016645759770041162, -0.0003535595662359177, 0.0050457858012264495,
+0.04719767701902686, -0.05935085817222535, -0.036129936737568355,
+0.022913823798110577, 0.002814671482057094, 0.0018887119795684948]},
+"PRESSURE_NODAL": {"max": 8250.534618624411, "at": [5.620504062164854e-16,
+592.5729665199837, 1024.583972175828, 1427.3225217079403, 1787.0863828895551,
+1771.2044847432578, 1955.3436056537455, 2200.1437683309496, 2532.8603690579257,
+2877.5756983563833, 3112.216086837431, 3298.147152550153, 3592.1854392918794,
+3992.403122049666, 4501.172511829062, 4759.799642538579, 5013.143175344212,
+5356.205992230188, 5760.351528485605, 6522.240528707082, 6763.272618250556,
+6949.532200069666, 7113.095654303979, 7099.999998463564]}, "STRESS_TENSOR":
+{"max": 302.07647511582354, "at": [0.34382757465267655, -0.01346131346248701,
+-0.341145603482547, -12.521863237337643, -76.51414900558498,
+12.464699762900729, -12.757454011694584, -63.36198434795881,
+12.771778097614597, 31.589789677057183, -36.98704527668482, -31.6255582938015,
+81.38895049923828, 7.1095809725248325, -81.33488078189914, -81.12369036179773,
+10.371270036145974, 80.9327839806158, -35.79328959122321, 5.974936110009137,
+35.77804812342457, 4.805639466342115, 17.123857036311694, -4.8010837779366655,
+24.908759622756296, -15.982513380238561, -24.89566882347785, 37.36684617134657,
+130.49287239339216, -37.15579340353828, -29.168073363779268,
+-22.64510157749834, 29.113986011298174, -1.2178324859652814, 14.96635088697311,
+1.2101516338028262, 0.1771649062034407, 16.52094410332913,
+-0.16664283288907963, -30.23634338304005, -23.78279636533392,
+30.276768276320787, 29.99596225279093, 150.86687256096826, -30.10061473365434,
+27.050551941647687, -17.12546855239789, -27.074188920521145, 5.850781440769003,
+16.026970336261833, -5.851283495353056, -33.044544208688755, 7.942376046878278,
+33.0517092245265, -83.42886193110527, -0.05015145071194863, 83.4958826324723,
+79.23525429189543, 11.497118737281973, -79.31953251049998, 34.97405339914824,
+-36.711212394041546, -35.02535790931559, -12.240118241949206,
+-63.948294647158974, 12.272655871742522, -10.559883086912032,
+-78.27425052046637, 10.563879920416554, 0.343827574583058,
+-0.013461313525154532, -0.3411456035720708]}, "SPEED": {"max":
+19.6751763286252, "at": [-0.0022142871197623035, 6.023223343442872,
+11.904459152216866, 14.106796805060789, 8.20711585491327, 12.048319048013349,
+12.805747509388059, 12.16900292324847, 13.403162993613755, 10.1877762971917,
+17.29546685154125, 4.434432463278913, 4.0443314807445825, 16.577146213012565,
+8.038838119096868, 13.831377627021682, 12.128740370432727, 12.967243903375838,
+12.100014739151701, 7.741518484592954, 13.894495436692845, 11.994881523136197,
+6.11106036792233, -0.0022142871195315675]}, "KINETIC_ENERGY": {"max":
+193.5484845349844, "at": [0.0003198275068843633, 17.886153046907978,
+70.67829310031188, 99.47607852586611, 33.58584685591901, 72.59542649558294,
+82.0017591333783, 74.07273044072559, 89.84153344206989, 51.14248885547121,
+149.47034520347128, 9.835858011805337, 8.134999991159034, 137.44545392930203,
+32.80675414927447, 95.61741254999787, 73.58401575519356, 84.07624437068947,
+73.2349550427004, 29.935668601337163, 96.48952388030905, 71.75948224699421,
+18.40379936237921, 0.0003198275068839724]}, "ENERGY_FLUX": {"max":
+3.532269416785392, "at": [3.3758670895440703, -6.229880140106308e-05,
+1.5090567215898885, 0.2245312100204319, 0.35659625520733196,
+-0.09515258199808271, 0.32567629548090127, -0.43819696905000594,
+0.7110767652310108, -0.3901091032122222, 3.189589881524958,
+-0.13894989057435722, 0.5416726184009946, -0.4752771647197645,
+0.037515800568531724, -0.819416071203888, 0.5953296188327148,
+-0.9365013401029693, 1.8112495381769502, -0.21471806236395097,
+1.7325177421191604, -0.6421847736846743, 0.047289611921263595,
+-0.8232003040855606, 0.018914059675704382, -0.823835221944477,
+1.6104141971611865, -0.6622592243474671, 1.818043243030487,
+-0.16113698920631933, 0.6518267287995411, -0.9270338867274921,
+0.04254982702384394, -0.8318770964767652, 0.47786891539050447,
+-0.4867151255322296, 3.078547822057313, -0.1531853954655335,
+0.7283731900531496, -0.3604824018213285, 0.33497853379314246,
+-0.44257753199399114, 0.34539799982773334, -0.10512169621952004,
+1.400699900085753, 0.214264241394354, 3.3758670895441045,
+-6.22988014352028e-05]}, "DENSITY": {"max": 1.0000000000000002, "at": [1.0,
+1.0, 1.0, 1.0, 1.0, 1.0, 0.9999999999999999, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0,
+1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0, 1.0]}, "VISCOSITY": {"max":
+0.7100000000000003, "at": [0.7100000000000001, 0.7100000000000001, 0.71, 0.71,
+0.71, 0.7100000000000001, 0.71, 0.71, 0.7100000000000002, 0.71,
+0.7100000000000001, 0.7099999999999999, 0.7100000000000001, 0.71, 0.71,
+0.7099999999999999, 0.7099999999999999, 0.71, 0.71, 0.71, 0.7099999999999999,
+0.7099999999999999, 0.71, 0.7099999999999999]}, "STREAM": {"max":
+5.073674586308197, "at": [0.0, -0.13664295921829953, -0.5589371726453523,
+-1.1156489788460837, -0.5409951845031912, -0.6763597695451335,
+-2.774447403448717, -3.8412572461920758, -3.2620705854538357,
+-0.22867752122116952, -2.5481374903561598, -4.827224771843784,
+-4.867884428178703, -2.724167871322665, -0.13375241222182607,
+-3.1455946008940847, -3.8417504038695, -2.817742372708857, -0.7976326436037353,
+-0.47118539666849596, -1.0986126396549625, -0.5634720371573174,
+-0.13808501717519958, 0.0]}, "NS_RESIDUALS": {"max": 1.3612465375372553, "at":
+[0.0, 0.0, 2.55351295663786e-14, 0.28098357087223924, -1.0662581928500003e-12,
+0.08233741024890584, 5.790812274142354e-12, 0.12692055157158677,
+6.24389429049188e-13, 0.033844661436159384, -1.765698698363849e-12,
+0.49105980727286663, -2.0414317296836953e-11, 0.4760120700650184,
+2.5153212845907547e-12, 0.22944273991887806, 1.7090594104221568e-11,
+0.447035831736847, 1.8474111129762605e-13, 0.05199749554046407,
+-4.247269203005999e-12, 0.20446975489597463, -1.305400232354259e-11,
+0.3266069091335595, 6.114220241215662e-12, 0.17924227410858684,
+9.347023155470424e-12, 0.28752324469596857, -1.786336447489727e-13,
+1.2915350866637567, -8.171241461241152e-12, 0.4656059220130291,
+-6.699695080808694e-12, 0.911301098367175, 1.0317080523236655e-11,
+0.45055685784812416, 4.117605278210415e-12, 0.43176222609963305,
+-1.061123411361109e-12, 0.6222824956990962, -2.8634872251132037e-12,
+0.28010716869998475, 1.8525181388895362e-12, 0.522601661702069, 0.0,
+0.2072085627706599, 0.0, 0.0]}}, "tracers": {"end": [0.3338264572497642,
+0.8396487951725088, 0.6673204652248026, 0.7319298839656233, 0.7899822636553029,
+0.663848641121476, 0.8492308489323926, 0.788348208371505, 0.26357815107822596,
+0.7659226539616412, 0.4878480825834185, 0.6276917889290675, 0.6565113732632658,
+0.4756057924940473, 0.8246511673892181, 0.383279368156557, 0.17534883261078035,
+0.6167206318434454, 0.3434886267367355, 0.5243942075059604, 0.5121519174165835,
+0.3723082110709348, 0.736421848921774, 0.23407734603836247,
+0.15076915106760702, 0.21165179162849368, 0.21001773634469723,
+0.33615135887852327, 0.3326795347751968, 0.2680701160343796, 0.666173542750243,
+0.16035120482749424], "alive": [true, true, true, true, true, true, true, true,
+true, true, true, true, true, true, true, true]}}}, "small":
+{"derived_manufactured": {"newton": 0, "reading": [1.9621484375000005,
+1.4042470702838217, 3.0000000000000058]}, "derived_custom": {"newton": 0,
+"reading": [3.0000000000000004]}, "derived_ls_normal": {"newton": 0, "reading":
+[0.44721359549995787, 0.8944271909999162]}, "derived_density_residual":
+{"newton": 0, "reading": [0.15972222222222235, 2.916666666666668]},
+"derived_porous": {"newton": 0, "reading": [0.5740844152658378,
+0.039113440217178816]}, "derived_strain_diffusion": {"newton": 0, "reading":
+[-5.454545454545454]}, "particle_rigid_rotation": {"newton": 0, "reading":
+[0.00031853073662412197, 0.39999987317225605]}, "particle_leaves": {"newton":
+0, "reading": [1.0, 0.5]}, "inertial_terminal": {"newton": 0, "reading":
+[-348.3252009391423, -862.2819038636253]}, "inertial_buoyancy": {"newton": 0,
+"reading": [5.0, 5.0, 0.0, 0.0]}, "projection_poiseuille": {"newton": 128,
+"reading": [0.0008651312092583657, 0.10621448010792209, 0.1249999975512939]},
+"subcycled_fine_dt": {"newton": 3, "reading": [0.3152753221838682]},
+"subcycle_stiff_species": {"newton": 0, "reading": [0.0007987867810972857,
+0.0013606916152101643]}, "subcycle_sweeps_raise": {"newton": 0, "reading":
+[2.0]}, "segregated_natural_convection": {"newton": 12, "reading": [12.0,
+3.6203254807957994]}}}""")
+# u and p at the gate's moving nodes (and each matrix's x at 24 dofs) from
+# goma_tpu's rung and its float64 solution, relative to max |x|; the
+# projection cavity's readings, relative
+SPLIT_X_RTOL = 1e-6
+SPLIT_READ_RTOL = 1e-6
+# the segregated T and u against the coupled solution: 2x goma_tpu's own
+# segregated-against-coupled reading, and no looser than this
+SPLIT_COUPLED_CAP = 1e-5
+# derived fields: the card against the port's CPU projection of the same x,
+# and against goma_tpu's record, each relative to the field's max
+SPLIT_DERIVED_DEV_RTOL = 1e-12
+SPLIT_DERIVED_RTOL = 1e-6
+# tracer end positions from goma_tpu's record, of the cavity's size (1)
+SPLIT_TRACER_TOL = 1e-8
+# the small decks: readings against goma_tpu's, relative; x between the
+# card and the CPU, relative to 1 + |x|
+SPLIT_SMALL_RTOL = 1e-8
+SPLIT_SMALL_X_TOL = 1e-8
+
+
+def split_namespace(device):
+    """scripts/split_decks.py's namespace for the port on ``device``."""
+    from scripts import split_decks
+
+    def arr(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.float64,
+                               device=device)
+
+    return split_decks.namespace("goma_tpu_torch", torch, arr, device=device)
+
+
+def split_nd(solver, prob, params, direct):
+    """The NDLU a rung's run will factor, before the run: the
+    preconditioner of ``gmres+ndlu``, or the ``tpu_direct`` LU built from
+    the values of the first iteration's prep at x = 0 (as the run builds
+    it)."""
+    if not direct:
+        return solver.precond
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+    return solver._direct_ndlu(solver._prepare(x0, params)[1])
+
+
+def split_tree(nd, seen, prob, label, direct, timed):
+    """The kernels on one tree of a split deck, on the CSR values of the
+    run's first and last factorization (``record_factor_vals``): the front
+    LU and the gather against their plain versions on the real fronts and
+    level maps of both; on ``tpu_direct`` the substitutions of one solve
+    with the first factor against their plain versions. ``timed`` (as
+    scripts/split_phases.py runs it) also times, on ``gmres+ndlu``, the
+    level shapes' random boosted fronts (kernel, plain version,
+    ``lu_factor_ex``, bound; once per set of shapes) and one
+    factorization's gathers, and on ``tpu_direct`` the substitutions (once
+    per set of shapes). Returns the numbers the summary reads."""
+    levels = nd_levels(nd)
+    tree = {"levels": levels, "max_abs": 0.0, "gather_abs": 0.0}
+    for key in ("first", "last") if seen["last"] is not seen["first"] \
+            else ("first",):
+        tree["max_abs"] = max(tree["max_abs"], check_real_fronts(
+            nd, seen[key], f"{label} {key} factorization"))
+        tree["gather_abs"] = max(tree["gather_abs"], check_gathers(
+            nd, seen[key], f"{label} {key} factorization"))
+    if timed and not direct:
+        shapes = [(nn, m) for nn, m, _ in levels]
+        lu_abs, tree["lu_ms"] = lu_shapes(shapes, label, time_twin=True)
+        tree["max_abs"] = max(tree["max_abs"], lu_abs)
+        tree["lu_bound"] = lu_bound(shapes)
+        tree["g_times"], tree["g_bound"] = gather_times(
+            nd, seen["first"], f"{label} tree")
+    if direct:
+        calls = []
+        rhs = torch.as_tensor(np.random.default_rng(47).standard_normal(
+            prob.dofmap.n_dof), dtype=prob.dtype, device="cuda")
+        nd.solve(nd.factor(seen["first"]), rhs, trace=calls)
+        if len(calls) != 2 * len(levels):
+            raise RuntimeError(f"one {label} solve made {len(calls)} "
+                               f"substitutions, not 2 x {len(levels)} levels")
+        key = tuple((b.shape, lo) for _, b, lo in calls)
+        if not timed or key in _TRSV_SHAPES:
+            gates = check_substitutions(calls, label, timed=False)
+            tree["trsv"] = {"max_abs": gates["max_abs"]}
+            if timed:
+                first, rec = _TRSV_SHAPES[key]
+                log(f"trsv {label}: the level shapes of {first}, timed there")
+                tree["trsv"] = {**rec, "max_abs": gates["max_abs"]}
+        else:
+            tree["trsv"] = check_substitutions(calls, label)
+            _TRSV_SHAPES[key] = (label, tree["trsv"])
+        tree["bound"] = trsv_bound(calls)
+        if "levels" in tree["trsv"] and "device_ms" in tree["trsv"]:
+            # device ns per dependent step at the two top levels (level
+            # device time / m, both sweeps averaged)
+            tree["step_ns"] = {}
+            for li in range(max(len(levels) - 2, 0), len(levels)):
+                t = [1e6 * k / m for lv, nn, m, _, k, _
+                     in tree["trsv"]["levels"] if lv == li]
+                tree["step_ns"][f"({levels[li][0]}, {levels[li][1]})"] = (
+                    sum(t) / len(t))
+    return tree
+
+
+def split_trees(solvers, probs, params, label, direct, ref_levels):
+    """Before a split deck's run: each tree's NDLU against goma_tpu's
+    levels, its factorizations recorded (``record_factor_vals``), its
+    solver reset. Returns ({name: (NDLU, recorded values)}, [(name,
+    solver, levels)] for ``check_split_launches``)."""
+    nds, parts = {}, []
+    for key, sv in solvers.items():
+        nd = split_nd(sv, probs[key], params[key], direct)
+        levels = check_ref_levels(nd, {"levels": ref_levels[key]},
+                                  f"{label} {key}")
+        nds[key] = (nd, record_factor_vals(nd))
+        parts.append((key, sv, len(levels)))
+        reset_solver(sv)
+    return nds, parts
+
+
+def split_checks(nds, probs, label, direct, timed):
+    """After a split deck's run: ``split_tree`` on every tree. Returns
+    {name: the numbers the summary reads}."""
+    trees = {}
+    for key, (nd, seen) in nds.items():
+        del nd.factor  # record_factor_vals's wrapper
+        trees[key] = split_tree(nd, seen, probs[key], f"{label} {key}",
+                                direct, timed)
+    return trees
+
+
+def reset_solver(sv):
+    """A rung's solver with nothing lagged and its counts at 0."""
+    sv.reset_lagged()
+    sv.n_factor = sv._ndlu_nfactor = sv.n_discarded = 0
+    sv.direct_log = []
+    if sv._ndlu is not None:
+        sv._ndlu.n_solve = 0
+
+
+def check_split_launches(parts, ln, label, direct):
+    """Front-LU and front-gather launches = the sum over the split's trees
+    of levels x factorizations, and on ``tpu_direct`` substitution
+    launches = the sum of 2 x levels x NDLU solves; every tree factored.
+    ``parts``: [(name, solver, levels)]."""
+    nf = {k: (sv._ndlu_nfactor if direct else sv.n_factor)
+          for k, sv, _ in parts}
+    want = sum(nlev * nf[k] for k, _, nlev in parts)
+    if min(nf.values()) < 1 or ln["lu"] != want or ln["gather"] != want:
+        raise RuntimeError(f"{label}: front-LU launches {ln['lu']} / "
+                           f"front-gather launches {ln['gather']} != "
+                           + " + ".join(f"{nlev} levels x {nf[k]} ({k})"
+                                        for k, _, nlev in parts))
+    if direct:
+        ns = {k: sv._ndlu.n_solve for k, sv, _ in parts}
+        want = sum(2 * nlev * ns[k] for k, _, nlev in parts)
+        if min(ns.values()) < 1 or ln["trsv"] != want:
+            raise RuntimeError(f"{label}: substitution launches {ln['trsv']} "
+                               "!= " + " + ".join(
+                                   f"2 x {nlev} levels x {ns[k]} ({k})"
+                                   for k, _, nlev in parts))
+    return nf
+
+
+def rel_max(a, b, scale):
+    """max |a - b| / scale."""
+    return float(np.max(np.abs(np.subtract(a, b)))) / scale
+
+
+def projection_phase(dev, kind, post=None, timed=False):
+    """Phase 63 on ``kind``: the 96x96 projection cavity (split_decks:
+    u* of 74,498 dof and the Q1 pressure increment of 9,409, dt 0.05 from
+    rest, PROJ_STEPS steps) under bench._cavity_opts(kind, tol=1e-9,
+    max_iter=PROJ_MAX_ITER) restated, float64 Jacobian. After the run the
+    kernels on each tree's first and last factorization (``split_tree``).
+    Gates:
+    both trees goma_tpu's; every step's Newton counts of both sub-solves
+    goma_tpu's on ``tpu_direct`` (+-1 on ``gmres+ndlu``); u and p at the
+    gate's 24 moving nodes within SPLIT_X_RTOL of max |x| from goma_tpu's
+    rung and its float64 solution; the kinetic energy, max |DIV_VELOCITY|,
+    the primary vortex's node and strength (STREAM) and VORTICITY there
+    within SPLIT_READ_RTOL of goma_tpu's; more than a third of the
+    velocity nodes moving; the launch identities. ``post``: the readings'
+    velocity-pressure carrier of an earlier call (the same mesh);
+    ``timed``: see ``split_tree``."""
+    from scripts import split_decks as sd
+
+    t_phase = time.perf_counter()
+    rec = SPLIT_REF["projection"]
+    ref = rec[kind]
+    direct = kind == "tpu_direct"
+    label = f"projection {kind}"
+    P = split_namespace(dev)
+    t0 = time.perf_counter()
+    ps = sd.projection_cavity(P, SPLIT_PROJ_N, (direct_opts if direct else
+                                                cavity_opts)(
+        tol=1e-9, max_iter=sd.PROJ_MAX_ITER))
+    n_dof = {"ustar": ps.prob_u.dofmap.n_dof, "pphi": ps.prob_p.dofmap.n_dof}
+    log(f"{label} setup: {SPLIT_PROJ_N}x{SPLIT_PROJ_N} QUAD9, u* (Q2) "
+        f"{n_dof['ustar']} dof, pressure increment (Q1) {n_dof['pphi']} dof "
+        f"(goma_tpu {rec['n_dof']}); {time.perf_counter() - t0:.2f} s")
+    if n_dof != rec["n_dof"]:
+        raise RuntimeError(f"{label}: dof counts differ from goma_tpu's")
+    dt = torch.tensor(sd.PROJ_DT, dtype=torch.float64, device="cuda")
+    probs = {"ustar": ps.prob_u, "pphi": ps.prob_p}
+    solvers = {"ustar": ps.solver_u, "pphi": ps.solver_p}
+    # step 1's parameters: every field at rest
+    nds, parts = split_trees(solvers, probs, {k: p.base_params(dt=dt)
+                                              for k, p in probs.items()},
+                             label, direct, ref["levels"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res, counts = sd.run_projection(P, ps, rec["steps"], rec["dt"])
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = read_counts()[0]
+    nf = check_split_launches(parts, ln, label, direct)
+    nit = sum(counts["ustar"]) + sum(counts["pphi"])
+    log(f"{label}: {rec['steps']} steps to t = {res.t:.3f}; Newton u* "
+        f"{counts['ustar']} (goma_tpu {ref['newton']['ustar']}), increment "
+        f"{counts['pphi']} (goma_tpu {ref['newton']['pphi']}); factorizations "
+        f"{nf}; launches front-LU {ln['lu']} front-gather {ln['gather']} "
+        f"substitution {ln['trsv']}; {sec:.3f} s, {sec / rec['steps']:.4f} "
+        f"s/step, {sec / max(nit, 1):.4f} s/iter")
+    for key in ("ustar", "pphi"):
+        a, b = counts[key], ref["newton"][key]
+        if len(a) != len(b) or not all(
+                (x == y) if direct else abs(x - y) <= 1 for x, y in zip(a, b)):
+            raise RuntimeError(f"{label}: {key} Newton counts {a} are not "
+                               f"goma_tpu's {b}")
+    post = post or sd.flow_post_problem(P, ps.mesh, ps.mat)
+    out = sd.projection_outputs(P, ps, res, ref["gate_nodes"], post)
+    u = np.asarray(res.u)
+    if not (np.all(np.isfinite(u)) and np.all(np.isfinite(res.p))):
+        raise RuntimeError(f"{label}: non-finite end state")
+    moving = np.linalg.norm(u[ref["gate_nodes"]], axis=1)
+    dx = rel_max(out["gate"], ref["gate"], ref["x_max"])
+    d64 = rel_max(out["gate"], rec["direct"]["gate"], rec["direct"]["x_max"])
+    keys = ("kinetic_energy", "div_max", "psi_vortex", "vortex_x",
+            "vortex_y", "vorticity_vortex")
+    dread = {k: abs(out[k] - ref[k]) / max(abs(ref[k]), 1e-300) for k in keys}
+    log(f"{label}: u, p at {len(ref['gate_nodes'])} moving nodes (speed "
+        f"{moving.min():.3g}-{moving.max():.3g}) max |dx| / max |x| "
+        f"{dx:.2e} from goma_tpu's rung, {d64:.2e} from its float64 "
+        f"solution; {out['moving_share']:.3f} of the velocity nodes move; "
+        + ", ".join(f"{k} {out[k]:.10g} (goma_tpu {ref[k]:.10g}, "
+                    f"{dread[k]:.1e})" for k in keys)
+        + f"; vortex node {out['vortex_node']} (goma_tpu "
+        f"{ref['vortex_node']})")
+    if max(dx, d64) > SPLIT_X_RTOL:
+        raise RuntimeError(f"{label}: u, p {dx:.2e} / {d64:.2e} from "
+                           f"goma_tpu's > {SPLIT_X_RTOL:.0e}")
+    if (max(dread.values()) > SPLIT_READ_RTOL
+            or out["vortex_node"] != ref["vortex_node"]):
+        raise RuntimeError(f"{label}: readings {dread} from goma_tpu's")
+    if out["moving_share"] <= 1 / 3 or moving.min() <= sd.MOVING:
+        raise RuntimeError(f"{label}: the flow does not move enough")
+    trees = split_checks(nds, probs, label, direct, timed)
+    log(f"phase 63 ({label}): {sec / rec['steps']:.4f} s/step, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": ln, "trees": trees, "sec": sec, "post": post}
+
+
+def segregated_phase(dev, kind, timed=False):
+    """Phase 64 on ``kind``: the 48x48 buoyant cavity split into three
+    matrices (split_decks: the flow, 21,219 dof; the temperature and the
+    species, 9,409 each) under ``SegregatedSolver`` (tol 1e-8, up to 60
+    outer iterations, goma_tpu's relaxation), every sub-solve on
+    bench._cavity_opts(kind, tol=1e-9, max_iter=SEG_MAX_ITER) restated,
+    float64 Jacobian. After the run the kernels on each tree's first and
+    last factorization (``split_tree``). Gates: the trees goma_tpu's; goma_tpu's outer count and every
+    sub-solve's Newton count (exactly on ``tpu_direct``, +-1 on
+    ``gmres+ndlu``); each matrix's x at 24 dofs within SPLIT_X_RTOL of max
+    |x|; T and u at 24 nodes against goma_tpu's coupled (one-matrix, float64
+    host direct) solution within 2x goma_tpu's own reading and
+    SPLIT_COUPLED_CAP; the derived catalog entries (SEG_DERIVED) within
+    SPLIT_DERIVED_RTOL of goma_tpu's record at the sampled nodes (and on
+    ``tpu_direct`` each within SPLIT_DERIVED_DEV_RTOL of the port's CPU
+    projection of the same x); 16 tracers' end positions within
+    SPLIT_TRACER_TOL of goma_tpu's; the launch identities. ``timed``: see
+    ``split_tree``."""
+    from scripts import split_decks as sd
+
+    t_phase = time.perf_counter()
+    rec = SPLIT_REF["segregated"]
+    ref = rec[kind]
+    direct = kind == "tpu_direct"
+    label = f"segregated {kind}"
+    P = split_namespace(dev)
+    t0 = time.perf_counter()
+    solver, probs, _ = sd.segregated_cavity(
+        P, SPLIT_SEG_N, (direct_opts if direct else cavity_opts)(
+            tol=1e-9, max_iter=sd.SEG_MAX_ITER), rec["relax"])
+    n_dof = {k: p.dofmap.n_dof for k, p in probs.items()}
+    log(f"{label} setup: {SPLIT_SEG_N}x{SPLIT_SEG_N} QUAD9, {n_dof} dof "
+        f"(goma_tpu {rec['n_dof']}), relaxation {rec['relax']}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    if n_dof != rec["n_dof"]:
+        raise RuntimeError(f"{label}: dof counts differ from goma_tpu's")
+    # the first outer iteration: every field at rest
+    nds, parts = split_trees(solver._solvers, probs,
+                             {k: p.base_params() for k, p in probs.items()},
+                             label, direct, ref["levels"])
+    reset_counts()
+    t0 = time.perf_counter()
+    res, counts = sd.run_segregated(solver)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln = read_counts()[0]
+    nf = check_split_launches(parts, ln, label, direct)
+    nit = sum(sum(c) for c in counts.values())
+    log(f"{label}: {res.outer_iters} outer iterations (goma_tpu "
+        f"{ref['outer']}), converged {res.converged}; Newton "
+        + "; ".join(f"{k} {c} (goma_tpu {ref['newton'][k]})"
+                    for k, c in counts.items())
+        + f"; factorizations {nf}; launches front-LU {ln['lu']} front-gather "
+        f"{ln['gather']} substitution {ln['trsv']}; {sec:.3f} s, "
+        f"{sec / max(nit, 1):.4f} s/iter, {sec / res.outer_iters:.4f} s an "
+        "outer iteration")
+    if not res.converged or res.outer_iters != ref["outer"]:
+        raise RuntimeError(f"{label}: {res.outer_iters} outer iterations "
+                           f"(converged {res.converged}), goma_tpu "
+                           f"{ref['outer']}")
+    for key, c in counts.items():
+        b = ref["newton"][key]
+        if len(c) != len(b) or not all(
+                (x == y) if direct else abs(x - y) <= 1 for x, y in zip(c, b)):
+            raise RuntimeError(f"{label}: {key} Newton counts {c} are not "
+                               f"goma_tpu's {b}")
+    out = sd.segregated_outputs(P, probs, res, derived=False)
+    dxs = {k: rel_max(out[k]["x_samples"], ref[k]["x_samples"],
+                      ref[k]["x_max"]) for k in probs}
+    c = rec["coupled"]
+    f = out["fields"]
+    vs = {"T": rel_max(f["T"], c["T"], c["T_max"]),
+          "u": max(rel_max(f["ux"], c["ux"], c["u_max"]),
+                   rel_max(f["uy"], c["uy"], c["u_max"]))}
+    lim = {k: min(2.0 * ref["vs_coupled"][k], SPLIT_COUPLED_CAP) for k in vs}
+    log(f"{label}: x at 24 dofs max |dx| / max |x| from goma_tpu's "
+        + ", ".join(f"{k} {v:.2e}" for k, v in dxs.items())
+        + "; against the coupled solution " + ", ".join(
+            f"{k} {vs[k]:.2e} (goma_tpu {ref['vs_coupled'][k]:.2e}, limit "
+            f"{lim[k]:.2e})" for k in vs))
+    if max(dxs.values()) > SPLIT_X_RTOL:
+        raise RuntimeError(f"{label}: x {dxs} from goma_tpu's > "
+                           f"{SPLIT_X_RTOL:.0e}")
+    if any(vs[k] > lim[k] for k in vs):
+        raise RuntimeError(f"{label}: T / u {vs} from the coupled solution "
+                           f"above {lim}")
+    trees = split_checks(nds, probs, label, direct, timed)
+    derived_phase(P, probs, res.x, ref, label, cpu=direct)
+    log(f"phase 64 ({label}): {sec / max(nit, 1):.4f} s/iter, phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return {"launches": ln, "trees": trees, "sec": sec}
+
+
+def split_derived_cpu(xs):
+    """The port's CPU projection of SEG_DERIVED on the segregated state
+    ``xs`` (the 48x48 matrices built on the CPU)."""
+    from scripts import split_decks as sd
+
+    P = split_namespace(torch.device("cpu"))
+    _, probs, _ = sd.segregated_cavity(P, SPLIT_SEG_N)
+    return sd.segregated_derived(P, probs, xs)
+
+
+def derived_phase(P, probs, xs, ref, label, cpu):
+    """Phase 64's derived fields and tracers on the converged state ``xs``
+    (see ``segregated_phase``); ``cpu``: the fields held against the port's
+    CPU projection too (the child's "derived" runs)."""
+    from scripts import split_decks as sd
+
+    t0 = time.perf_counter()
+    if cpu:
+        request_cpu_side("derived", {k: np.asarray(v) for k, v in xs.items()})
+    card = sd.segregated_derived(P, probs, xs)
+    t_card = time.perf_counter() - t0
+    nodes = sd.samples(probs["flow"].mesh.n_nodes)
+    cpu = cpu_runs("derived", lambda: split_derived_cpu(xs)) if cpu else None
+    for name, f in card.items():
+        r = ref["derived"][name]
+        got = sd.derived_reading(f, nodes)
+        dg = rel_max(got["at"], r["at"], r["max"])
+        dm = abs(got["max"] - r["max"]) / r["max"]
+        line = (f"{label} {name}: shape {tuple(f.shape)}, max {got['max']:.6g}"
+                f" (goma_tpu {r['max']:.6g}); at 24 nodes {dg:.2e} of max "
+                f"from goma_tpu's")
+        if cpu is not None:
+            # DIV_VELOCITY is the trace of the velocity gradient, a
+            # cancellation where the flow is nearly solenoidal (max |div|
+            # 0.63 where the gradient reaches 425): its card-vs-CPU
+            # difference is read against the gradient's scale, max
+            # SHEAR_RATE, and printed against its own max too
+            own = rel_max(f, cpu[name], float(np.abs(cpu[name]).max()))
+            dc = own
+            line += f", card vs CPU {own:.2e} of max"
+            if name == "DIV_VELOCITY":
+                dc = rel_max(f, cpu[name],
+                             float(np.abs(cpu["SHEAR_RATE"]).max()))
+                line += f", {dc:.2e} of max SHEAR_RATE"
+            if not dc <= SPLIT_DERIVED_DEV_RTOL:
+                raise RuntimeError(f"{line}: card vs CPU > "
+                                   f"{SPLIT_DERIVED_DEV_RTOL:.0e}")
+        log(line)
+        if not np.all(np.isfinite(f)) or max(dg, dm) > SPLIT_DERIVED_RTOL:
+            raise RuntimeError(f"{line}: > {SPLIT_DERIVED_RTOL:.0e}")
+    t1 = time.perf_counter()
+    tr = sd.trace(P, probs, xs)
+    end = np.asarray(tr.positions[-1]).ravel()
+    dp = float(np.abs(end - np.asarray(ref["tracers"]["end"])).max())
+    log(f"{label}: {len(sd.SEG_DERIVED)} derived fields on the card "
+        f"{t_card:.2f} s; {sd.SEG_TRACERS} tracers, {tr.positions.shape[0] - 1}"
+        f" RK4 steps of {sd.SEG_TRACE_DT} in {time.perf_counter() - t1:.2f} "
+        f"s: end positions max |dx| {dp:.2e} from goma_tpu's (its two rungs "
+        f"{SPLIT_REF['segregated']['tracers_rungs']:.2e} apart)")
+    if (dp > SPLIT_TRACER_TOL or list(tr.alive) != ref["tracers"]["alive"]
+            or not np.all(np.isfinite(end))):
+        raise RuntimeError(f"{label}: tracers {dp:.2e} from goma_tpu's > "
+                           f"{SPLIT_TRACER_TOL:.0e}")
+
+
+def split_small_phase(devices=("cuda", "cpu")):
+    """Phase 65: goma_tpu's tests' decks of the slice (``split_decks.SMALL``:
+    tests/test_derived.py's six, test_tools.py's two particle traces,
+    test_flux_sens_particles.py's two inertial particles,
+    test_projection.py's Poiseuille start-up, test_segregated_subcycle.py's
+    three and test_more_physics.py's segregated natural convection) at
+    their own sizes on their own solvers, on cuda and cpu (the CPU half in
+    the child process, group "split"): each deck's own gate, goma_tpu's
+    Newton (or step, outer) count, the readings within SPLIT_SMALL_RTOL on
+    the card, and the same count and x within SPLIT_SMALL_X_TOL on both
+    devices."""
+    from scripts import split_decks as sd
+
+    t0 = time.perf_counter()
+    check_small_decks("split small", "split", sd.SMALL, split_namespace,
+                      SPLIT_REF["small"], SPLIT_SMALL_RTOL, SPLIT_SMALL_X_TOL,
+                      devices)
+    log(f"phase 65 (small derived-field, particle, projection and segregated "
+        f"decks on {' and '.join(devices)}): {time.perf_counter() - t0:.1f} s")
+
+
+def split_phases(dev, timed=False):
+    """Phases 63-65 in order: the projection cavity on both rungs, the
+    three-matrix buoyant cavity on both rungs (its derived fields held
+    against the port's CPU projection on the ``tpu_direct`` state), the
+    small decks on cuda and cpu; ``timed``: the new
+    trees' kernels timed too (``split_tree``; scripts/split_phases.py).
+    Returns the four main paths' records (projection ``gmres+ndlu`` and
+    ``tpu_direct``, segregated ``gmres+ndlu`` and ``tpu_direct``)."""
+    t_split = time.perf_counter()
+    pg = projection_phase(dev, "gmres+ndlu", timed=timed)
+    pd = projection_phase(dev, "tpu_direct", pg.pop("post"), timed)
+    pd.pop("post")
+    sg = segregated_phase(dev, "gmres+ndlu", timed=timed)
+    sdr = segregated_phase(dev, "tpu_direct", timed)
+    split_small_phase()
+    log(f"phases 63-65 (derived fields, particles, projection and segregated "
+        f"drivers): {time.perf_counter() - t_split:.1f} s; {mem_line()}")
+    return pg, pd, sg, sdr
+
+
+# ---- the CPU halves of phases 22, 26, 47, 56, 59, 62, 64 and 65, beside
+# the card's phases
 _CPU_SIDE = {"proc": None, "stem": None, "log": None, "out": None}
 
 
@@ -8535,14 +9488,15 @@ def small_deck_runs(decks, P):
 
 
 def cpu_side_runs(stem):
-    """The CPU runs that phases 22, 26, 47, 56, 59 and 62 hold the card's
-    against (the 16x4 slot coater's two cases, the 8x8 cavity with every
-    other option, the small overset, solid, porous, closure and level-set
-    decks),
-    each group pickled to ``<stem>_<group>.pkl`` as it
-    ends. ``start_cpu_side`` runs this in a child process while the card
-    runs the phases before them."""
-    from scripts import closure_decks, ls_decks, solid_decks
+    """The CPU runs that phases 22, 26, 47, 56, 59, 62 and 65 hold the
+    card's against (the 16x4 slot coater's two cases, the 8x8 cavity with
+    every other option, the small overset, solid, porous, closure,
+    level-set and split-solver decks), each group pickled to
+    ``<stem>_<group>.pkl`` as it ends; then phase 64's derived fields on
+    the state the card hands over (``request_cpu_side``), pickled to
+    ``<stem>_derived.pkl``. ``start_cpu_side`` runs this in a child process
+    while the card runs the phases before them."""
+    from scripts import closure_decks, ls_decks, solid_decks, split_decks
 
     cpu = torch.device("cpu")
     groups = (
@@ -8554,12 +9508,40 @@ def cpu_side_runs(stem):
                                           solid_namespace(cpu))),
         ("closure", lambda: small_deck_runs(closure_decks.SMALL,
                                             closure_namespace(cpu))),
-        ("ls", lambda: small_deck_runs(ls_decks.SMALL, ls_namespace(cpu))))
+        ("ls", lambda: small_deck_runs(ls_decks.SMALL, ls_namespace(cpu))),
+        ("split", lambda: small_deck_runs(split_decks.SMALL,
+                                          split_namespace(cpu))),
+        ("derived", lambda: split_derived_cpu(wait_request(stem, "derived"))))
     for key, run in groups:
         path = f"{stem}_{key}.pkl"
         with open(f"{path}.tmp", "wb") as f:
             pickle.dump(run(), f)
         os.replace(f"{path}.tmp", path)
+
+
+def wait_request(stem, key, limit=1800.0):
+    """In the child: the input ``request_cpu_side`` hands over for the
+    ``key`` runs, once the main process has written it (the child ends
+    when its parent has gone or after ``limit`` seconds)."""
+    path = Path(f"{stem}_{key}_in.pkl")
+    t0 = time.perf_counter()
+    while not path.exists():
+        if os.getppid() == 1 or time.perf_counter() - t0 > limit:
+            raise SystemExit(f"no {key} input for the CPU side")
+        time.sleep(0.2)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def request_cpu_side(key, payload):
+    """Hand ``payload`` to the child of ``start_cpu_side`` for its ``key``
+    runs (``wait_request``); nothing when no child runs."""
+    if _CPU_SIDE["proc"] is None:
+        return
+    path = Path(f"{_CPU_SIDE['stem']}_{key}_in.pkl")
+    with open(f"{path}.tmp", "wb") as f:
+        pickle.dump(payload, f)
+    os.replace(f"{path}.tmp", path)
 
 
 def start_cpu_side():
@@ -8589,8 +9571,8 @@ def start_cpu_side():
             os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2",
             OPENBLAS_NUM_THREADS="2", MKL_NUM_THREADS="2")))
     logf.close()
-    log(f"CPU side: the CPU runs of phases 22, 26, 47, 56, 59 and 62 started in "
-        f"process {_CPU_SIDE['proc'].pid}")
+    log(f"CPU side: the CPU runs of phases 22, 26, 47, 56, 59, 62, 64 and 65 "
+        f"started in process {_CPU_SIDE['proc'].pid}")
 
 
 def cpu_runs(key, compute):
@@ -8999,6 +9981,11 @@ def run_phases() -> int:
     # the wetting drop on both rungs, the small decks on cuda and cpu
     lsmg, lsmd, lsdg, lsdd = ls_phases(dev)
 
+    # ---- 63-65. derived fields, particle tracing, the projection and
+    # segregated drivers: the projection cavity and the three-matrix
+    # buoyant cavity on both rungs, the small decks on cuda and cpu
+    spg, spd, ssg, ssd = split_phases(dev)
+
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
     more_paths = {"viscoelastic gmres+ndlu": ve["launches"],
@@ -9042,7 +10029,11 @@ def run_phases() -> int:
                 "melt pool gmres_ndlu": lsmg["launches"],
                 "melt pool tpu_direct": lsmd["launches"],
                 "wetting drop gmres_ndlu": lsdg["launches"],
-                "wetting drop tpu_direct": lsdd["launches"]}
+                "wetting drop tpu_direct": lsdd["launches"],
+                "projection gmres_ndlu": spg["launches"],
+                "projection tpu_direct": spd["launches"],
+                "segregated gmres_ndlu": ssg["launches"],
+                "segregated tpu_direct": ssd["launches"]}
     # a small deck's launches, read as a cross-check: not a main path
     cross_checks = {"bordered ndlu 20x10": bl}
 
@@ -9066,6 +10057,13 @@ def run_phases() -> int:
                 f"{prefix}_device_ms": t["device_ms"]["kernel"],
                 f"{prefix}_library_device_ms": t["device_ms"]["solve_triangular"],
                 f"{prefix}_step_ns": rec["step_ns"]}
+
+    def split_abs(key):
+        """The largest kernel-vs-plain difference of phases 63-64's trees."""
+        recs = [t for r in (spg, spd, ssg, ssd) for t in r["trees"].values()]
+        if key == "trsv":
+            return max(t["trsv"]["max_abs"] for t in recs if "trsv" in t)
+        return max(t[key] for t in recs)
 
     def path_launches(kind):
         return {k: ln[kind] for k, ln in more_paths.items()}
@@ -9093,7 +10091,8 @@ def run_phases() -> int:
                            rcg["max_abs"], rcd["max_abs"], clsg["max_abs"],
                            clsd["max_abs"], clrg["max_abs"],
                            clrd["max_abs"], lsmg["max_abs"], lsmd["max_abs"],
-                           lsdg["max_abs"], lsdd["max_abs"]),
+                           lsdg["max_abs"], lsdd["max_abs"],
+                           split_abs("max_abs")),
         "ms": lu_ms[torch.float32][0],
         "plain_ms": lu_ms[torch.float32][1],
         "bound_ms": lu_bnd[0],
@@ -9149,7 +10148,7 @@ def run_phases() -> int:
                            fsa["trsv"]["max_abs"], fsd["trsv"]["max_abs"],
                            rcd["trsv"]["max_abs"], clsd["trsv"]["max_abs"],
                            clrd["trsv"]["max_abs"], lsmd["trsv"]["max_abs"],
-                           lsdd["trsv"]["max_abs"]),
+                           lsdd["trsv"]["max_abs"], split_abs("trsv")),
         "ms": trsv["ms"][torch.float32][0],
         "plain_ms": trsv["ms"][torch.float32][1],
         "bound_ms": trsv_bnd[0],
@@ -9237,7 +10236,8 @@ def run_phases() -> int:
                            clsg["gather_abs"], clsd["gather_abs"],
                            clrg["gather_abs"], clrd["gather_abs"],
                            lsmg["gather_abs"], lsmd["gather_abs"],
-                           lsdg["gather_abs"], lsdd["gather_abs"]),
+                           lsdg["gather_abs"], lsdd["gather_abs"],
+                           split_abs("gather_abs")),
         "ms": g_times["kernel"][0],
         "plain_ms": g_times["plain"][0],
         "bound_ms": g_bound[0],

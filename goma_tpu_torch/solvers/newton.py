@@ -837,7 +837,15 @@ class NewtonSolver:
         t_asm = t_slv = 0.0
         it = 0
         prev_l2 = None
-        fast = self._fast_prep
+        # opts.linear_solver may be switched after construction (goma_tpu's
+        # tests switch a segregated driver's sub-solvers to direct): the
+        # prep and the linear solve are gated on it per solve, as goma_tpu
+        # gates them
+        fast = self._fast_prep and opts.linear_solver in ("gmres", "bicgstab")
+        host_direct = opts.linear_solver == "direct"
+        direct = opts.linear_solver == "tpu_direct"
+        if not fast and self._ell is None:
+            self._ell = EllOperator(prob.pattern, device=self.device)
         prep32 = fast and opts.prep32_tol > 0 and self._jdt != prob.dtype
         boundary = max(opts.prep32_tol, 2.0 * opts.tol_residual)
         vals = aux = None
@@ -865,9 +873,9 @@ class NewtonSolver:
             eta = self._eta(l2, prev_l2)
             prev_l2 = l2
             t0 = time.perf_counter()
-            if self._host_direct or self._direct:
+            if host_direct or direct:
                 dx = (self._linsolve_host_direct(R, vals, scale)
-                      if self._host_direct
+                      if host_direct
                       else self._linsolve_direct(R, vals, scale))
                 if dx is None:
                     # a failed direct solve (singular matrix, or the refined

@@ -175,7 +175,8 @@ def test_variable_stats_match_goma_tpu():
 
 EXPORTS = {
     "solvers": ["BlockJacobi", "bicgstab", "direct_solve_host", "gmres",
-                "NewtonOptions", "NewtonResult", "NewtonSolver"],
+                "NewtonOptions", "NewtonResult", "NewtonSolver",
+                "ProjectionResult", "ProjectionSolver"],
     "fem": ["Problem", "DofMap", "build_dofmap", "Equation", "FaceKernel",
             "SurfaceVars", "FieldVars", "build_pattern"],
     "mesh": ["Block", "Mesh", "SideSet", "box_mesh", "rectangle_mesh",

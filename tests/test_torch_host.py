@@ -249,7 +249,8 @@ def test_port_imports_and_builds_without_jax():
     and assembles the Jacobian and mass matrix of a normal-mode deck; then
     it builds and assembles the immersed-cylinder overset deck (a BAR
     multiplier block) and builds its bordered solver; last it imports every
-    module of the package."""
+    module of the package, and projects a vorticity and samples a velocity
+    through the derived-field and particle modules."""
     code = textwrap.dedent("""
         import sys
         sys.modules["jax"] = None
@@ -398,6 +399,20 @@ def test_port_imports_and_builds_without_jax():
                                        "goma_tpu_torch."):
             importlib.import_module(m.name)
         assert "goma_tpu_torch.bc.catalog_map" in sys.modules
+        # the derived fields, particles and split solvers
+        import numpy as np
+        from goma_tpu_torch.physics.projection_ns import (PressureIncrement,
+                                                          UStar)
+        from goma_tpu_torch.post.derived import derived_nodal_field
+        from goma_tpu_torch.post.particles import FieldSampler
+        from goma_tpu_torch.solvers import ProjectionSolver
+        from goma_tpu_torch.solvers.segregated import (
+            SegregatedSolver, SegregatedTransientSolver, SubProblem)
+        xc = prob.set_nodal_field(np.zeros(prob.dofmap.n_dof), "velocity",
+                                  0, lambda X: X[:, 1])
+        assert np.allclose(derived_nodal_field(prob, xc, "VORTICITY"), -1.0)
+        assert np.allclose(FieldSampler(prob).sample(
+            xc, "velocity", np.array([[0.5, 0.25]]), comp=0), 0.25)
         assert not any(m == "jax" or m.startswith(("jax.", "goma_tpu."))
                        for m in sys.modules if sys.modules[m] is not None)
         print("ok", prob.dofmap.n_dof)
