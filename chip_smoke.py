@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Needs one CUDA device (NVIDIA H100, sm_90a) and nvcc; exits non-zero on any
-failure and when CUDA is unavailable. Forty-nine main paths of the three
+failure and when CUDA is unavailable. Fifty-two main paths of the three
 kernels, each read with its own launch counts: the cavity's ``gmres+ndlu`` (phases 2-6) and
 ``tpu_direct`` (phases 8-10), the buoyant-convection deck's ``gmres+ndlu``
 (phases 12-13), the viscoelastic channel's ``gmres+ndlu`` (phase 15),
@@ -28,7 +28,9 @@ the 128x32 suspension channel (phase 57) and the 96x24 reacting wall
 channel (phase 58), each on both rungs; the 96x48 laser melt pool (phase
 60) and wetting drop (phase 61), each on both rungs; the 96x96
 projection cavity (phase 63) and the 48x48 buoyant cavity split into
-three matrices (phase 64), each on both rungs;
+three matrices (phase 64), each on both rungs; the cylinder on pivoted
+fronts, the cavity on a tree mixing kernel and pivoted levels and the
+recycled two-level cavity (phase 66);
 the bordered solver's ``ndlu`` base on the 20x10
 cylinder (phase 47) is read the same way as a cross-check, not a main
 path; then goma_tpu's other preconditioners and linear
@@ -543,12 +545,35 @@ counts under it. Phases:
     (``tpu_direct``) against the port's CPU projection of the same x; 16
     tracers through the converged velocity against goma_tpu's;
 65. goma_tpu's tests' decks of the slice (``split_decks.SMALL``) at their
-    own sizes on cuda and on cpu, as phase 62.
+    own sizes on cuda and on cpu, as phase 62;
+66. NDLU's pivoted front-LU routes and GCRO-DR recycling: (a) phase 45's
+    cylinder and options with the preconditioner's NDLU on
+    ``front_lu="lax"`` (every level pivoted, panels of 128): one
+    factorization timed on the pivoted and on the kernel route, the exact
+    zero pivots the library LU left, the warm-up and timed solves, x and
+    drag within phase 45's gates of goma_tpu's record, no front-LU kernel
+    launch, the Newton and linear counts printed beside goma_tpu's and
+    phase 45's (not gated); (b) the 64x64 cavity on phase 10's
+    ``tpu_direct`` options at leaf PIV_LEAF (leaves of s = 1239 > 1000 on
+    the pivoted route, five kernel levels): one solve, x within
+    X_PATHS_TOL of phase 10's, the front-LU and substitution launches of
+    the kernel levels only; (c) phase 27's two-level cavity with
+    ``recycle_k=8``: warm-up, ``reset_lagged()``, a timed solve with its
+    host syncs counted, goma_tpu's Newton count +-1 (RECYCLE_REF), x
+    within TWOLEVEL_X_TOL of phase 5's, the linear counts beside goma_tpu's
+    and phase 27's, s/iteration and the host harvest's time; then the
+    12x12 cavity on ``tpu_direct`` at leaf 2048 (one pivoted level, s =
+    1419) and the 8x8 cavity's ``gmres+ndlu`` on ``front_lu="lax"`` on cuda
+    and on cpu: the same Newton count, x within 1e-5.
 
-Each of phases 39-65 prints its time, and the run its total, before the
-last three lines of output: the kernel summary (JSON, with each
-kernel's bound, plain-version and library-call times), the card's name and
-power limit (nvidia-smi), and ``{"ok": true, "device": ...}``.
+The plain versions that the kernel checks hold the kernels against run as
+CUDA graphs, captured once per shape and replayed (``plain_call``); the
+CPU runs the card's are held against run in a child process
+(``start_cpu_side``). Each phase prints its time (``phase N: s``), and the
+run its total, before the last three lines of output: the kernel summary
+(JSON, with each kernel's bound, plain-version and library-call times),
+the card's name and power limit (nvidia-smi), and ``{"ok": true, "device":
+...}``.
 """
 
 import json
@@ -559,7 +584,9 @@ import subprocess
 import sys
 import time
 import types
+import weakref
 from concurrent.futures import ThreadPoolExecutor
+from collections import OrderedDict
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -1174,6 +1201,50 @@ def event_call(fn):
     return out, t0.elapsed_time(t1)
 
 
+# the plain versions' CUDA graphs, one per (function, inputs' shapes,
+# strides and dtypes, options), the latest kept while their estimated
+# memory (3x the largest input each: the captured LU's copy of its front
+# and one update temporary) stays within PLAIN_GRAPH_BYTES; graphs whose
+# inputs have the same shape, strides and dtype share the input buffers
+_PLAIN_GRAPHS = OrderedDict()
+_PLAIN_INPUTS = weakref.WeakValueDictionary()
+PLAIN_GRAPH_BYTES = 24 * 2 ** 30
+
+
+def plain_call(fn, *args, **kw):
+    """(fn(*args, **kw), the CUDA-event ms of that call) for a plain
+    version ``fn`` of card tensors: its launches, a Python loop of small
+    kernels (m column or row steps), are captured once per shape in a CUDA
+    graph and replayed, each call copying ``args`` into the graph's inputs
+    (of the same strides) first. The same kernels on the same inputs, so
+    the same result as an eager call; the time is the replay's, no longer
+    the host's launch loop."""
+    specs = tuple((a.shape, a.stride(), a.dtype) for a in args)
+    key = (fn.__name__, specs, tuple(sorted(kw.items())))
+    entry = _PLAIN_GRAPHS.get(key)
+    if entry is None:
+        static = []
+        for spec, a in zip(specs, args):
+            buf = _PLAIN_INPUTS.get(spec)
+            if buf is None:
+                buf = _PLAIN_INPUTS[spec] = torch.empty_strided(
+                    a.shape, a.stride(), dtype=a.dtype, device=a.device)
+            buf.copy_(a)
+            static.append(buf)
+        graph, out = capture(lambda: fn(*static, **kw))
+        size = 3 * max(a.numel() * a.element_size() for a in args)
+        entry = _PLAIN_GRAPHS[key] = (graph, static, out, size)
+        while sum(e[3] for e in _PLAIN_GRAPHS.values()) > PLAIN_GRAPH_BYTES:
+            _PLAIN_GRAPHS.popitem(last=False)
+    else:
+        _PLAIN_GRAPHS.move_to_end(key)
+    graph, static, out, _ = entry
+    for buf, a in zip(static, args):
+        buf.copy_(a)
+    _, ms = event_call(graph.replay)
+    return out.clone(), ms
+
+
 def check_kernel(A, name, tol=None):
     """Kernel vs twin on one batch, within ``tol`` (by default ``TOL``);
     returns (kernel LU, twin LU, max abs err, rel err, the twin's CUDA-event
@@ -1185,7 +1256,7 @@ def check_kernel(A, name, tol=None):
     torch.cuda.synchronize()
     if batched_lu.launches != before + 1:
         raise RuntimeError(f"{name}: the kernel did not launch")
-    ref, twin_ms = event_call(lambda: batched_lu_reference(A))
+    ref, twin_ms = plain_call(batched_lu_reference, A)
     abs_err = (got - ref).abs().max().item()
     scale = ref.abs().max().item()
     rel = abs_err / scale
@@ -1365,6 +1436,35 @@ def _guard_kernel():
     return _GUARD
 
 
+_CAPTURE_STREAM = []
+
+
+def capture_stream():
+    """The side stream every CUDA graph of the run is captured on."""
+    if not _CAPTURE_STREAM:
+        _CAPTURE_STREAM.append(torch.cuda.Stream())
+    return _CAPTURE_STREAM[0]
+
+
+def capture(fn):
+    """(a CUDA graph of ``fn()``, its output in the graph's memory pool),
+    captured on ``capture_stream()`` after the work queued so far. Without
+    ``torch.cuda.graph``'s synchronize and ``empty_cache`` on every
+    capture: those hand the caching allocator's free blocks back to CUDA,
+    so the allocations after each capture went to cudaMalloc again."""
+    s = capture_stream()
+    s.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(s):
+        graph.capture_begin()
+        try:
+            out = fn()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream().wait_stream(s)
+    return graph, out
+
+
 def graph_ms(fn, reps=20):
     """Device time per call of ``fn`` without the host's launch overhead and
     without the profiler: ``reps`` calls captured in one CUDA graph (after a
@@ -1372,15 +1472,12 @@ def graph_ms(fn, reps=20):
     two CUDA events, over ``reps``. The replay runs the kernels back to
     back, so the time includes the ~1 us the card takes between two graph
     nodes."""
-    s = torch.cuda.Stream()
+    s = capture_stream()
     s.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(s):
         fn()
     torch.cuda.current_stream().wait_stream(s)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g, stream=s):
-        for _ in range(reps):
-            fn()
+    g, _ = capture(lambda: [fn() for _ in range(reps)])
     return median_ms(g.replay, 5) / reps
 
 
@@ -1480,7 +1577,7 @@ def check_trsv(lu, rhs, lower, name, tol=None):
     torch.cuda.synchronize()
     if batched_trsv.launches != before + 1:
         raise RuntimeError(f"{name}: the substitution kernel did not launch")
-    ref, twin_ms = event_call(lambda: batched_trsv_reference(lu, rhs, lower))
+    ref, twin_ms = plain_call(batched_trsv_reference, lu, rhs, lower=lower)
     abs_err = (got - ref).abs().max().item()
     rel = abs_err / ref.abs().max().item()
     tol = TRSV_TOL[lu.dtype] if tol is None else tol
@@ -1493,20 +1590,19 @@ def check_trsv(lu, rhs, lower, name, tol=None):
 def trsv_extended(L, rhs, lower):
     """The substitution of ``check_trsv`` in numpy's extended precision
     (longdouble) on the host, from float64 data: the yardstick of the
-    float64 substitutions' own rounding. ``L`` is the packed LU as a
-    float64 numpy array (nn, m, m), each row it reads taken to longdouble;
-    unit lower or upper, batched over fronts; returns a longdouble array
-    (nn, m)."""
+    float64 substitutions' own rounding. ``L`` is the packed LU of float64
+    values as a longdouble numpy array (nn, m, m) (exact: every float64 is
+    a longdouble); unit lower or upper, batched over fronts; returns a
+    longdouble array (nn, m)."""
     b = rhs.double().cpu().numpy().astype(np.longdouble)
     m = b.shape[1]
     x = np.zeros_like(b)
-    ld = np.longdouble
     for i in (range(m) if lower else range(m - 1, -1, -1)):
         if lower:
-            x[:, i] = b[:, i] - np.sum(L[:, i, :i].astype(ld) * x[:, :i], axis=1)
+            x[:, i] = b[:, i] - np.sum(L[:, i, :i] * x[:, :i], axis=1)
         else:
-            x[:, i] = (b[:, i] - np.sum(L[:, i, i + 1:].astype(ld) * x[:, i + 1:],
-                                        axis=1)) / L[:, i, i].astype(ld)
+            x[:, i] = (b[:, i] - np.sum(L[:, i, i + 1:] * x[:, i + 1:],
+                                        axis=1)) / L[:, i, i]
     return x
 
 
@@ -1558,7 +1654,8 @@ def check_substitutions(calls, label, timed=True):
         rnd = torch.as_tensor(np.random.default_rng(ci).standard_normal(
             (nn, m)), device=lu32.device)
         lu64 = lu32.double()
-        L_ext = lu64.cpu().numpy()
+        # taken to longdouble once for both right-hand sides
+        L_ext = lu64.cpu().numpy().astype(np.longdouble)
         errs, twin_ms = [], {}
         for kind, rhs in (("real", seg32.double()), ("random", rnd)):
             name = f"trsv {label} level {li} (nn={nn}, m={m}) {sweep} {kind}"
@@ -1688,7 +1785,7 @@ def trsv_step_ns():
 def factor_split_ms(nd, vals, label, reps=5):
     """Median CUDA-event ms of one factorization of ``nd``, split into
     front gather (``NDLU.gather``), extend-add (``NDLU.extend_add``), front
-    LU (``NDLU.front_lu``) and inverses or X/Y + Schur
+    LU (``NDLU.factor_front``) and inverses or X/Y + Schur
     (``NDLU.factor_rest``), each summed over the levels. Returns
     {piece: ms}."""
     names = ("gather", "extend-add", "front LU", "inverses + Schur")
@@ -1704,9 +1801,9 @@ def factor_split_ms(nd, vals, label, reps=5):
             ev[4 * li + 1].record()
             F = nd.extend_add(li, F, S)
             ev[4 * li + 2].record()
-            lu = nd.front_lu(li, F)
+            lu = nd.factor_front(li, F)
             ev[4 * li + 3].record()
-            _, S = nd.factor_rest(li, F, lu)
+            _, S = nd.factor_rest(li, F, *lu)
             ev[4 * li + 4].record()
         ev[-1].synchronize()
         runs.append([sum(ev[4 * li + j].elapsed_time(ev[4 * li + j + 1])
@@ -1891,28 +1988,66 @@ def ghia_check(prob, x, label):
         raise RuntimeError(f"{label} solution disagrees with Ghia et al. Re=100")
 
 
-def cross_check_8x8(opts_fn, label):
-    """Phases 4 and 9: the 8x8 cavity on cuda and on cpu, same options."""
+def solve_from_zero(solver):
+    """(converged, Newton iterations, x, summary) of one solve of
+    ``solver`` from x = 0."""
+    prob = solver.problem
+    r = solver.solve(np.zeros(prob.dofmap.n_dof), prob.base_params())
+    return r.converged, r.iters, r.x, r.summary()
+
+
+def check_cuda_cpu(label, cuda, cpu, tol, relative=False):
+    """A run on the card against the same run on the CPU, each a
+    ``solve_from_zero`` record: both converged, the same Newton count, x
+    within ``tol`` (max |dx|, over 1 + |x_cpu| where ``relative``)."""
+    for d, (converged, _, _, summary) in (("cuda", cuda), ("cpu", cpu)):
+        if not converged:
+            raise RuntimeError(f"{label} did not converge on {d}:\n{summary}")
+    dx = (rel_dx(cuda[2], cpu[2]) if relative
+          else float(np.abs(cuda[2] - cpu[2]).max()))
+    log(f"cross-check {label}: Newton its cuda {cuda[1]} cpu {cpu[1]}, max "
+        f"|x_cuda - x_cpu|{' / (1 + |x_cpu|)' if relative else ''} = {dx:.2e}")
+    if cuda[1] != cpu[1] or dx > tol:
+        raise RuntimeError(f"{label}: cuda and cpu differ (Newton {cuda[1]} / "
+                           f"{cpu[1]}, x {dx:.2e} > {tol:.0e})")
+
+
+def cavity8_run(opts_fn, device):
+    """Phases 4 and 9's run on ``device``: the 8x8 cavity under
+    ``opts_fn()``."""
     from goma_tpu_torch.solvers import NewtonSolver
 
-    its, xs = {}, {}
-    for d in ("cuda", "cpu"):
-        p8 = cavity_problem(8, torch.device(d))
-        r8 = NewtonSolver(p8, opts_fn()).solve(np.zeros(p8.dofmap.n_dof),
-                                               p8.base_params())
-        if not r8.converged:
-            raise RuntimeError(f"8x8 cavity {label} did not converge on {d}:\n"
-                               f"{r8.summary()}")
-        its[d], xs[d] = r8.iters, r8.x
-    dx = float(np.abs(xs["cuda"] - xs["cpu"]).max())
-    log(f"cross-check 8x8 {label}: Newton its cuda {its['cuda']} cpu "
-        f"{its['cpu']}, max |x_cuda - x_cpu| = {dx:.2e}")
-    if its["cuda"] != its["cpu"]:
-        raise RuntimeError(f"8x8 cavity {label}: Newton iteration counts differ "
-                           "between cuda and cpu")
-    if dx > 1e-5:
-        raise RuntimeError(f"8x8 cavity {label}: cuda and cpu solutions differ "
-                           f"by {dx:.2e}")
+    return solve_from_zero(NewtonSolver(cavity_problem(8, device), opts_fn()))
+
+
+def cavity8_cpu_runs():
+    """Phases 4 and 9's CPU runs, by label."""
+    cpu = torch.device("cpu")
+    return {"gmres+ndlu": cavity8_run(cavity_opts, cpu),
+            "tpu_direct": cavity8_run(direct_opts, cpu)}
+
+
+def cross_check_8x8(opts_fn, label):
+    """Phases 4 and 9: the 8x8 cavity on cuda and on cpu, same options (the
+    CPU run from ``cpu_runs``): the same Newton count, x within 1e-5."""
+    check_cuda_cpu(f"8x8 {label}", cavity8_run(opts_fn, torch.device("cuda")),
+                   cpu_runs("cavity8", cavity8_cpu_runs)[label], 1e-5)
+
+
+def buoyant8_run(device):
+    """Phase 12's run on ``device``: the 8x8 buoyant deck."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    return solve_from_zero(NewtonSolver(buoyant_problem(8, device),
+                                        buoyant_opts()))
+
+
+def cross_check_buoyant8():
+    """Phase 12: the 8x8 buoyant deck on cuda and on cpu (the CPU run from
+    ``cpu_runs``): the same Newton count, x within BUOY_X_TOL."""
+    check_cuda_cpu("8x8 buoyant", buoyant8_run(torch.device("cuda")),
+                   cpu_runs("buoyant8", lambda: buoyant8_run(torch.device("cpu"))),
+                   BUOY_X_TOL, relative=True)
 
 
 def ve_problem(n, device, transient=False):
@@ -2069,41 +2204,54 @@ def nd_levels(nd):
     return levels
 
 
-def cross_check_ve(devices=("cuda", "cpu")):
-    """Phases 14 and 17 (first part): the 8x4 viscoelastic deck on each of
-    ``devices``, ``gmres+ndlu`` and ``tpu_direct`` steady and the transient
-    start-up; the same Newton counts (every step's), x within VE_X_TOL."""
+VE8_RUNS = ("gmres+ndlu", "tpu_direct", "transient")
+
+
+def ve8_run(label, device):
+    """One of phase 14's runs on ``device``: the 8x4 viscoelastic deck on
+    ``gmres+ndlu`` or ``tpu_direct`` steady, or the transient start-up;
+    (failure message or None, Newton count(s), x, log line or None)."""
     from goma_tpu_torch.solvers import NewtonSolver
     from goma_tpu_torch.solvers.transient import TransientSolver
 
-    runs = {"gmres+ndlu": ve_opts, "tpu_direct": ve_direct_opts,
-            "transient": ve_opts}
-    for label, opts_fn in runs.items():
+    opts_fn = ve_direct_opts if label == "tpu_direct" else ve_opts
+    p = ve_problem(4, device, transient=label == "transient")
+    x0 = np.zeros(p.dofmap.n_dof)
+    if label == "transient":
+        r = TransientSolver(p, opts_fn(), ve_time_opts()).run(x0, p.base_params())
+        bad = (None if len(r.steps) == 5 and all(s.converged for s in r.steps)
+               else f"8x4 VE start-up on {device}: {r.steps}")
+        return bad, [s.newton_iters for s in r.steps], r.x, None
+    r = NewtonSolver(p, opts_fn()).solve(x0, p.base_params())
+    bad = (None if r.converged else f"8x4 VE deck {label} did not converge "
+           f"on {device}:\n{r.summary()}")
+    return bad, r.iters, r.x, (f"8x4 VE {label} on {device}: Newton {r.iters}, "
+                               f"linear {r.linear_iters}, ||R||_2 "
+                               f"{r.res_norms[-1][1]:.3e}")
+
+
+def cross_check_ve():
+    """Phases 14 and 17 (first part): the 8x4 viscoelastic deck on cuda and
+    on cpu (the CPU runs from ``cpu_runs``), ``gmres+ndlu`` and
+    ``tpu_direct`` steady and the transient start-up; the same Newton
+    counts (every step's), x within VE_X_TOL."""
+    cpu = cpu_runs("ve8", lambda: {label: ve8_run(label, torch.device("cpu"))
+                                   for label in VE8_RUNS})
+    for label in VE8_RUNS:
         its, xs = {}, {}
-        for d in devices:
-            p = ve_problem(4, torch.device(d), transient=label == "transient")
-            x0 = np.zeros(p.dofmap.n_dof)
-            if label == "transient":
-                r = TransientSolver(p, opts_fn(), ve_time_opts()).run(
-                    x0, p.base_params())
-                if len(r.steps) != 5 or not all(s.converged for s in r.steps):
-                    raise RuntimeError(f"8x4 VE start-up on {d}: {r.steps}")
-                its[d] = [s.newton_iters for s in r.steps]
-            else:
-                r = NewtonSolver(p, opts_fn()).solve(x0, p.base_params())
-                if not r.converged:
-                    raise RuntimeError(f"8x4 VE deck {label} did not converge "
-                                       f"on {d}:\n{r.summary()}")
-                its[d] = r.iters
-                log(f"8x4 VE {label} on {d}: Newton {r.iters}, linear "
-                    f"{r.linear_iters}, ||R||_2 {r.res_norms[-1][1]:.3e}")
-            xs[d] = r.x
-        a, b = devices
-        dx = rel_dx(xs[a], xs[b])
-        log(f"cross-check 8x4 viscoelastic {label}: Newton {a} {its[a]} {b} "
-            f"{its[b]}, max |x_{a} - x_{b}| / (1 + |x_{b}|) = {dx:.2e}")
-        if its[a] != its[b] or dx > VE_X_TOL:
-            raise RuntimeError(f"8x4 viscoelastic {label}: {a} and {b} differ "
+        for d, run in (("cuda", ve8_run(label, torch.device("cuda"))),
+                       ("cpu", cpu[label])):
+            bad, its[d], xs[d], line = run
+            if bad:
+                raise RuntimeError(bad)
+            if line:
+                log(line)
+        dx = rel_dx(xs["cuda"], xs["cpu"])
+        log(f"cross-check 8x4 viscoelastic {label}: Newton cuda {its['cuda']} "
+            f"cpu {its['cpu']}, max |x_cuda - x_cpu| / (1 + |x_cpu|) = "
+            f"{dx:.2e}")
+        if its["cuda"] != its["cpu"] or dx > VE_X_TOL:
+            raise RuntimeError(f"8x4 viscoelastic {label}: cuda and cpu differ "
                                f"(Newton {its}, x {dx:.2e} > {VE_X_TOL:.0e})")
 
 
@@ -2342,25 +2490,39 @@ def step_params(params, x, dt):
     return p
 
 
-def cross_check_bubble(devices=("cuda", "cpu")):
-    """Phase 18: the 8x8 static bubble on each of ``devices``, both rungs,
-    bench.py's two backward-Euler steps: the same Newton count in every
-    step, x within BUBBLE_X_TOL."""
-    for rung in ("gmres_ndlu", "tpu_direct"):
+BUBBLE8_RUNGS = ("gmres_ndlu", "tpu_direct")
+
+
+def bubble8_run(rung, device):
+    """One of phase 18's runs on ``device``: the 8x8 static bubble's two
+    backward-Euler steps on ``rung``; (failure message or None, Newton per
+    step, x)."""
+    prob, x0, params = bubble_problem(8, device)
+    r = bubble_solver(prob, rung).run(x0, params)
+    bad = (None if len(r.steps) == 2 and all(s.converged for s in r.steps)
+           else f"8x8 bubble {rung} on {device}: {r.steps}")
+    return bad, [s.newton_iters for s in r.steps], r.x
+
+
+def cross_check_bubble():
+    """Phase 18: the 8x8 static bubble on cuda and on cpu (the CPU runs from
+    ``cpu_runs``), both rungs, bench.py's two backward-Euler steps: the same
+    Newton count in every step, x within BUBBLE_X_TOL."""
+    cpu = cpu_runs("bubble8", lambda: {r: bubble8_run(r, torch.device("cpu"))
+                                       for r in BUBBLE8_RUNGS})
+    for rung in BUBBLE8_RUNGS:
         its, xs = {}, {}
-        for d in devices:
-            prob, x0, params = bubble_problem(8, torch.device(d))
-            r = bubble_solver(prob, rung).run(x0, params)
-            if len(r.steps) != 2 or not all(s.converged for s in r.steps):
-                raise RuntimeError(f"8x8 bubble {rung} on {d}: {r.steps}")
-            its[d], xs[d] = [s.newton_iters for s in r.steps], r.x
-        a, b = devices
-        dx = rel_dx(xs[a], xs[b])
-        log(f"cross-check 8x8 static bubble {rung}: Newton per step {a} "
-            f"{its[a]} {b} {its[b]}, max |x_{a} - x_{b}| / (1 + |x_{b}|) = "
-            f"{dx:.2e}")
-        if its[a] != its[b] or dx > BUBBLE_X_TOL:
-            raise RuntimeError(f"8x8 static bubble {rung}: {a} and {b} differ "
+        for d, run in (("cuda", bubble8_run(rung, torch.device("cuda"))),
+                       ("cpu", cpu[rung])):
+            bad, its[d], xs[d] = run
+            if bad:
+                raise RuntimeError(bad)
+        dx = rel_dx(xs["cuda"], xs["cpu"])
+        log(f"cross-check 8x8 static bubble {rung}: Newton per step cuda "
+            f"{its['cuda']} cpu {its['cpu']}, max |x_cuda - x_cpu| / (1 + "
+            f"|x_cpu|) = {dx:.2e}")
+        if its["cuda"] != its["cpu"] or dx > BUBBLE_X_TOL:
+            raise RuntimeError(f"8x8 static bubble {rung}: cuda and cpu differ "
                                f"(Newton {its}, x {dx:.2e} > {BUBBLE_X_TOL:.0e})")
 
 
@@ -3159,7 +3321,8 @@ def twolevel_phase(prob, label, deck, x_ref, x_tol, relative, warm_up=True):
     build, coarse LU) and one apply split (smoother, restrict + prolong,
     coarse solve, operator) by CUDA events, kernels per apply, and one
     coarse solve by LU against the explicit inverse (``"inv"``) with each
-    one's byte bound. Returns the solution."""
+    one's byte bound. Returns the solution and the timed solve's linear
+    iterations."""
     from goma_tpu_torch.solvers import NewtonSolver
 
     dev = prob.device
@@ -3287,7 +3450,7 @@ def twolevel_phase(prob, label, deck, x_ref, x_tol, relative, warm_up=True):
         f"{inv_fac_s * 1e3:.1f} ms (one call, host clock); inv vs lu "
         f"solution rel {rel:.2e}; {mem_line()}")
     del inv, lu, Ac, Binv, fac, solver, tl
-    return x
+    return x, res.linear_iters
 
 
 def bubble_host_direct_phase(dev, ref):
@@ -3645,21 +3808,33 @@ def axisym_small_decks(device):
     return out, cav
 
 
-def axisym_small_phase():
-    """Phase 32: phase 32's decks (``axisym_small_decks``) on cuda and on
-    cpu: the same Newton count and x within AX_X_TOL (the cavity within
-    phase 4's 1e-5: it stops at 1e-6 after inexact float32 steps); then
-    ``post.stream_function`` on each device from the cpu cavity's velocity:
-    psi within 1e-9 of max |psi| and its minimum printed."""
+def axisym_cpu_half():
+    """Phase 32's CPU runs: the decks' {name: (Newton count, x)} and the
+    stream function of the 8x8 cavity from its own velocity."""
     from goma_tpu_torch.post import stream_function
 
-    got, cav = {}, {}
-    for d in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        got[d], cav[d] = axisym_small_decks(torch.device(d))
-        log(f"phase 32 decks on {d}: {time.perf_counter() - t0:.1f} s")
-    for name, (it_c, x_c) in got["cuda"].items():
-        it_p, x_p = got["cpu"][name]
+    t0 = time.perf_counter()
+    got, cav = axisym_small_decks(torch.device("cpu"))
+    psi = stream_function(cav, got["cavity 8x8"][1])
+    return got, psi, time.perf_counter() - t0
+
+
+def axisym_small_phase():
+    """Phase 32: phase 32's decks (``axisym_small_decks``) on cuda and on
+    cpu (the CPU runs from ``cpu_runs``): the same Newton count and x within
+    AX_X_TOL (the cavity within phase 4's 1e-5: it stops at 1e-6 after
+    inexact float32 steps); then ``post.stream_function`` on each device
+    from the cpu cavity's velocity: psi within 1e-9 of max |psi| and its
+    minimum printed."""
+    from goma_tpu_torch.post import stream_function
+
+    t0 = time.perf_counter()
+    got_c, cav_c = axisym_small_decks(torch.device("cuda"))
+    log(f"phase 32 decks on cuda: {time.perf_counter() - t0:.1f} s")
+    got_p, psi_p, sec = cpu_runs("axisym", axisym_cpu_half)
+    log(f"phase 32 decks on cpu: {sec:.1f} s (in the CPU side)")
+    for name, (it_c, x_c) in got_c.items():
+        it_p, x_p = got_p[name]
         dx = rel_dx(x_c, x_p)
         tol = 1e-5 if name == "cavity 8x8" else AX_X_TOL
         log(f"{name}: Newton cuda {it_c} cpu {it_p}, max |dx| / (1 + |x|) "
@@ -3667,8 +3842,7 @@ def axisym_small_phase():
         if it_c != it_p or not dx <= tol:
             raise RuntimeError(f"{name}: cuda and cpu differ (Newton {it_c} / "
                                f"{it_p}, x {dx:.2e} > {tol:.0e})")
-    x_in = got["cpu"]["cavity 8x8"][1]
-    psi = {d: stream_function(cav[d], x_in) for d in ("cuda", "cpu")}
+    psi = {"cuda": stream_function(cav_c, got_p["cavity 8x8"][1]), "cpu": psi_p}
     dpsi = float(np.abs(psi["cuda"] - psi["cpu"]).max()
                  / np.abs(psi["cpu"]).max())
     log(f"stream function of the 8x8 cavity: min psi cuda "
@@ -4302,13 +4476,13 @@ def bc_small_decks(device):
 
 
 def bc_small_phase():
-    """Phase 38: phase 38's decks (``bc_small_decks``) on cuda and on cpu:
-    the same Newton count and x within BC_X_TOL."""
-    got = {}
-    for d in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        got[d] = bc_small_decks(torch.device(d))
-        log(f"phase 38 decks on {d}: {time.perf_counter() - t0:.1f} s")
+    """Phase 38: phase 38's decks (``bc_small_decks``) on cuda and on cpu
+    (the CPU runs from ``cpu_runs``): the same Newton count and x within
+    BC_X_TOL."""
+    t0 = time.perf_counter()
+    got = {"cuda": bc_small_decks(torch.device("cuda"))}
+    log(f"phase 38 decks on cuda: {time.perf_counter() - t0:.1f} s")
+    got["cpu"] = cpu_runs("bc", lambda: bc_small_decks(torch.device("cpu")))
     for name, (it_c, x_c) in got["cuda"].items():
         it_p, x_p = got["cpu"][name]
         dx = rel_dx(x_c, x_p)
@@ -5121,7 +5295,8 @@ def overset_phase(dev, kind, prob=None, bi=None):
         tree["trsv"]["max_abs"] = max(tree["trsv"]["max_abs"], last["max_abs"])
     log(f"phase {46 if direct else 45} ({label}): {sec / max(res.iters, 1):.4f} "
         f"s/iter, phase {time.perf_counter() - t_phase:.1f} s")
-    return {"prob": prob, "bi": bi, "x": res.x, "launches": ln, **tree}
+    return {"prob": prob, "bi": bi, "x": res.x, "launches": ln,
+            "newton": res.iters, "linear": res.linear_iters, **tree}
 
 
 def interface_strip(device):
@@ -9473,6 +9648,248 @@ def split_phases(dev, timed=False):
 
 # ---- the CPU halves of phases 22, 26, 47, 56, 59, 62, 64 and 65, beside
 # the card's phases
+# ---- phase 66: NDLU's pivoted front-LU routes and GCRO-DR recycling
+# goma_tpu's record of the 64x64 cavity on bench.py's twolevel kind with 8
+# recycled vectors (``python3 scripts/recycle_reference.py --n 64 --k 8``,
+# goma_tpu on a CPU, float32 Jacobian; 244.6 s of solve)
+RECYCLE_REF = {"newton": 4, "linear": [62, 166, 168, 130]}
+RECYCLE_K = 8
+# the 64x64 cavity's tpu_direct tree at this leaf size: 32 leaves of
+# s = 1239 > 1000 (the pivoted route, panels of 128) under 5 kernel levels
+PIV_LEAF = 1536
+# the 12x12 cavity at leaf 2048: one level, s = 1419 (all pivoted), and the
+# 8x8 cavity's gmres+ndlu on front_lu="lax": cuda against cpu
+PIV_SMALL = {"12x12 tpu_direct leaf 2048": (12, "tpu_direct", "auto"),
+             "8x8 gmres+ndlu lax": (8, "gmres+ndlu", "lax")}
+
+
+def pivoted_small_run(name, device):
+    """One of phase 66's small decks on ``device`` (``solve_from_zero``)."""
+    import dataclasses
+
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    n, rung, route = PIV_SMALL[name]
+    if rung == "tpu_direct":
+        opts = dataclasses.replace(direct_opts(), ndlu_leaf_max=2048)
+    else:
+        opts = cavity_opts()
+    solver = NewtonSolver(cavity_problem(n, device), opts)
+    if solver.precond is not None:
+        solver.precond.front_lu = route
+    return solve_from_zero(solver)
+
+
+def pivoted_small_phase():
+    """Phase 66's small decks on cuda and on cpu (the CPU runs from
+    ``cpu_runs``): the same Newton count, x within phase 4's 1e-5."""
+    cpu = cpu_runs("pivoted", lambda: {
+        name: pivoted_small_run(name, torch.device("cpu")) for name in PIV_SMALL})
+    for name in PIV_SMALL:
+        check_cuda_cpu(name, pivoted_small_run(name, torch.device("cuda")),
+                       cpu[name], 1e-5)
+
+
+def pivoted_cylinder_phase(prob, bi, kernel_route):
+    """Phase 66(a): phase 45's deck and options (the 96x48 immersed
+    cylinder, 42,463 dof, ``gmres+ndlu`` to 1e-9, float32 Jacobian) with
+    the preconditioner's NDLU set to ``front_lu="lax"`` (lu_block 128:
+    every level with s > 128 through the blocked panel LU): one
+    factorization at x = 0 by CUDA events on the pivoted route and on the
+    kernel's, with the exact zero pivots the library LU left; one warm-up
+    solve, ``reset_lagged()``, one timed solve; gates: converged, x at the
+    24 dofs within REF_X_TOL of goma_tpu's record and the drag within
+    OVS_DRAG_RTOL, no front-LU kernel launch, front-gather launches =
+    levels x factorizations. The Newton and linear counts are printed
+    beside goma_tpu's (pivoted fronts) and phase 45's (the kernel's route),
+    not gated: ROADMAP Queue 3's open question."""
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    label = "pivoted cylinder gmres+ndlu"
+    ref = OVS_REF["gmres+ndlu"]
+    solver = NewtonSolver(prob, cavity_opts(tol=1e-9, max_iter=10))
+    nd = solver.precond
+    nd.front_lu = "lax"
+    if nd.lu_block != 128:
+        raise RuntimeError(f"{label}: lu_block {nd.lu_block}, not 128")
+    levels = check_ref_levels(nd, ref, label)
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+    params = prob.base_params()
+    vals = solver._prepare(x0, params)[1]
+    nd.zero_pivots = 0
+    facs = nd.factor(vals)
+    zero = int(nd.zero_pivots)
+    finite = all(bool(torch.isfinite(t).all()) for f in facs for t in f
+                 if t is not None and t.is_floating_point())
+    piv_ms = median_ms(lambda: nd.factor(vals), 3)
+    nd.front_lu = "auto"
+    ker_ms = median_ms(lambda: nd.factor(vals), 3)
+    nd.front_lu = "lax"
+    log(f"{label}: one factorization at x = 0 (CUDA events): pivoted route "
+        f"{piv_ms:.3f} ms, kernel route {ker_ms:.3f} ms; m per level "
+        f"{[f[0].shape[-1] for f in facs]}, perm on every level "
+        f"{all(f[2] is not None for f in facs)}; fronts with an exact zero "
+        f"pivot (lu_factor_ex info > 0) {zero}; factors finite {finite}")
+    if not finite or not all(f[2] is not None for f in facs):
+        raise RuntimeError(f"{label}: the pivoted factors are not finite or "
+                           "a level took the kernel")
+    del facs
+    res, sec, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof), params,
+                                   label)
+    x = res.x
+    if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
+        raise RuntimeError(f"{label}: the solution has the wrong shape or "
+                           "non-finite values")
+    if not res.converged or res.res_norms[-1][1] > 1e-9:
+        raise RuntimeError(f"{label} did not converge to 1e-9")
+    samples = np.linspace(0, prob.dofmap.n_dof - 1, REF_SAMPLES).astype(np.int64)
+    dx = rel_dx(x[samples], np.asarray(ref["x_samples"]))
+    d = overset_drag(prob, x, bi)
+    drel = abs(d - ref["drag"]) / abs(ref["drag"])
+    log(f"{label}: Newton {res.iters} linear {res.linear_iters}; goma_tpu "
+        f"(pivoted fronts) {ref['newton']} {ref['linear']}; phase 45 (the "
+        f"kernel's route) {kernel_route[0]} {kernel_route[1]}; x at "
+        f"{REF_SAMPLES} sampled dofs {dx:.2e} from goma_tpu's (max |dx| / (1 + "
+        f"|x|)); drag {d:.12f} (goma_tpu {ref['drag']:.12f}), relative "
+        f"{drel:.2e}; {sec / max(res.iters, 1):.4f} s/iter")
+    if dx > REF_X_TOL:
+        raise RuntimeError(f"{label}: x is {dx:.2e} from goma_tpu's > "
+                           f"{REF_X_TOL:.0e}")
+    if drel > OVS_DRAG_RTOL:
+        raise RuntimeError(f"{label}: drag {d} not within {OVS_DRAG_RTOL:.0e} "
+                           f"of goma_tpu's {ref['drag']}")
+    nf = solver.n_factor
+    if ln["lu"] != 0 or nf < 1 or ln["gather"] != len(levels) * nf:
+        raise RuntimeError(f"{label}: front-LU launches {ln['lu']} (must be 0) "
+                           f"/ front-gather launches {ln['gather']} != "
+                           f"{len(levels)} levels x {nf} factorizations")
+    return {"launches": ln, "newton": res.iters, "linear": res.linear_iters,
+            "piv_ms": piv_ms, "kernel_ms": ker_ms, "zero_pivots": zero}
+
+
+def mixed_tree_phase(prob, xd):
+    """Phase 66(b): the 64x64 cavity on phase 10's ``tpu_direct`` options
+    at leaf PIV_LEAF, whose leaves exceed the kernel's s <= 1000 under the
+    port's "auto": those levels take the pivoted route (padded to panels of
+    128), the others the front-LU and substitution kernels, in one tree.
+    One solve from x = 0 (``solve_refined`` with refinement each step),
+    counts set to 0 just before and read just after; gates: converged to
+    1e-6, x within X_PATHS_TOL of phase 10's, front-LU launches = kernel
+    levels x factorizations, gather launches = levels x factorizations,
+    substitution launches = 2 x kernel levels x NDLU solves."""
+    import dataclasses
+
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    label = "mixed tree tpu_direct"
+    t0 = time.perf_counter()
+    solver = NewtonSolver(prob, dataclasses.replace(direct_opts(),
+                                                    ndlu_leaf_max=PIV_LEAF))
+    x0 = torch.zeros(prob.dofmap.n_dof, dtype=prob.dtype, device="cuda")
+    vals = solver._prepare(x0, prob.base_params())[1]
+    nd = solver._direct_ndlu(vals)
+    levels = [(lev.nn, lev.smax, lev.bmax) for lev in nd.levels]
+    kern = sum(1 < s <= 1000 for _, s, _ in levels)
+    log(f"{label} setup: leaf {PIV_LEAF}, {len(levels)} levels (nn, s, b) = "
+        f"{levels}: {kern} on the kernels, {len(levels) - kern} pivoted; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not 0 < kern < len(levels):
+        raise RuntimeError(f"{label}: the tree does not mix kernel and "
+                           "pivoted levels")
+    res, sec, ln = warm_then_timed(solver, np.zeros(prob.dofmap.n_dof),
+                                   prob.base_params(), label, warm=False)
+    if not res.converged or res.res_norms[-1][1] > 1e-6:
+        raise RuntimeError(f"{label} did not converge to 1e-6")
+    dx = float(np.abs(res.x - xd).max())
+    nf, ns = solver._ndlu_nfactor, nd.n_solve
+    log(f"{label}: Newton {res.iters}, max |x - x_phase10| = {dx:.3e}; "
+        f"factorizations {nf}, NDLU solves {ns}; launches front-LU "
+        f"{ln['lu']} (= {kern} x {nf}), front-gather {ln['gather']} (= "
+        f"{len(levels)} x {nf}), substitution {ln['trsv']} (= 2 x {kern} x "
+        f"{ns}); {sec / max(res.iters, 1):.4f} s/iter")
+    if dx > X_PATHS_TOL:
+        raise RuntimeError(f"{label}: x differs from phase 10's by {dx:.3e} > "
+                           f"{X_PATHS_TOL:.0e}")
+    if (nf < 1 or ns < 1 or ln["lu"] != kern * nf
+            or ln["gather"] != len(levels) * nf or ln["trsv"] != 2 * kern * ns):
+        raise RuntimeError(f"{label}: launches {ln} do not match {kern} kernel "
+                           f"levels of {len(levels)}, {nf} factorizations, "
+                           f"{ns} solves")
+    return {"launches": ln}
+
+
+def recycle_phase(prob, x_ref, plain_linear):
+    """Phase 66(c): phase 27's deck and options (the 64x64 cavity on
+    bench.py's twolevel kind: Vanka, one sweep, restart 240, float32
+    Jacobian) with ``recycle_k=RECYCLE_K``: one warm-up solve,
+    ``reset_lagged()`` (which drops the recycled space), one timed solve
+    with its host syncs counted; gates: converged to 1e-6, goma_tpu's
+    Newton count +-1 (RECYCLE_REF), x within TWOLEVEL_X_TOL of phase 5's.
+    Printed: the linear iterations a solve beside goma_tpu's and phase
+    27's without recycling, s/iteration and the host harvest's seconds a
+    solve."""
+    import dataclasses
+
+    from goma_tpu_torch.solvers import NewtonSolver
+
+    label = "recycled cavity twolevel"
+    solver = NewtonSolver(prob, dataclasses.replace(twolevel_opts("cavity"),
+                                                    recycle_k=RECYCLE_K))
+    x_init, params = np.zeros(prob.dofmap.n_dof), prob.base_params()
+    t0 = time.perf_counter()
+    warm = solver.solve(x_init, params)
+    torch.cuda.synchronize()
+    log(f"{label} warm-up: {time.perf_counter() - t0:.2f} s, iters="
+        f"{warm.iters}, lin={warm.linear_iters}, converged={warm.converged}")
+    solver.reset_lagged()
+    if solver._recycle_U is not None:
+        raise RuntimeError(f"{label}: reset_lagged() kept the recycled space")
+    solver.n_factor = solver.n_discarded = 0
+    solver.harvest_s = []
+    reset_counts()
+    t0 = time.perf_counter()
+    res, syncs = count_syncs(lambda: solver.solve(x_init, params))
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    ln, _ = read_counts()
+    its = max(res.iters, 1)
+    log(res.summary())
+    log(f"{label}: Newton {res.iters} (goma_tpu {RECYCLE_REF['newton']}), "
+        f"linear {res.linear_iters} (goma_tpu {RECYCLE_REF['linear']}; phase "
+        f"27 without recycling {plain_linear}); {sec / its:.4f} s/iter (total "
+        f"{sec:.3f} s), {syncs} host syncs ({syncs / max(sum(res.linear_iters), 1):.2f}"
+        f" a linear iteration); host harvest {len(solver.harvest_s)} times, "
+        + ", ".join(f"{h * 1e3:.1f}" for h in solver.harvest_s)
+        + f" ms; recycled space {tuple(solver._recycle_U.shape) if solver._recycle_U is not None else None}")
+    if not res.converged or res.res_norms[-1][1] > 1e-6:
+        raise RuntimeError(f"{label} did not converge to 1e-6")
+    if abs(res.iters - RECYCLE_REF["newton"]) > 1:
+        raise RuntimeError(f"{label}: {res.iters} Newton iterations, not "
+                           f"goma_tpu's {RECYCLE_REF['newton']} +- 1")
+    dx = float(np.abs(res.x - x_ref).max())
+    log(f"{label} vs gmres+ndlu: max |dx| = {dx:.3e}")
+    if dx > TWOLEVEL_X_TOL:
+        raise RuntimeError(f"{label}: {dx:.3e} from phase 5's solution "
+                           f"(limit {TWOLEVEL_X_TOL:.0e})")
+    return {"launches": ln}
+
+
+def pivoted_phases(dev, cavity, x_gmres, x_direct, overset, kernel_route,
+                   plain_linear):
+    """Phase 66: the cylinder on pivoted fronts, the mixed tree, the
+    recycled cavity and the small decks on cuda and cpu."""
+    t_phase = time.perf_counter()
+    out = {"pivoted cylinder gmres_ndlu": pivoted_cylinder_phase(
+        *overset, kernel_route)}
+    out["mixed tree tpu_direct"] = mixed_tree_phase(cavity, x_direct)
+    out["recycled cavity twolevel"] = recycle_phase(cavity, x_gmres,
+                                                    plain_linear)
+    pivoted_small_phase()
+    log(f"phase 66 (pivoted fronts and GCRO-DR): "
+        f"{time.perf_counter() - t_phase:.1f} s; {mem_line()}")
+    return out
+
+
 _CPU_SIDE = {"proc": None, "stem": None, "log": None, "out": None}
 
 
@@ -9488,21 +9905,31 @@ def small_deck_runs(decks, P):
 
 
 def cpu_side_runs(stem):
-    """The CPU runs that phases 22, 26, 47, 56, 59, 62 and 65 hold the
-    card's against (the 16x4 slot coater's two cases, the 8x8 cavity with
-    every other option, the small overset, solid, porous, closure,
-    level-set and split-solver decks), each group pickled to
-    ``<stem>_<group>.pkl`` as it ends; then phase 64's derived fields on
-    the state the card hands over (``request_cpu_side``), pickled to
-    ``<stem>_derived.pkl``. ``start_cpu_side`` runs this in a child process
-    while the card runs the phases before them."""
+    """The CPU runs that phases 4, 9, 12, 14, 18, 22, 26, 32, 38, 47, 56,
+    59, 62, 65 and 66 hold the card's against (the 8x8 cavity on both
+    rungs, the 8x8 buoyant deck, the 8x4 viscoelastic decks, the 8x8 static
+    bubble, the 16x4 slot coater's two cases, the 8x8 cavity with every
+    other option, the small axisymmetric and strong-condition decks, the
+    small overset, solid, porous, closure, level-set and split-solver decks
+    and the pivoted small decks), each group pickled to
+    ``<stem>_<group>.pkl`` as it ends, in the order the card needs them;
+    then phase 64's derived fields on the state the card hands over
+    (``request_cpu_side``), pickled to ``<stem>_derived.pkl``.
+    ``start_cpu_side`` runs this in a child process while the card runs the
+    phases before them."""
     from scripts import closure_decks, ls_decks, solid_decks, split_decks
 
     cpu = torch.device("cpu")
     groups = (
+        ("cavity8", cavity8_cpu_runs),
+        ("buoyant8", lambda: buoyant8_run(cpu)),
+        ("ve8", lambda: {label: ve8_run(label, cpu) for label in VE8_RUNS}),
+        ("bubble8", lambda: {r: bubble8_run(r, cpu) for r in BUBBLE8_RUNGS}),
         ("slot", lambda: {c: slot_cross_check_run(c, cpu) for c in SLOT_CASES}),
         ("options", lambda: {name: small_option_run(name, cpu)
                              for name in SMALL_OPTIONS}),
+        ("axisym", axisym_cpu_half),
+        ("bc", lambda: bc_small_decks(cpu)),
         ("overset", lambda: overset_small_decks(cpu)),
         ("solid", lambda: small_deck_runs(solid_decks.SMALL,
                                           solid_namespace(cpu))),
@@ -9511,6 +9938,8 @@ def cpu_side_runs(stem):
         ("ls", lambda: small_deck_runs(ls_decks.SMALL, ls_namespace(cpu))),
         ("split", lambda: small_deck_runs(split_decks.SMALL,
                                           split_namespace(cpu))),
+        ("pivoted", lambda: {name: pivoted_small_run(name, cpu)
+                             for name in PIV_SMALL}),
         ("derived", lambda: split_derived_cpu(wait_request(stem, "derived"))))
     for key, run in groups:
         path = f"{stem}_{key}.pkl"
@@ -9571,8 +10000,9 @@ def start_cpu_side():
             os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="2",
             OPENBLAS_NUM_THREADS="2", MKL_NUM_THREADS="2")))
     logf.close()
-    log(f"CPU side: the CPU runs of phases 22, 26, 47, 56, 59, 62, 64 and 65 "
-        f"started in process {_CPU_SIDE['proc'].pid}")
+    log(f"CPU side: the CPU runs of phases 4, 9, 12, 14, 18, 22, 26, 32, 38, "
+        f"47, 56, 59, 62, 64, 65 and 66 started in process "
+        f"{_CPU_SIDE['proc'].pid}")
 
 
 def cpu_runs(key, compute):
@@ -9606,6 +10036,18 @@ def stop_cpu_side():
         proc.wait()
 
 
+def phase_clock():
+    """``lap(label)`` logs the seconds since the previous ``lap`` (or since
+    this call) as ``phase <label>: <s> s``, one line a phase."""
+    last = [time.perf_counter()]
+
+    def lap(label):
+        now = time.perf_counter()
+        log(f"phase {label}: {now - last[0]:.1f} s")
+        last[0] = now
+    return lap
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: CUDA is not available (this script "
@@ -9626,6 +10068,7 @@ def run_phases() -> int:
     dev = torch.device("cuda", 0)
     card = gpu_line()
     log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    lap = phase_clock()
 
     # ---- 1. (and 7.) build every kernel, all nvcc runs started together;
     # the CPU side starts and phase 2 sets up on the host meanwhile (no
@@ -9644,6 +10087,7 @@ def run_phases() -> int:
             f"{prob.pattern.nnz} nnz, {len(levels)} ND levels (nn, m) = "
             f"{shapes}, {time.perf_counter() - t0:.1f} s")
         built.result()
+    lap("1-2")
 
     # ---- 3. kernel vs twin on the card
     max_abs, lu_ms = lu_shapes(shapes, "cavity", time_twin=True)
@@ -9658,9 +10102,11 @@ def run_phases() -> int:
         return solver._scaled_vals(x, params, solver._prepare_fast32(x, params)[2])
 
     max_abs = max(max_abs, check_real_fronts(solver.precond, scaled32(x0), "x=0"))
+    lap("3")
 
     # ---- 4. small cross-check: GPU vs CPU on the 8x8 cavity
     cross_check_8x8(cavity_opts, "gmres+ndlu")
+    lap("4")
 
     # ---- 5. main path
     x_init = np.zeros(prob.dofmap.n_dof)
@@ -9678,12 +10124,14 @@ def run_phases() -> int:
     if x.shape != (prob.dofmap.n_dof,) or not np.all(np.isfinite(x)):
         raise RuntimeError("main path solution has the wrong shape or non-finite values")
     ghia_check(prob, x, "gmres+ndlu")
+    lap("5")
 
     # ---- 6. kernel vs twin on the real fronts at the converged state
     xc = torch.as_tensor(x, dtype=prob.dtype, device=dev)
     max_abs = max(max_abs, check_real_fronts(solver.precond, scaled32(xc),
                                              "converged"))
     factor_split_ms(solver.precond, scaled32(x0), "cavity gmres+ndlu tree")
+    lap("6")
 
     # ---- 8. substitution kernel vs twin on the tpu_direct deck's factors
     t0 = time.perf_counter()
@@ -9707,9 +10155,11 @@ def run_phases() -> int:
         f"(sum of m x one step of this kernel as measured above: the "
         f"design's own chain, not a limit of the card): "
         f"{chain_floor_ms:.4f} ms; byte bound {trsv_bound(calls)[0]:.4f} ms")
+    lap("8")
 
     # ---- 9. small cross-check of the tpu_direct path: GPU vs CPU
     cross_check_8x8(direct_opts, "tpu_direct")
+    lap("9")
 
     # ---- 10. the tpu_direct main path
     dres, _, ln = warm_then_timed(dsolver, x_init, params, "tpu_direct")
@@ -9745,6 +10195,7 @@ def run_phases() -> int:
         f"(CUDA events); device time (torch.profiler): factorization "
         f"{fac_dev:.3f} ms in {fac_kern:.0f} kernels, NDLU.solve "
         f"{solve_dev:.3f} ms in {solve_kern:.0f} kernels")
+    lap("10")
 
     # ---- 11. the front-gather kernel on both 64x64 trees
     gvals = scaled32(x0)
@@ -9752,23 +10203,11 @@ def run_phases() -> int:
                      check_gathers(nd, dvals, "tpu_direct tree"))
     gather_times(solver.precond, gvals, "gmres+ndlu tree")
     gather_times(nd, dvals, "tpu_direct tree")
+    lap("11")
 
     # ---- 12. small cross-check of the buoyant deck: GPU vs CPU
-    its, xs = {}, {}
-    for d in ("cuda", "cpu"):
-        p8 = buoyant_problem(8, torch.device(d))
-        r8 = NewtonSolver(p8, buoyant_opts()).solve(np.zeros(p8.dofmap.n_dof),
-                                                    p8.base_params())
-        if not r8.converged:
-            raise RuntimeError(f"8x8 buoyant deck did not converge on {d}:\n"
-                               f"{r8.summary()}")
-        its[d], xs[d] = r8.iters, r8.x
-    bdx = float(np.max(np.abs(xs["cuda"] - xs["cpu"]) / (1.0 + np.abs(xs["cpu"]))))
-    log(f"cross-check 8x8 buoyant: Newton its cuda {its['cuda']} cpu "
-        f"{its['cpu']}, max |x_cuda - x_cpu| / (1 + |x_cpu|) = {bdx:.2e}")
-    if its["cuda"] != its["cpu"] or bdx > BUOY_X_TOL:
-        raise RuntimeError("8x8 buoyant deck: cuda and cpu differ (Newton "
-                           f"{its}, x {bdx:.2e} > {BUOY_X_TOL:.0e})")
+    cross_check_buoyant8()
+    lap("12")
 
     # ---- 13. the buoyant main path (48x48)
     t0 = time.perf_counter()
@@ -9805,8 +10244,8 @@ def run_phases() -> int:
         raise RuntimeError("the invert=False buoyant NDLU has another tree "
                            "than the preconditioner's")
     bfacs_sub = bsub.factor(bvals)
-    if not all(fwd is bwd and fwd.shape == (nn, m, m)
-               for (fwd, bwd, _, _), (nn, m, _) in zip(bfacs_sub, blev)):
+    if not all(perm is None and fwd is bwd and fwd.shape == (nn, m, m)
+               for (fwd, bwd, perm, _, _), (nn, m, _) in zip(bfacs_sub, blev)):
         raise RuntimeError("NDLU(invert=False).factor did not keep the packed "
                            "LU of every level")
     bcalls = []
@@ -9841,83 +10280,109 @@ def run_phases() -> int:
                            "non-finite values")
     where_time_goes(bprob, bnd, bvals, bx0, bparams, "buoyant")
     del bsolver, bnd, bvals  # bprob stays for phase 25
+    lap("13")
 
     # ---- 14. small cross-check of the viscoelastic deck: GPU vs CPU
     log(f"before the viscoelastic phases: {mem_line()}")
     cross_check_ve()
+    lap("14")
 
     # ---- 15.-16. the viscoelastic main paths (64x32)
     ve = ve_gmres_phase(dev)
+    lap("15")
     vd = ve_direct_phase(dev, ve.pop("prob"), ve["x"])
+    lap("16")
 
     # ---- 17. the transient start-up (the 8x4 cross-check ran in phase 14)
     vt = ve_transient_phase(dev)
+    lap("17")
     log(f"after the viscoelastic phases: {mem_line()}")
 
     # ---- 18. small cross-check of the static bubble: GPU vs CPU
     cross_check_bubble()
+    lap("18")
 
     # ---- 19.-20. the static bubble's two rungs (48x48)
     tp = bubble_gmres_phase(dev)
+    lap("19")
     td = bubble_direct_phase(dev, tp.pop("prob"), tp.pop("params"), tp["x"])
+    lap("20")
     log(f"after the two-phase phases: {mem_line()}")
 
     # ---- 21. the pipelined Newton loop against the sequential one (64x64
     # cavity, phase 5's solver)
     pipe = pipelined_phase(solver, x_init, params)
+    lap("21")
 
     # ---- 22. small cross-check of the ALE slot coater: GPU vs CPU
     cross_check_slot_coater()
+    lap("22")
 
     # ---- 23.-24. the slot coater's two rungs (96x24)
     sc = slot_gmres_phase(dev)
+    lap("23")
     sd = slot_direct_phase(dev, sc.pop("x"))
+    lap("24")
     del sc["prob"]
     log(f"after the slot coater phases: {mem_line()}")
 
     # ---- 25. the buoyant deck's tpu_direct rung (48x48)
     bd_ln = buoyant_direct_phase(bprob, bx)
+    lap("25")
 
     # ---- 26. goma_tpu's other preconditioners and solvers, 8x8 cuda vs cpu
     small_options_phase()
+    lap("26")
 
     # ---- 27. the 64x64 cavity on bench.py's twolevel kind
-    twolevel_phase(prob, "cavity twolevel", "cavity", x, TWOLEVEL_X_TOL,
-                   relative=False)
+    _, tl_linear = twolevel_phase(prob, "cavity twolevel", "cavity", x,
+                                  TWOLEVEL_X_TOL, relative=False)
+    lap("27")
 
     # ---- 28. the 48x48 buoyant deck on bench.py's third rung (twolevel)
     twolevel_phase(bprob, "buoyant twolevel", "buoyant", bx,
                    BUOY_TWOLEVEL_X_TOL, relative=True, warm_up=False)
+    lap("28")
     del bprob
     log(f"after the two-level phases: {mem_line()}")
 
     # ---- 29. the 48x48 static bubble on the host direct rung
     bubble_host_direct_phase(dev, tp)
+    lap("29")
 
     # ---- 30.-31. the axisymmetric die deck's two rungs (64x32)
     dg = die_gmres_phase(dev)
+    lap("30")
     dd = die_direct_phase(dev, dg.pop("prob"), dg["x"])
+    lap("31")
     log(f"after the die phases: {mem_line()}")
 
     # ---- 32. small axisymmetric, property-model and post-processing decks
     axisym_small_phase()
+    lap("32")
 
     # ---- 33.-34. the tilted cavity's two rungs (64x64)
     tg = tilted_gmres_phase(dev, x, res.iters)
+    lap("33")
     tdr = tilted_direct_phase(dev, tg["prob"], tg["x"])
+    lap("34")
 
     # ---- 35. residual against assemble on the card, numjac
     residual_phase([("cavity 64x64", prob, x),
                     ("tilted 64x64", tg.pop("prob"), tg["x"])])
+    lap("35")
     log(f"after the tilted phases: {mem_line()}")
 
     # ---- 36.-37. the periodic channel's two rungs (64x32)
     pg = periodic_gmres_phase(dev)
+    lap("36")
     pdr = periodic_direct_phase(dev, pg.pop("prob"), pg["x"])
+    lap("37")
     log(f"after the periodic phases: {mem_line()}")
 
     # ---- 38. small decks of this slice's conditions, cuda vs cpu
     bc_small_phase()
+    lap("38")
 
     # ---- 39.-40. the 64x64 lid-speed continuation on both rungs
     t_cont = time.perf_counter()
@@ -9934,16 +10399,18 @@ def run_phases() -> int:
     stability_phase(dev)
     log(f"phases 39-44 (continuation and stability): "
         f"{time.perf_counter() - t_cont:.1f} s; {mem_line()}")
+    lap("39-44")
 
     # ---- 45.-46. the 96x48 immersed cylinder (overset multipliers) on both
     # rungs; 47. the small coupling-set decks, cuda and cpu
     t_ovs = time.perf_counter()
     og = overset_phase(dev, "gmres+ndlu")
     od = overset_phase(dev, "tpu_direct", og.pop("prob"), og.pop("bi"))
-    del od["prob"]
+    ovs = (od.pop("prob"), od.pop("bi"))  # phase 66 solves it again
     bl = overset_small_phase()
     log(f"phases 45-47 (coupling sets): {time.perf_counter() - t_ovs:.1f} s; "
         f"{mem_line()}")
+    lap("45-47")
 
     # ---- 48.-49. the 64x64 thermal slider bearing and drying film (surface
     # shells) on both rungs; 50. the small shell decks on the card
@@ -9957,6 +10424,7 @@ def run_phases() -> int:
     shell_small_phase()
     log(f"phases 48-50 (shells and lubrication): "
         f"{time.perf_counter() - t_sh:.1f} s; {mem_line()}")
+    lap("48-50")
 
     # ---- 51.-52. the 128x128 edge-element cavity and the 160x32 nodal
     # waveguide on both rungs; 53. the small decks of the slice on the card
@@ -9970,21 +10438,33 @@ def run_phases() -> int:
     em_small_phase()
     log(f"phases 51-53 (Nedelec, EM and electrochemistry): "
         f"{time.perf_counter() - t_em:.1f} s; {mem_line()}")
+    lap("51-53")
 
     # ---- 54-56. solid mechanics and porous media
     fsa, fsg, fsd, rcg, rcd = solid_phases(dev)
+    lap("54-56")
 
     # ---- 57-59. closures: suspensions, kinetics, PLACID, QMOM, SA
     clsg, clsd, clrg, clrd = closure_phases(dev)
+    lap("57-59")
 
     # ---- 60-62. fluid and level-set conditions: the laser melt pool and
     # the wetting drop on both rungs, the small decks on cuda and cpu
     lsmg, lsmd, lsdg, lsdd = ls_phases(dev)
+    lap("60-62")
 
     # ---- 63-65. derived fields, particle tracing, the projection and
     # segregated drivers: the projection cavity and the three-matrix
     # buoyant cavity on both rungs, the small decks on cuda and cpu
     spg, spd, ssg, ssd = split_phases(dev)
+    lap("63-65")
+
+    # ---- 66. NDLU's pivoted front LUs (the cylinder on pivoted fronts, a
+    # tree mixing kernel and pivoted levels) and GCRO-DR recycling
+    piv = pivoted_phases(dev, prob, x, xd, ovs, (og["newton"], og["linear"]),
+                         tl_linear)
+    del ovs
+    lap("66")
 
     # ---- kernel summary
     trsv_bnd = trsv_bound(calls)
@@ -10033,7 +10513,8 @@ def run_phases() -> int:
                 "projection gmres_ndlu": spg["launches"],
                 "projection tpu_direct": spd["launches"],
                 "segregated gmres_ndlu": ssg["launches"],
-                "segregated tpu_direct": ssd["launches"]}
+                "segregated tpu_direct": ssd["launches"],
+                **{k: v["launches"] for k, v in piv.items()}}
     # a small deck's launches, read as a cross-check: not a main path
     cross_checks = {"bordered ndlu 20x10": bl}
 

@@ -34,24 +34,22 @@ def state_from_numpy(x, device=None, dtype=torch.float64) -> torch.Tensor:
 
 def ndlu_factors_from_numpy(facs, device=None) -> list:
     """goma_tpu ``NDLU.factor`` output, fetched to numpy (per level
-    ``(fwd, bwd, perm, X, Y)``) -> the port's per-level ``(fwd, bwd, X, Y)``
-    tensors for ``NDLU.solve`` / ``solve_refined`` (empty boundary blocks
-    become None, as the port's ``factor_level`` returns them). Only
-    unpivoted levels carry over (``perm is None``: goma_tpu's front kernel),
-    the factorization the port's substitution reads."""
+    ``(fwd, bwd, perm, X, Y)``) -> the port's per-level
+    ``(fwd, bwd, perm, X, Y)`` tensors for ``NDLU.solve`` /
+    ``solve_refined``: a kernel level's perm stays None, a pivoted level's
+    becomes an int64 tensor, and empty boundary blocks become None, as the
+    port's ``factor_level`` returns them."""
     dev = config.resolve_device(device)
 
-    def put(a):
-        return torch.as_tensor(np.array(a), device=dev)
+    def put(a, dtype=None):
+        return torch.as_tensor(np.array(a), dtype=dtype, device=dev)
 
     out = []
-    for li, (fwd, bwd, perm, X, Y) in enumerate(facs):
-        if perm is not None:
-            raise ValueError(f"level {li}: pivoted factor (perm is not None); "
-                             "the port substitutes only unpivoted fronts")
+    for fwd, bwd, perm, X, Y in facs:
         empty = np.asarray(X).size == 0
-        out.append((put(fwd), put(bwd), None if empty else put(X),
-                    None if empty else put(Y)))
+        out.append((put(fwd), put(bwd),
+                    None if perm is None else put(perm, torch.int64),
+                    None if empty else put(X), None if empty else put(Y)))
     return out
 
 

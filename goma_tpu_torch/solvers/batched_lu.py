@@ -107,7 +107,8 @@ def batched_lu_reference(A, pivot_tol: float = 1e-8):
     A = A.clone()
     nn, m, _ = A.shape
     dmax = torch.abs(torch.diagonal(A, dim1=1, dim2=2)).amax(dim=1)
-    tau = torch.as_tensor(pivot_tol, dtype=A.dtype, device=A.device) * \
+    # a fill, not a copy from the host, so a CUDA graph can capture the twin
+    tau = torch.full((), pivot_tol, dtype=A.dtype, device=A.device) * \
         torch.clamp(dmax, min=1e-30)
     for k in range(m):
         piv = A[:, k, k]

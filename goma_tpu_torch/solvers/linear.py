@@ -1,7 +1,9 @@
 """Linear solvers and preconditioners (counterpart of
 ``goma_tpu/solvers/linear.py``): the node-block-Jacobi and element-block
 Vanka preconditioners, the pressure-mass field split, restarted GMRES,
-right-preconditioned BiCGStab and the host SuperLU direct solve.
+right-preconditioned BiCGStab, one GCRO-DR cycle (``gmres_dr_cycle``, the
+recycled GMRES of ``NewtonOptions.recycle_k``) and the host SuperLU direct
+solve.
 
 GMRES: right-preconditioned, vectorized classical Gram-Schmidt plus one
 reorthogonalization pass (CGS2: two (m+1, n) matrix-vector products per
@@ -389,6 +391,89 @@ def gmres(matvec, b, precond=None, x0=None, tol=1e-8, atol=0.0, restart=40,
             break
     return LinearResult(x=x, iters=it, resnorm=rn, converged=rn <= target,
                         bnorm=bnorm, tol=tol, extra=extra_vals)
+
+
+def gmres_dr_cycle(matvec, precond, b, x0, U, C, restart, tol, extra=()):
+    """One GCRO-DR (recycled, deflated GMRES) cycle, goma_tpu's
+    ``gmres_dr_cycle``: minimize the residual over range(M U) +
+    K_m((I - C C^T) A M, r0), with C = A M U orthonormal (Parks, de Sturler
+    et al., SIAM J. Sci. Comput. 28, 2006).
+
+    ``U``, ``C`` are (k, n) row-major; k = 0 arrays (shape (0, n)) give a
+    plain deflation-free cycle. The Arnoldi steps are ``gmres``'s (CGS2,
+    Givens rotations in a dense ``Q``), each step's new vector first
+    projected off C, whose coefficients fill B; the cycle stops at the first
+    step whose residual estimate reaches ``tol * ||b||``, read back after
+    every step. The first read also takes ``||b||``, ``tol`` when it is a
+    device tensor and the ``extra`` tensors. Returns (LinearResult, V, H,
+    B): the result's ``x`` is x0 + M (V_m y + U (C^T r0 - B y)), ``iters``
+    the steps taken (``cnt``), ``resnorm`` the true ||b - A x||; V
+    (m+1, n), H (m+1, m) and B (k, m) feed the harvest between solves."""
+    n = b.shape[0]
+    dtype, dev = b.dtype, b.device
+    m = restart
+    k = U.shape[0]
+
+    r = b - matvec(x0)
+    c0 = C @ r if k else None
+    rp = r - C.T @ c0 if k else r
+    beta_t = torch.linalg.norm(rp)
+    tol_dev = torch.is_tensor(tol)
+    got = read_scalars([torch.linalg.norm(b), beta_t]
+                       + ([tol] if tol_dev else []) + list(extra))
+    bnorm, beta = got[0], got[1]
+    if tol_dev:
+        tol = got[2]
+    extra_vals = got[3 if tol_dev else 2:]
+    target = tol * bnorm
+
+    V = torch.zeros((m + 1, n), dtype=dtype, device=dev)
+    H = torch.zeros((m + 1, m), dtype=dtype, device=dev)
+    B = torch.zeros((k, m), dtype=dtype, device=dev)
+    V[0] = rp / (beta_t if beta > 0 else 1.0)
+    Q = torch.eye(m + 1, dtype=dtype, device=dev)
+    done = beta <= target
+    cnt = 0
+    for j in range(m):
+        if done:
+            break
+        w = matvec(precond(V[j]))
+        if k:
+            bj = C @ w
+            w = w - C.T @ bj
+            B[:, j] = bj
+        Vj = V[:j + 1]
+        h = Vj @ w
+        w = w - Vj.T @ h
+        h2 = Vj @ w
+        w = w - Vj.T @ h2
+        h = h + h2
+        wn = torch.linalg.norm(w)
+        H[:j + 1, j] = h
+        H[j + 1, j] = wn
+        V[j + 1] = w / torch.where(wn > 1e-30, wn, torch.ones_like(wn))
+        hr = Q @ H[:, j]
+        a0, a1 = hr[j], hr[j + 1]
+        rr = torch.sqrt(a0 * a0 + a1 * a1)
+        ok = rr > 1e-30
+        rr_safe = torch.where(ok, rr, torch.ones_like(rr))
+        c_ = torch.where(ok, a0 / rr_safe, torch.ones_like(rr))
+        s_ = torch.where(ok, a1 / rr_safe, torch.zeros_like(rr))
+        qj, qj1 = Q[j].clone(), Q[j + 1].clone()
+        Q[j] = c_ * qj + s_ * qj1
+        Q[j + 1] = -s_ * qj + c_ * qj1
+        cnt += 1
+        done = float(torch.abs(Q[j + 1, 0] * beta_t)) <= target
+    e1 = torch.zeros(m + 1, dtype=dtype, device=dev)
+    e1[0] = beta_t
+    y = lstsq_small(H, e1)
+    z = V[:m].T @ y
+    if k:
+        z = z + U.T @ (c0 - B @ y)
+    x_new = x0 + precond(z)
+    rn = float(torch.linalg.norm(b - matvec(x_new)))
+    return (LinearResult(x=x_new, iters=cnt, resnorm=rn, converged=rn <= target,
+                         bnorm=bnorm, tol=tol, extra=extra_vals), V, H, B)
 
 
 def bicgstab(matvec, b, precond=None, x0=None, tol=1e-8, atol=0.0,

@@ -23,9 +23,13 @@ preconditioner of the GMRES path and the exact direct solver of the
 Static pivoting (SuperLU_DIST GESP-style): no pivoting across the
 own/boundary split; tiny pivots are boosted to tau*max|diag|.
 
-Not in this slice (raise ``NotImplementedError``): the blocked and pivoted
-library LU branches (fronts with s == 1 or s > 1000). The decks of the
-port never reach them.
+Front LU routes (``front_lu``): the hand kernel on every level with
+1 < s <= 1000 (``"auto"``, ``"pallas"``), and goma_tpu's pivoted library
+route on every other level, or on every level (``"lax"``): partial
+pivoting (``torch.linalg.lu_factor_ex``), blocked into ``lu_block`` x
+``lu_block`` diagonal panels with the GESP boost per panel, or one plain
+pivoted LU with the boost after it. A pivoted level's factors carry the
+row permutation, which the substitution applies to the right-hand side.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import torch
 from goma_tpu_torch import config
 from goma_tpu_torch.fem.sparsity import CSRPattern
 
-_LATER = "later slice of the port, see ROADMAP"
+_FRONT_LU = ("auto", "pallas", "lax")
 
 
 # ------------------------------------------------------------------ symbolic
@@ -426,34 +430,49 @@ class NDLU:
     """Device multifrontal LU for a fixed :class:`CSRPattern`:
     ``factor(vals)`` -> per-level factors, ``solve(facs, b)`` applies the
     inverse through the tree (batched matvecs against explicit inverses
-    with ``invert=True``, kernel substitution with ``invert=False``),
+    with ``invert=True``, substitution with ``invert=False``),
     ``solve_refined`` wraps ``solve`` in iterative refinement.
 
     ``device``: ``None`` is the card (``config.resolve_device``).
 
-    ``front_lu``: "auto" factors every level's
-    fronts with ``solvers.batched_lu`` — the CUDA kernel for a CUDA tensor,
-    its plain twin for a CPU tensor — so the CPU tests and the GPU run one
-    algorithm. goma_tpu's CPU "auto" picks the pivoted library LU instead;
-    that branch ("lax") is a later slice. The unpivoted kernel needs
-    ``defer_dofs`` ordering on saddle systems (see ``zero_diag_defer_mask``
-    and ``twolevel._saddle_mask``).
+    ``front_lu``: "auto" and "pallas" factor every level with
+    1 < s <= 1000 with ``solvers.batched_lu`` — the CUDA kernel for a CUDA
+    tensor, its plain twin for a CPU tensor — so the CPU tests and the GPU
+    run one algorithm, and every other level by the pivoted route; "lax"
+    takes the pivoted route on every level. goma_tpu's "auto" is "lax" off
+    a TPU; the port's stays on the kernel. The unpivoted kernel needs
+    ``defer_dofs`` ordering on saddle systems (see
+    ``zero_diag_defer_mask`` and ``twolevel._saddle_mask``).
+
+    ``lu_block``: the pivoted route's panel width: pivoting is restricted
+    to ``lu_block`` x ``lu_block`` diagonal panels and a level with
+    s > ``lu_block`` is factored identity-padded to a whole number of
+    panels (m = ceil(s / lu_block) lu_block); ``None`` is one plain
+    pivoted LU per front.
     """
 
     def __init__(self, pattern: CSRPattern, leaf_max: int = 96,
                  dtype=torch.float32, pivot_tol: float = 1e-8,
+                 lu_block: int | None = 128,
                  defer_dofs: np.ndarray | None = None,
                  front_lu: str = "auto", invert: bool = False,
                  clusters: np.ndarray | None = None, device=None):
-        if front_lu != "auto":
-            raise NotImplementedError(f"NDLU(front_lu={front_lu!r}): {_LATER}")
+        if front_lu not in _FRONT_LU:
+            raise ValueError(f"NDLU(front_lu={front_lu!r}): one of {_FRONT_LU}")
         self.pattern = pattern
         self.dtype = dtype
         self.pivot_tol = pivot_tol
+        self.lu_block = lu_block
+        #: "auto" | "pallas" (the kernel where 1 < s <= 1000) | "lax"
+        self.front_lu = front_lu
         self.invert = invert
         #: ``solve`` calls so far (each runs the substitution kernel twice
-        #: per level when ``invert=False``)
+        #: per kernel level when ``invert=False``)
         self.n_solve = 0
+        #: the pivoted route's LUs (one a front, or a panel of one) that
+        #: met an exact zero pivot (``lu_factor_ex``'s ``info`` > 0; the
+        #: boost then sets it): a 0-d device tensor, read by the caller
+        self.zero_pivots = 0
         self.device = config.resolve_device(device)
         self.levels = build_nd_tree(pattern, leaf_max=leaf_max,
                                     defer_dofs=defer_dofs,
@@ -540,9 +559,11 @@ class NDLU:
         return F
 
     def factor(self, vals):
-        """Per-level factors (fwd, bwd, X, Y) of the equilibrated CSR values
-        ``vals``: fwd = L^-1, bwd = U^-1 with ``invert=True``, both the
-        packed LU with ``invert=False``; X = A21 U^-1, Y = L^-1 A12."""
+        """Per-level factors (fwd, bwd, perm, X, Y) of the equilibrated CSR
+        values ``vals``: fwd = L^-1, bwd = U^-1 with ``invert=True``, both
+        the packed LU with ``invert=False``; perm the row permutation of a
+        pivoted level (None on a kernel level); X = A21 U^-1, Y = L^-1 P A12
+        (None on a level with no boundary)."""
         facs = []
         S_prev = None
         vals_ext = self.front_values(vals)
@@ -553,91 +574,181 @@ class NDLU:
 
     def factor_level(self, li: int, F):
         """Factor level ``li``'s assembled fronts ``F`` (from ``front``):
-        returns ((fwd, bwd, X, Y), S) with S the Schur complements that the
-        parent level extend-adds."""
-        return self.factor_rest(li, F, self.front_lu(li, F))
+        returns ((fwd, bwd, perm, X, Y), S) with S the Schur complements
+        that the parent level extend-adds."""
+        return self.factor_rest(li, F, *self.factor_front(li, F))
 
-    def front_lu(self, li: int, F):
-        """Packed LU of level ``li``'s fully-summed blocks (the front-LU
-        kernel)."""
+    def factor_front(self, li: int, F):
+        """(packed LU (nn, m, m), row permutation (nn, m) or None) of level
+        ``li``'s fully-summed blocks: the front-LU kernel where the route
+        takes it (perm None, m = s), else the pivoted route (m = s, or the
+        ``lu_block``-padded size)."""
         from goma_tpu_torch.solvers.batched_lu import batched_lu
 
         s = self.levels[li].smax
-        if not 1 < s <= 1000:
-            raise NotImplementedError(
-                f"NDLU level with s={s} outside the front kernel's gate "
-                f"1 < s <= 1000 (goma_tpu's library LU branch): {_LATER}")
-        return batched_lu(F[:, :s, :s].contiguous(), pivot_tol=self.pivot_tol)
+        A11 = F[:, :s, :s]
+        if self.front_lu != "lax" and 1 < s <= 1000:
+            return batched_lu(A11.contiguous(), pivot_tol=self.pivot_tol), None
+        if self.lu_block and s > self.lu_block:
+            return self._block_lu(A11)
+        lu, perm = self._lu(A11)
+        return self._boost(lu), perm
 
-    def factor_rest(self, li: int, F, lu):
-        """The rest of ``factor_level`` after the front LU ``lu``: the
-        inverses (``invert=True``), X and Y, and the Schur complements."""
+    def _lu(self, A):
+        """Partial-pivoting LU of a batch (nn, k, k): (packed LU, the row
+        permutation perm with A[perm] = L U), LAPACK's sequential swaps
+        turned into the permutation ``lax.linalg.lu`` returns. An exact zero
+        pivot is left unscaled, as LAPACK's getrf leaves it, and counted
+        into ``zero_pivots``."""
+        lu, piv, info = torch.linalg.lu_factor_ex(A, pivot=True)
+        self.zero_pivots = self.zero_pivots + (info > 0).sum()
+        P, _, _ = torch.lu_unpack(lu, piv, unpack_data=False)
+        # A = P L U: row i of L U is row perm[i] of A, where P[perm[i], i] = 1
+        return lu, P.argmax(dim=-2)
+
+    def _boost(self, lu):
+        """GESP static-pivot boost on the packed LU's diagonal: a pivot
+        below tau = pivot_tol max(max|diag|, 1e-30) becomes -tau (negative)
+        or +tau."""
+        dg = torch.diagonal(lu, dim1=1, dim2=2)
+        mx = dg.abs().amax(dim=1, keepdim=True)
+        tau = self.pivot_tol * torch.clamp(mx, min=1e-30)
+        fix = torch.where(dg.abs() < tau, torch.where(dg < 0, -tau, tau), dg)
+        out = lu.clone()
+        torch.diagonal(out, dim1=1, dim2=2).copy_(fix)
+        return out
+
+    def _block_lu(self, A11):
+        """Blocked right-looking LU, pivoting restricted to the diagonal
+        panels (goma_tpu's ``_block_lu``). Returns (packed LU (nn, m, m),
+        row permutation (nn, m)) with m = ceil(s / bs) bs; padded slots are
+        identity rows and columns."""
+        bs = self.lu_block
+        nn, s, _ = A11.shape
+        nb = -(-s // bs)
+        m = nb * bs
+        A = A11.new_zeros((nn, m, m))
+        A[:, :s, :s] = A11
+        ar = torch.arange(s, m, device=A.device)
+        A[:, ar, ar] = 1.0
+        perms = []
+        for k in range(nb):
+            r0, r1 = k * bs, (k + 1) * bs
+            lu_d, perm_d = self._lu(A[:, r0:r1, r0:r1])
+            lu_d = self._boost(lu_d)
+            # permute the whole row slab (the L columns already computed
+            # too), write the packed diagonal LU, eliminate the right panel
+            slab = torch.gather(A[:, r0:r1, :], 1,
+                                perm_d[:, :, None].expand(nn, bs, m))
+            slab[:, :, r0:r1] = lu_d
+            if r1 < m:
+                U12 = torch.linalg.solve_triangular(
+                    lu_d, slab[:, :, r1:], upper=False, unitriangular=True)
+                slab[:, :, r1:] = U12
+            A[:, r0:r1, :] = slab
+            if r1 < m:
+                L21 = torch.linalg.solve_triangular(
+                    lu_d, A[:, r1:, r0:r1], upper=True, left=False)
+                A[:, r1:, r0:r1] = L21
+                A[:, r1:, r1:] -= L21 @ U12
+            perms.append(perm_d + r0)
+        return A, torch.cat(perms, dim=1)
+
+    def factor_rest(self, li: int, F, lu, perm=None):
+        """The rest of ``factor_level`` after the front LU ``lu`` (row
+        permutation ``perm``, None for the kernel's): the inverses
+        (``invert=True``), X and Y, and the Schur complements. A padded LU
+        (m > s) sees A12 and A21 padded with zero rows and columns."""
         lev = self.levels[li]
-        s = lev.smax
+        s, m = lev.smax, lu.shape[-1]
         if self.invert:
             # invert ONCE so every later apply is a batched matvec
-            eye = torch.eye(s, dtype=self.dtype,
-                            device=self.device).expand(lev.nn, s, s)
+            eye = torch.eye(m, dtype=self.dtype,
+                            device=self.device).expand(lev.nn, m, m)
             fwd = torch.linalg.solve_triangular(lu, eye, upper=False,
                                                 unitriangular=True)
             bwd = torch.linalg.solve_triangular(lu, eye, upper=True)
         else:
             fwd = bwd = lu  # substitution path (exact triangular solves)
         if lev.bmax:
+            A12, A21 = F[:, :s, s:], F[:, s:, :s]
+            if m != s:  # identity-padded rows/cols contribute zeros
+                A12 = torch.cat([A12, A12.new_zeros((lev.nn, m - s, lev.bmax))],
+                                dim=1)
+                A21 = torch.cat([A21, A21.new_zeros((lev.nn, lev.bmax, m - s))],
+                                dim=2)
+            if perm is not None:
+                A12 = torch.gather(A12, 1, perm[:, :, None].expand(-1, -1, lev.bmax))
             if self.invert:
-                Y = fwd @ F[:, :s, s:]   # L^-1 A12
-                X = F[:, s:, :s] @ bwd   # A21 U^-1
+                Y = fwd @ A12   # L^-1 P A12
+                X = A21 @ bwd   # A21 U^-1
             else:
-                Y = torch.linalg.solve_triangular(lu, F[:, :s, s:],
-                                                  upper=False,
+                Y = torch.linalg.solve_triangular(lu, A12, upper=False,
                                                   unitriangular=True)
-                X = torch.linalg.solve_triangular(lu, F[:, s:, :s],
-                                                  upper=True, left=False)
+                X = torch.linalg.solve_triangular(lu, A21, upper=True,
+                                                  left=False)
             S = F[:, s:, s:] - X @ Y
         else:
             X = Y = None
             S = torch.zeros((lev.nn, 0, 0), dtype=self.dtype,
                             device=self.device)
-        return (fwd, bwd, X, Y), S
+        return (fwd, bwd, perm, X, Y), S
+
+    @staticmethod
+    def _segment(v, m):
+        """Own segments (nn, s) zero-extended to the factor's m columns."""
+        if m == v.shape[1]:
+            return v
+        return torch.cat([v, v.new_zeros((v.shape[0], m - v.shape[1]))], dim=1)
 
     def solve(self, facs, b, trace: list | None = None):
         """x = A^-1 b through the tree: a forward sweep (deepest level
         first) and a backward sweep, batched matvecs against the inverses
-        (``invert=True``) or kernel substitutions against the packed LUs
-        (``invert=False``). Returns x at the factor dtype. ``trace``: a
-        list that receives (lu, rhs, lower) of every substitution, in
-        order."""
+        (``invert=True``) or substitutions against the packed LUs
+        (``invert=False``: the kernel on kernel levels, ``solve_triangular``
+        on pivoted ones). A pivoted level permutes its right-hand side.
+        Returns x at the factor dtype. ``trace``: a list that receives
+        (lu, rhs, lower) of every kernel substitution, in order."""
         from goma_tpu_torch.solvers.batched_trsv import batched_trsv
 
         self.n_solve += 1
         n = self.n
         w = torch.zeros(n + 2, dtype=self.dtype, device=self.device)
         w[:n] = b.to(self.dtype)
-        for lev, tb, (fwd, bwd, X, Y) in zip(self.levels, self.tabs, facs):
-            bs = w[tb["own_w"]]
+        for lev, tb, (fwd, bwd, perm, X, Y) in zip(self.levels, self.tabs, facs):
+            bs = self._segment(w[tb["own_w"]], fwd.shape[-1])
+            if perm is not None:
+                bs = torch.gather(bs, 1, perm)
             if self.invert:
                 y = torch.bmm(fwd, bs.unsqueeze(2)).squeeze(2)
-            else:
+            elif perm is None:
                 if trace is not None:
                     trace.append((fwd, bs, True))
                 y = batched_trsv(fwd, bs, lower=True)
-            w[tb["own_dofs"]] = y.reshape(-1)[tb["own_sel"]]
+            else:
+                y = torch.linalg.solve_triangular(
+                    fwd, bs.unsqueeze(2), upper=False,
+                    unitriangular=True).squeeze(2)
+            w[tb["own_dofs"]] = y[:, :lev.smax].reshape(-1)[tb["own_sel"]]
             if lev.bmax:
                 c = torch.bmm(X, y.unsqueeze(2)).reshape(-1)
                 c = torch.cat([c, c.new_zeros(1)])
                 w[tb["bnd_dofs"]] -= torch.sum(c[tb["bnd_pos"]], dim=1)
-        for lev, tb, (fwd, bwd, X, Y) in zip(
+        for lev, tb, (fwd, bwd, perm, X, Y) in zip(
                 reversed(self.levels), reversed(self.tabs), reversed(facs)):
-            y = w[tb["own_w"]]
+            y = self._segment(w[tb["own_w"]], bwd.shape[-1])
             if lev.bmax:
                 y = y - torch.bmm(Y, w[tb["bnd_w"]].unsqueeze(2)).squeeze(2)
             if self.invert:
                 x = torch.bmm(bwd, y.unsqueeze(2)).squeeze(2)
-            else:
+            elif perm is None:
                 if trace is not None:
                     trace.append((bwd, y, False))
                 x = batched_trsv(bwd, y, lower=False)
-            w[tb["own_dofs"]] = x.reshape(-1)[tb["own_sel"]]
+            else:
+                x = torch.linalg.solve_triangular(
+                    bwd, y.unsqueeze(2), upper=True).squeeze(2)
+            w[tb["own_dofs"]] = x[:, :lev.smax].reshape(-1)[tb["own_sel"]]
         return w[:n]
 
     def solve_refined(self, facs, b, matvec, refine: int = 2,

@@ -1,6 +1,6 @@
 """Damped full-Newton nonlinear solver (counterpart of
 ``goma_tpu/solvers/newton.py``) with goma_tpu's linear solvers and
-preconditioners, GCRO-DR recycling (``recycle_k > 0``) excepted.
+preconditioners, and its GCRO-DR recycling (``recycle_k > 0``).
 
 Per iteration: assemble, take the row-sum-scaled norms, test convergence,
 solve the symmetrically equilibrated system (DAD) z = D R, and update
@@ -27,6 +27,12 @@ dtype.
   ends the Newton solve unconverged, so the transient driver halves dt.
 - ``row_scaling=False``: the full prep with R unscaled and a scale of
   ones (no fast prep), so the sequential loop runs.
+- ``recycle_k > 0`` (``gmres``): GCRO-DR. Each solve re-orthonormalizes the
+  recycled space U against its operator (C = A M U, ``_dr_setup``), runs
+  deflated cycles (``linear.gmres_dr_cycle``) and harvests the k smallest
+  harmonic Ritz vectors of its last cycle on the host (``_dr_harvest``,
+  SciPy) as the next solve's U; ``reset_lagged`` drops U, and a
+  ``TransientSolver`` carries it across time steps.
 - a Problem with a row injection (``add_row_inject``) or a coupling set
   (``add_interface_kernel``, ``add_overset``, ``add_edge_kernel``): the
   element matvec's aux holds neither, so ``gmres``/``bicgstab`` take the
@@ -56,16 +62,13 @@ import torch
 from goma_tpu_torch.fem.sparsity import EllOperator, row_sums_ell
 from goma_tpu_torch.solvers.linear import (LinearResult, LinearSolveError,
                                            bicgstab, direct_solve_host, gmres,
-                                           read_scalars)
-
-_LATER = "later slice of the port, see ROADMAP"
+                                           gmres_dr_cycle, read_scalars)
 
 
 @dataclass
 class NewtonOptions:
     """goma_tpu's options, every field and default kept so decks carry
-    over. ``recycle_k > 0`` (GCRO-DR) raises at construction (see
-    :func:`check_slice`)."""
+    over."""
 
     max_iter: int = 15
     # convergence on the row-scaled residual, like the reference's Epsilon[0]
@@ -130,20 +133,13 @@ class NewtonOptions:
     # Also fires MID-SOLVE: the solve refactors and continues from its
     # current iterate
     precond_stale_its: int | None = None
+    # GCRO-DR: harmonic-Ritz vectors carried between the GMRES solves of a
+    # Newton (and transient) sequence; 0 disables
     recycle_k: int = 0
     # switched-precision prep: while the row-scaled ||R||_2 stays ABOVE
     # this threshold the whole prep runs at the Jacobian dtype; the endgame
     # re-preps at full precision. 0 disables.
     prep32_tol: float = 0.0
-
-    def __post_init__(self):
-        check_slice(self)
-
-
-def check_slice(opts: NewtonOptions) -> None:
-    """Raise NotImplementedError for options outside the ported slice."""
-    if opts.recycle_k > 0:
-        raise NotImplementedError(f"recycle_k > 0 (GCRO-DR): {_LATER}")
 
 
 @dataclass
@@ -172,7 +168,6 @@ class NewtonSolver:
     def __init__(self, problem, options: NewtonOptions | None = None):
         self.problem = problem
         self.opts = options or NewtonOptions()
-        check_slice(self.opts)
         self.device = problem.device
         opts = self.opts
         kind = opts.precond
@@ -239,6 +234,10 @@ class NewtonSolver:
         #: speculative GMRES solves the pipelined loop threw away (on a
         #: converged iteration, or before the prep32 endgame re-prep)
         self.n_discarded = 0
+        # GCRO-DR recycled space (a (k, n) device tensor) and the seconds
+        # of every host harvest so far
+        self._recycle_U = None
+        self.harvest_s = []
 
     def _build_precond(self, kind):
         """The preconditioner ``kind`` names, on the Problem's device, with
@@ -302,10 +301,12 @@ class NewtonSolver:
         return BlockJacobi(problem.pattern, problem.dofmap, device=self.device)
 
     def reset_lagged(self):
-        """Drop the lagged factors (preconditioner and tpu_direct NDLU)."""
+        """Drop the lagged factors (preconditioner and tpu_direct NDLU) and
+        the recycled space."""
         self._fac_cache = None
         self._fac_base_its = None
         self._ndlu_fac = None
+        self._recycle_U = None
 
     # ------------------------------------------------------------ prep
     @staticmethod
@@ -426,6 +427,83 @@ class NewtonSolver:
         return gmres(mv, b, precond=M, tol=tol, restart=self.opts.gmres_restart,
                      maxiter=self.opts.gmres_restart, x0=x, extra=extra)
 
+    # ------------------------------------------------- GCRO-DR recycling
+    @staticmethod
+    def _dr_setup(mv, M, U):
+        """Re-orthonormalize the recycled space against the current operator
+        ``mv`` and preconditioner ``M``: (C, U) with C = A M U made
+        orthonormal by a QR and U scaled to match (U R^-1); where R has a
+        diagonal below 1e-12 of its largest (near-dependent harvested
+        columns) the identity is added to R first."""
+        AMU = torch.stack([mv(M(u)) for u in U])  # (k, n)
+        Qc, Rc = torch.linalg.qr(AMU.T)  # (n, k), (k, k)
+        d = torch.abs(torch.diagonal(Rc))
+        ok = torch.all(d > 1e-12 * torch.max(d))
+        Rc = Rc + (~ok).to(Rc.dtype) * torch.eye(Rc.shape[0], dtype=Rc.dtype,
+                                                 device=Rc.device)
+        return Qc.T, torch.linalg.solve_triangular(Rc.T, U, upper=False)
+
+    def _dr_harvest(self, U, C, V, H, B, cnt):
+        """Between-solves harvest (host dense math, goma_tpu's): the k
+        smallest harmonic Ritz vectors of the composite space W = [U, V_m],
+        using A M W = [C, V_{m+1}] G~ with G~ = [[I, B], [0, H]]: the pencil
+        (G~^T G~) g = theta (G~^T Phi) g, Phi = [C V_{m+1}]^T W, solved by
+        ``scipy.linalg.eig`` (Parks et al. 2006, Alg. 2). Returns the new
+        (k, n) device U, or None when the cycle was too short (fewer than
+        k + 2 steps) or the pencil gave no k finite values."""
+        import scipy.linalg as sla
+
+        k = self.opts.recycle_k
+        m = int(cnt)
+        if m < k + 2:
+            return None  # cycle too short to harvest anything useful
+        ku = U.shape[0] if U is not None else 0
+        if ku:
+            CU, VU = (C @ U.T).cpu().numpy(), (V @ U.T).cpu().numpy()
+        Hh = H.cpu().numpy()[:m + 1, :m]
+        Bh = B.cpu().numpy()[:, :m] if ku else np.zeros((0, m))
+        Gt = np.zeros((ku + m + 1, ku + m))
+        Gt[:ku, :ku] = np.eye(ku)
+        Gt[:ku, ku:] = Bh
+        Gt[ku:, ku:] = Hh
+        Phi = np.zeros((ku + m + 1, ku + m))
+        if ku:
+            Phi[:ku, :ku] = CU
+            Phi[ku:, :ku] = VU[:m + 1]
+        Phi[ku:ku + m, ku:] = np.eye(m)
+        try:
+            w, vecs = sla.eig(Gt.T @ Gt, Gt.T @ Phi)
+        except (np.linalg.LinAlgError, ValueError):
+            return None
+        finite = np.isfinite(w)
+        if finite.sum() < k:
+            return None
+        vv = vecs[:, finite][:, np.argsort(np.abs(w[finite]))]
+        # real basis from the leading columns: a complex pair gives its
+        # real and imaginary parts (its conjugate twin is skipped)
+        cols, seen, i = [], 0, 0
+        while seen < k and i < vv.shape[1]:
+            c = vv[:, i]
+            if np.abs(c.imag).max() > 1e-13 * max(1.0, np.abs(c.real).max()):
+                cols += [c.real, c.imag]
+                seen += 2
+                i += 2
+            else:
+                cols.append(c.real)
+                seen += 1
+                i += 1
+        Gq, _ = np.linalg.qr(np.stack(cols[:k], axis=1))  # (ku + m, k)
+        if not np.all(np.isfinite(Gq)):
+            return None
+        g_v = np.zeros((V.shape[0] - 1, k))
+        g_v[:m] = Gq[ku:]
+        # U_new = W g with W = [U; V_m] (rows)
+        Un = torch.as_tensor(g_v, dtype=V.dtype, device=V.device).T @ V[:-1]
+        if ku:
+            Un = Un + torch.as_tensor(Gq[:ku], dtype=V.dtype,
+                                      device=V.device).T @ U
+        return Un.to(V.dtype)
+
     def _stale_its(self) -> int:
         """Krylov-iteration growth over the post-factor baseline that marks
         a lagged preconditioner factor stale (opts.precond_stale_its)."""
@@ -458,17 +536,34 @@ class NewtonSolver:
         stale = self._stale_its()
         base = self._fac_base_its if lagged else None
         it_refac = 0
+        kdr = opts.recycle_k
+        if kdr > 0:
+            # GCRO-DR: refresh the recycled space against this operator,
+            # run deflated cycles, harvest for the next solve (no mid-solve
+            # refactor, as in goma_tpu)
+            mv = self._matvec(scale, aux, vals)
+            M = lambda r: self._apply_precond_mv(mv, fac, r)  # noqa: E731
+            U = self._recycle_U
+            if U is not None and U.shape[0] == kdr:
+                C, U = self._dr_setup(mv, M, U)
+            else:
+                U = C = b.new_zeros((0, b.shape[0]))
+            V = H = Bm = None
+            cnt = 0
         while (target is None or rn > target) and it < opts.linear_maxiter:
-            if lagged and it >= (base or 0) + stale:
+            if kdr == 0 and lagged and it >= (base or 0) + stale:
                 # the lagged factor can't carry THIS solve's tolerance:
                 # refactor mid-solve and continue from the current iterate
                 fac = self._factor_fresh(vals, scale)
                 lagged = False
                 it_refac = it
             prev = rn
-            lr = self._gmres_cycle(scale, aux, fac, z, b, tol,
-                                   (extra or ()) if target is None else (),
-                                   vals)
+            ex = (extra or ()) if target is None else ()
+            if kdr > 0:
+                lr, V, H, Bm = gmres_dr_cycle(mv, M, b, z, U, C,
+                                              opts.gmres_restart, tol, ex)
+            else:
+                lr = self._gmres_cycle(scale, aux, fac, z, b, tol, ex, vals)
             z, rn, cnt = lr.x, lr.resnorm, lr.iters
             if target is None:
                 tol, extra_vals = lr.tol, lr.extra
@@ -478,11 +573,18 @@ class NewtonSolver:
                     out = LinearResult(x=scale * torch.zeros_like(b), iters=0,
                                        resnorm=0.0, converged=True)
                     return (out, extra_vals) if extra is not None else out
-            it += max(cnt, 1)
+            cnt = max(cnt, 1)
+            it += cnt
             if not np.isfinite(rn):
                 break
             if rn >= 0.999 * prev:
                 break  # stagnation
+        if kdr > 0 and V is not None and np.isfinite(rn):
+            t0 = time.perf_counter()
+            Un = self._dr_harvest(U if U.shape[0] else None, C, V, H, Bm, cnt)
+            self.harvest_s.append(time.perf_counter() - t0)
+            if Un is not None:
+                self._recycle_U = Un
         if target is None:  # the loop never ran (linear_maxiter <= 0)
             got = read_scalars([torch.linalg.norm(b), torch.as_tensor(
                 tol, dtype=torch.float64, device=b.device)] + list(extra or ()))

@@ -27,6 +27,11 @@
     python3 scripts/overset_reference.py --part cylinder --nx 96 --ny 48 \\
         --nseg 134 --out cyl.json
     python3 scripts/overset_reference.py --part small --out small.json
+    python3 scripts/overset_reference.py --part cylinder --front-lu pallas
+
+``--front-lu pallas`` runs the cylinder's ``gmres+ndlu`` rung alone with
+the preconditioner's front LU pinned to goma_tpu's unpivoted kernel
+(interpret mode on the CPU), the route the port's kernel takes.
 
 Run times (one CPU process, jax 0.9.0): ``--part cylinder
 --nx 96 --ny 48 --nseg 134`` 34.5 s (each rung ~15 s, most of it jit
@@ -94,7 +99,7 @@ def levels(nd):
     return [[int(lev.nn), int(lev.smax)] for lev in nd.levels]
 
 
-def cylinder_part(nx, ny, nseg):
+def cylinder_part(nx, ny, nseg, front_lu=None):
     from bench import _cavity_opts
     from goma_tpu.solvers import NewtonSolver
 
@@ -103,9 +108,15 @@ def cylinder_part(nx, ny, nseg):
     rec = {"nx": nx, "ny": ny, "nseg": nseg, "n_dof": prob.dofmap.n_dof,
            "nnz": prob.pattern.nnz,
            "n_lm": int(2 * prob.dofmap.blocks[bi].gather.shape[0])}
-    for kind in ("gmres+ndlu", "tpu_direct"):
+    for kind in ("gmres+ndlu",) if front_lu else ("gmres+ndlu", "tpu_direct"):
         t0 = time.time()
         solver = NewtonSolver(prob, _cavity_opts(kind, tol=1e-9, max_iter=10))
+        if front_lu:
+            # the preconditioner's front LU route, pinned from here as the
+            # port's CPU tests pin it ("pallas": the unpivoted kernel, in
+            # interpret mode off a TPU)
+            solver.precond.front_lu = front_lu
+            rec["front_lu"] = front_lu
         res = solver.solve(np.zeros(prob.dofmap.n_dof), prob.base_params())
         nd = solver.precond if kind == "gmres+ndlu" else solver._ndlu
         rec[kind] = {"seconds": time.time() - t0,
@@ -273,10 +284,13 @@ def main() -> int:
     ap.add_argument("--ny", type=int, default=48)
     ap.add_argument("--nseg", type=int, default=134)
     ap.add_argument("--out", default=None, help="JSON record (default: none)")
+    ap.add_argument("--front-lu", choices=("pallas", "lax"), default=None,
+                    help="cylinder: the gmres+ndlu rung only, its NDLU's "
+                         "front LU route pinned (default: goma_tpu's own)")
     args = ap.parse_args()
     t0 = time.time()
     if args.part == "cylinder":
-        rec = cylinder_part(args.nx, args.ny, args.nseg)
+        rec = cylinder_part(args.nx, args.ny, args.nseg, args.front_lu)
     else:
         rec = small_part()
     rec["total_seconds"] = time.time() - t0

@@ -444,13 +444,36 @@ def test_native_sources_are_the_ports_own(name):
     {"precond": "ndlu", "recycle_k": 4},
 ])
 def test_newton_options_outside_slice_raise(kw):
-    """GCRO-DR recycling is the one Newton option still outside the port
-    (the other preconditioners and linear solvers are held against
-    goma_tpu in tests/test_torch_solvers.py)."""
-    from goma_tpu_torch.solvers import NewtonOptions
+    """GCRO-DR recycling, the last Newton option once outside the port, is
+    ported: the options build, and on the 8x8 cavity (float64, leaf 96,
+    the lagged NDLU preconditioner, whose lagged solves take enough steps
+    to harvest a space) the port's Newton solve takes goma_tpu's Newton
+    count, each solve's linear iterations within 1 of goma_tpu's and x
+    within 1e-8 (goma_tpu's NDLU pinned to its kernel's route, as the
+    port's). tests/test_torch_recycle.py holds the cycle and the harvest
+    against goma_tpu."""
+    import jax.numpy as jnp
 
-    with pytest.raises(NotImplementedError):
-        NewtonOptions(**kw)
+    from goma_tpu.solvers import NewtonOptions as JOptions
+    from goma_tpu.solvers import NewtonSolver as JSolver
+    from goma_tpu_torch.solvers import NewtonOptions, NewtonSolver
+
+    opts = dict(kw, linear_solver="gmres", max_iter=20, linear_tol=1e-4,
+                gmres_restart=60, linear_maxiter=240, ndlu_dtype="float64",
+                ndlu_leaf_max=96, tol_residual=1e-9)
+    assert NewtonOptions(**opts).recycle_k == kw["recycle_k"]
+    pj, pt = cavity(JAX_PKG, 8), cavity(TORCH_PKG, 8)
+    sj = JSolver(pj, JOptions(**opts))
+    sj.precond.front_lu = "pallas"
+    rj = sj.solve(jnp.zeros(pj.dofmap.n_dof), pj.base_params())
+    st = NewtonSolver(pt, NewtonOptions(**opts))
+    rt = st.solve(np.zeros(pt.dofmap.n_dof), pt.base_params())
+    assert rj.converged and rt.converged
+    assert rt.iters == rj.iters
+    assert len(rt.linear_iters) == len(rj.linear_iters)
+    assert all(abs(a - b) <= 1 for a, b in zip(rt.linear_iters, rj.linear_iters))
+    assert st._recycle_U is not None and st._recycle_U.shape[0] == kw["recycle_k"]
+    np.testing.assert_allclose(rt.x, np.asarray(rj.x), rtol=0, atol=1e-8)
 
 
 @pytest.mark.parametrize("feature", ["edge", "interface", "overset_solid",

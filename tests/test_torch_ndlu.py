@@ -102,8 +102,10 @@ def test_ndlu_levels_match_pallas_ndlu():
     assert len(nd.levels) == len(jnd.levels) > 2
     ft = nd.factor(torch.as_tensor(vals))
     fj = jnd.factor(jnp.asarray(vals))
-    for lev, (fwd, bwd, X, Y), (jfwd, jbwd, perm, jX, jY) in zip(nd.levels, ft, fj):
+    for lev, (fwd, bwd, tperm, X, Y), (jfwd, jbwd, perm, jX, jY) in zip(
+            nd.levels, ft, fj):
         assert perm is None  # goma_tpu factored this level with its kernel
+        assert tperm is None  # and so did the port
         assert _rel(fwd, jfwd) < 1e-10
         assert _rel(bwd, jbwd) < 1e-10
         if lev.bmax:
@@ -168,17 +170,27 @@ def test_gmres_restarts_and_counts_like_jax():
 
 
 def test_factor_rejects_levels_outside_kernel_gate():
-    """A 1x1 fully-summed block is goma_tpu's library-LU branch, not this
-    slice's kernel path (1 < s <= 1000): it raises instead of falling
-    back."""
+    """A 1x1 fully-summed block is outside the kernel's 1 < s <= 1000, so
+    it goes to goma_tpu's library-LU branch (the plain pivoted LU with the
+    boost, perm [[0]]) instead of the kernel, under the port's "auto" as
+    under goma_tpu's "pallas": the same factor and solve, within 1e-15."""
+    from goma_tpu.fem.sparsity import build_pattern as jbuild
     from goma_tpu_torch.fem.sparsity import build_pattern
     from goma_tpu_torch.solvers.ndlu import NDLU
 
     nd = NDLU(build_pattern(1, []), dtype=torch.float64, invert=True,
               device="cpu")
+    jnd = jndlu.NDLU(jbuild(1, []), dtype=jnp.float64, front_lu="pallas",
+                     invert=True)
     assert nd.levels[0].smax == 1
-    with pytest.raises(NotImplementedError):
-        nd.factor(torch.ones(1, dtype=torch.float64))
+    (fwd, bwd, perm, X, Y), = nd.factor(torch.full((1,), 4.0, dtype=torch.float64))
+    (jfwd, jbwd, jperm, _, _), = jnd.factor(jnp.full((1,), 4.0))
+    assert perm.tolist() == np.asarray(jperm).tolist() == [[0]]
+    assert X is None and Y is None
+    assert _rel(bwd, jbwd) <= 1e-15 and _rel(fwd, jfwd) == 0.0
+    x = nd.solve(nd.factor(torch.full((1,), 4.0, dtype=torch.float64)),
+                 torch.ones(1, dtype=torch.float64))
+    assert float(x[0]) == pytest.approx(0.25, rel=1e-15)
 
 
 def test_ndlu_substitution_levels_match_pallas_ndlu():
@@ -188,8 +200,9 @@ def test_ndlu_substitution_levels_match_pallas_ndlu():
     pj, pt, _, _, vals, _, b = _system()
     nd, jnd, ft, fj = _direct("float64")
     assert len(nd.levels) == len(jnd.levels) > 2
-    for lev, (fwd, bwd, X, Y), (jfwd, jbwd, perm, jX, jY) in zip(nd.levels, ft, fj):
-        assert perm is None and fwd is bwd
+    for lev, (fwd, bwd, tperm, X, Y), (jfwd, jbwd, perm, jX, jY) in zip(
+            nd.levels, ft, fj):
+        assert perm is None and tperm is None and fwd is bwd
         assert _rel(fwd, jfwd) < 1e-10
         if lev.bmax:
             assert _rel(X, jX) < 1e-10
@@ -280,13 +293,32 @@ def test_solve_refined_matches_goma_tpu(fused, lag, sweeps, xtol):
 
 
 def test_ndlu_substitution_path_not_in_slice():
-    """The substitution path is built; the library-LU front branches are
-    not in the slice."""
+    """The substitution path is built, and so are the library-LU front
+    routes: "lax" and "pallas" construct with either ``invert`` (another
+    name raises), keep ``front_lu`` as a plain attribute (the tests pin
+    goma_tpu's solvers to "pallas" through it) and, on the 8x8 cavity's
+    tpu_direct tree, "pallas" is the kernel's route (no level pivots) while
+    "lax" pivots every level; both solve within 1e-9 of scipy's sparse
+    LU."""
     from goma_tpu_torch.fem.sparsity import build_pattern
     from goma_tpu_torch.solvers.ndlu import NDLU
 
     assert not NDLU(build_pattern(4, []), invert=False, device="cpu").invert
     for front_lu in ("lax", "pallas"):
-        with pytest.raises(NotImplementedError):
-            NDLU(build_pattern(4, []), invert=True, front_lu=front_lu,
-                 device="cpu")
+        nd = NDLU(build_pattern(4, []), invert=True, front_lu=front_lu,
+                  device="cpu")
+        assert nd.front_lu == front_lu and nd.invert
+    with pytest.raises(ValueError):
+        NDLU(build_pattern(4, []), front_lu="cusolver", device="cpu")
+    _, pt, _, _, vals, _, b = _system()
+    pat = pt.pattern
+    xs = spla.spsolve(sp.csr_matrix((vals, pat.indices, pat.indptr),
+                                    shape=(pat.n, pat.n)).tocsc(), b)
+    defer = tndlu.zero_diag_defer_mask(pat, vals)
+    for front_lu in ("pallas", "lax"):
+        nd = tndlu.NDLU(pat, leaf_max=96, dtype=torch.float64,
+                        front_lu=front_lu, invert=False, defer_dofs=defer,
+                        clusters=tndlu.node_clusters(pt), device="cpu")
+        facs = nd.factor(torch.as_tensor(vals))
+        assert all((f[2] is None) == (front_lu == "pallas") for f in facs)
+        assert _rel(nd.solve(facs, torch.as_tensor(b)).numpy(), xs) < 1e-9
